@@ -1,0 +1,433 @@
+// Fused batch-1 decode step for Hopper (sm_90a), float32: all layers of one
+// token.
+//
+// Replaces: llama3np_tpu/ops/kernels/decode_step.py, `decode_layers` (:917)
+// in its whole-layer form (`make_decode_kernel` :266, pallas_call at :992),
+// and so the math its FFN-blocked / KV-head-grouped / streamed TPU layouts
+// (:417, :563, :793) share: per layer RMSNorm -> fused QKV -> split-halves
+// RoPE -> attention over the cache masked to kv_idx < pos with the current
+// token appended as an explicit column -> o-proj + residual -> RMSNorm ->
+// SwiGLU + residual, emitting the new K/V rows for position `pos`.
+//
+// What bounds it on the H100: bytes.  Each token reads every layer weight
+// once (fp32: 23.9 MB for stories15M, 3.88 GB for tinyllama-1.1b), plus
+// 2*KVH*HD*4 bytes of cache per layer and position, at 1 FLOP per 2 bytes:
+// far below the card's ratio of compute to bandwidth.  The floor is
+// bytes / 3.35 TB/s (~1.16 ms a token at tinyllama widths).
+//
+// Design.  The TPU kernel walks the layers as one sequential grid with all
+// of a layer resident in VMEM.  A GPU needs the weight stream spread across
+// all SMs instead, so the C entry below loops over layers on the host and
+// launches seven or eight small kernels a layer, each across the card:
+//   1. residual + RMSNorm (one block): x = base + sum of the previous
+//      GEMV's partial sums; writes x and x*rsqrt(mean(x^2)+eps)*w;
+//   2. GEMV x_norm @ wqkv;
+//   3. attention over (KV head, chunk of cache rows) blocks: each sums the
+//      QKV partials of its G query heads and its KV head, applies
+//      split-halves RoPE (cos/sin for `pos` only), scores its rows once for
+//      all G heads, softmax, P.V; chunk 0 also takes the appended (k_rot,
+//      v_new) column.  Chunks give the card ~2 blocks per SM at long
+//      positions ("split-K" over positions, as flash-decoding does);
+//   3b. when there is more than one chunk, a merge of the chunks' partial
+//      (max, sum, P.V) per query head;
+//   4. GEMV attn @ wo;  5. residual + RMSNorm;  6. GEMV z_norm @ wgu;
+//   7. GEMV silu(gate)*up @ w_down, the SwiGLU taken in its prologue.
+// The GEMVs are hand-written: weights are [in, out] row-major, a warp reads
+// 128 neighbouring output columns of one row as float4 (512 contiguous
+// bytes), 8 warps take interleaved rows, and when the columns alone give too
+// few blocks the rows are split across blocks too ("split-K"), each split
+// writing its own partial sums; the consumer adds the partials in a fixed
+// order, so results are deterministic.  No atomics, no cuBLAS.
+// The cache is updated in place: chunk 0 of each KV head writes k_rot and
+// v_new into row `pos`, and attention never reads row `pos` (it masks
+// kv_idx < pos), so the write cannot race a read; pos = 0 attends only the
+// appended column; pos = M-1 writes the last row.
+// Numerics follow the TPU kernel: f32 throughout, the RMS scale multiplied
+// in before the weight (_rms_scale :235), SiLU as g/(1+exp(-g)) (:261),
+// residuals summed in f32.  CUDA graphs, wgmma and bf16/int8 weights are
+// later work; the launch count per token (7 or 8 a layer, plus one) is this
+// design's cost at small widths.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kMaxSplit = 16;    // max row splits of one GEMV
+constexpr int kGemvThreads = 256;
+constexpr int kGemvCols = 128;   // 32 lanes x float4
+constexpr int kGemvRowGroups = kGemvThreads / 32;
+constexpr int kAttnThreads = 256;
+constexpr int kAttnWarps = kAttnThreads / 32;
+constexpr int kNormThreads = 1024;
+constexpr int kAttnMaxSplit = 64;  // max position splits of attention
+constexpr int kAttnMinRows = 16;   // cache rows a split takes at least
+
+__device__ float block_sum(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red may still be read from a previous reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? red[lane] : 0.f;
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// store = base + sum_s part[s]; if w: xn = store * rsqrt(mean(store^2)+eps) * w.
+__global__ void __launch_bounds__(kNormThreads)
+residual_rmsnorm_kernel(const float* __restrict__ base,
+                        const float* __restrict__ part, int ks, int D,
+                        const float* __restrict__ w, float eps,
+                        float* __restrict__ store, float* __restrict__ xn) {
+  __shared__ float red[32];
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < ks; ++s) o += part[(size_t)s * D + i];
+    const float x = base[i] + o;
+    store[i] = x;
+    ss += x * x;
+  }
+  if (w == nullptr) return;
+  const float rs = rsqrtf(block_sum(ss, red) / D + eps);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) xn[i] = store[i] * rs * w[i];
+}
+
+enum { kPlain = 0, kSwiglu = 1 };
+
+// out_part[blockIdx.y, c] = sum over rows r of split blockIdx.y of in[r] * W[r, c].
+// kPlain: in = vec[K].  kSwiglu: vec holds ks_in partial rows of [gate | up]
+// ([ks_in][2K]) and in = silu(gate) * up.
+template <int MODE>
+__global__ void __launch_bounds__(kGemvThreads)
+gemv_kernel(const float* __restrict__ W, int K, int N, int rows_per_split,
+            const float* __restrict__ vec, int ks_in,
+            float* __restrict__ out_part) {
+  extern __shared__ float smem[];
+  const int rps_al = (rows_per_split + 3) & ~3;
+  float* xs = smem;             // [rows_per_split] input slice
+  float* red = smem + rps_al;   // [row groups][128] partial column sums
+  const int k0 = blockIdx.y * rows_per_split;
+  const int nk = min(rows_per_split, K - k0);
+  for (int i = threadIdx.x; i < nk; i += kGemvThreads) {
+    if (MODE == kPlain) {
+      xs[i] = vec[k0 + i];
+    } else {
+      float g = 0.f, u = 0.f;
+      for (int s = 0; s < ks_in; ++s) {
+        g += vec[(size_t)s * 2 * K + k0 + i];
+        u += vec[(size_t)s * 2 * K + K + k0 + i];
+      }
+      xs[i] = g * (1.f / (1.f + expf(-g))) * u;
+    }
+  }
+  __syncthreads();
+
+  const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
+  const int col = blockIdx.x * kGemvCols + cx * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col < N) {  // N % 4 == 0: the whole float4 is in range
+    const float* wp = W + (size_t)k0 * N + col;
+#pragma unroll 4
+    for (int r = ry; r < nk; r += kGemvRowGroups) {
+      const float4 w = __ldg(reinterpret_cast<const float4*>(wp + (size_t)r * N));
+      const float a = xs[r];
+      acc.x = fmaf(a, w.x, acc.x);
+      acc.y = fmaf(a, w.y, acc.y);
+      acc.z = fmaf(a, w.z, acc.z);
+      acc.w = fmaf(a, w.w, acc.w);
+    }
+  }
+  reinterpret_cast<float4*>(red)[ry * 32 + cx] = acc;
+  __syncthreads();
+  if (threadIdx.x < kGemvCols) {
+    const int c = blockIdx.x * kGemvCols + threadIdx.x;
+    if (c < N) {
+      float s = 0.f;
+      for (int r = 0; r < kGemvRowGroups; ++r) s += red[r * kGemvCols + threadIdx.x];
+      out_part[(size_t)blockIdx.y * N + c] = s;
+    }
+  }
+}
+
+// Attention of the G query heads of one KV head over one chunk of cache
+// rows.  grid (KVH, S): block (kh, s) takes rows [s*chunk, min(pos,
+// (s+1)*chunk)); split 0 also takes the appended column (this token's own
+// k_rot, v_new) and writes them into row pos.  With S == 1 it writes the
+// normalized output; otherwise its (max, sum, unnormalized P.V) partials,
+// which attn_combine_kernel merges.  kc/vc: this layer's cache [KVH][M][HD].
+__global__ void __launch_bounds__(kAttnThreads)
+attn_split_kernel(const float* __restrict__ qkv_part, int ks, int qkvd,
+                  int NH, int KVH, int HD,
+                  const float* __restrict__ cos_row,
+                  const float* __restrict__ sin_row,
+                  float* kc, float* vc, int M, int pos, int chunk, float scale,
+                  float* __restrict__ attn_out, float* __restrict__ part_ml,
+                  float* __restrict__ part_acc) {
+  extern __shared__ float smem[];
+  const int kh = blockIdx.x, s = blockIdx.y, S = gridDim.y;
+  const int G = NH / KVH;
+  const int half = HD / 2;
+  const int qd = NH * HD, kvd = KVH * HD;
+  const int qs = HD + 1;               // padded query row: no bank conflicts
+  const int cw = chunk + 1;            // score row: chunk rows + appended column
+  float* qv = smem;                    // [G][HD+1] rotated queries
+  float* kv = qv + G * qs;             // [HD] rotated new key
+  float* vv = kv + HD;                 // [HD] new value
+  float* red_m = vv + HD;              // [G] softmax max
+  float* red_l = red_m + G;            // [G] softmax sum
+  float* sc = red_l + G;               // [G][chunk+1] scores, then probabilities
+  const int tid = threadIdx.x;
+
+  auto colsum = [&](int c) {
+    float a = 0.f;
+    for (int i = 0; i < ks; ++i) a += qkv_part[(size_t)i * qkvd + c];
+    return a;
+  };
+  for (int e = tid; e < G * half; e += kAttnThreads) {  // split-halves RoPE
+    const int g = e / half, j = e - g * half;
+    const float c = cos_row[j], sn = sin_row[j];
+    const int col = (kh * G + g) * HD + j;
+    const float a = colsum(col), b = colsum(col + half);
+    qv[g * qs + j] = a * c - b * sn;
+    qv[g * qs + j + half] = a * sn + b * c;
+  }
+  for (int j = tid; j < half; j += kAttnThreads) {
+    const float c = cos_row[j], sn = sin_row[j];
+    const float a = colsum(qd + kh * HD + j), b = colsum(qd + kh * HD + j + half);
+    kv[j] = a * c - b * sn;
+    kv[j + half] = a * sn + b * c;
+  }
+  for (int d = tid; d < HD; d += kAttnThreads) vv[d] = colsum(qd + kvd + kh * HD + d);
+  __syncthreads();
+
+  float* krow = kc + (size_t)kh * M * HD;
+  float* vrow = vc + (size_t)kh * M * HD;
+  if (s == 0) {  // one writer per KV head; no block reads row pos
+    for (int d = tid; d < HD; d += kAttnThreads) {
+      krow[(size_t)pos * HD + d] = kv[d];
+      vrow[(size_t)pos * HD + d] = vv[d];
+    }
+  }
+
+  const int j0 = s * chunk;
+  const int n = max(0, min(pos, j0 + chunk) - j0);  // cache rows of this split
+  const int n_all = n + (s == 0 ? 1 : 0);           // + the appended column
+  // Scores: neighbouring threads take the G heads of one row, so each K row
+  // is fetched once and broadcast.
+  for (int e = tid; e < G * n; e += kAttnThreads) {
+    const int g = e % G, r = e / G;
+    const float4* kr = reinterpret_cast<const float4*>(krow + (size_t)(j0 + r) * HD);
+    const float* q = qv + g * qs;
+    float acc = 0.f;
+    for (int i = 0; i < HD / 4; ++i) {
+      const float4 kk = kr[i];
+      acc = fmaf(q[4 * i], kk.x, acc);
+      acc = fmaf(q[4 * i + 1], kk.y, acc);
+      acc = fmaf(q[4 * i + 2], kk.z, acc);
+      acc = fmaf(q[4 * i + 3], kk.w, acc);
+    }
+    sc[g * cw + r] = acc * scale;
+  }
+  if (s == 0) {
+    for (int g = tid; g < G; g += kAttnThreads) {
+      float acc = 0.f;
+      for (int d = 0; d < HD; ++d) acc = fmaf(qv[g * qs + d], kv[d], acc);
+      sc[g * cw + n] = acc * scale;
+    }
+  }
+  __syncthreads();
+
+  // Softmax of each head's row, one warp per head.
+  const int warp = tid >> 5, lane = tid & 31;
+  for (int g = warp; g < G; g += kAttnWarps) {
+    float mx = -INFINITY;
+    for (int r = lane; r < n_all; r += 32) mx = fmaxf(mx, sc[g * cw + r]);
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float sum = 0.f;
+    for (int r = lane; r < n_all; r += 32) {
+      const float e = expf(sc[g * cw + r] - mx);
+      sc[g * cw + r] = e;
+      sum += e;
+    }
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) {
+      red_m[g] = mx;
+      red_l[g] = sum;
+    }
+  }
+  __syncthreads();
+
+  // P.V: thread per (head, dim); neighbouring threads read neighbouring
+  // dims of one V row.
+  for (int o = tid; o < G * HD; o += kAttnThreads) {
+    const int g = o / HD, d = o - g * HD;
+    const float* p = sc + g * cw;
+    float acc = 0.f;
+    for (int r = 0; r < n; ++r) acc = fmaf(p[r], vrow[(size_t)(j0 + r) * HD + d], acc);
+    if (s == 0) acc = fmaf(p[n], vv[d], acc);
+    if (S == 1) {
+      attn_out[(kh * G + g) * HD + d] = acc / red_l[g];
+    } else {
+      part_acc[((size_t)(kh * S + s) * G + g) * HD + d] = acc;
+    }
+  }
+  if (S > 1) {
+    for (int g = tid; g < G; g += kAttnThreads) {
+      part_ml[((size_t)(kh * S + s) * G + g) * 2] = red_m[g];
+      part_ml[((size_t)(kh * S + s) * G + g) * 2 + 1] = red_l[g];
+    }
+  }
+}
+
+// Merge the S splits of each query head: rescale each split's sum and P.V
+// to the common max.  Split 0 holds the appended column, so the max is
+// finite; an empty split has max -inf and weighs 0.
+__global__ void __launch_bounds__(128)
+attn_combine_kernel(const float* __restrict__ part_ml,
+                    const float* __restrict__ part_acc, int NH, int KVH,
+                    int HD, int S, float* __restrict__ attn_out) {
+  const int h = blockIdx.x;
+  const int G = NH / KVH, kh = h / G, g = h - kh * G;
+  const size_t base = (size_t)kh * S * G + g;  // (kh, s=0, g); stride G per split
+  float mx = -INFINITY;
+  for (int s = 0; s < S; ++s) mx = fmaxf(mx, part_ml[(base + (size_t)s * G) * 2]);
+  for (int d = threadIdx.x; d < HD; d += blockDim.x) {
+    float l = 0.f, a = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const size_t i = base + (size_t)s * G;
+      const float w = expf(part_ml[i * 2] - mx);
+      l = fmaf(part_ml[i * 2 + 1], w, l);
+      a = fmaf(part_acc[i * HD + d], w, a);
+    }
+    attn_out[h * HD + d] = a / l;
+  }
+}
+
+int g_num_sms = 0;
+
+int num_sms(int device) {
+  if (g_num_sms == 0) {
+    cudaDeviceGetAttribute(&g_num_sms, cudaDevAttrMultiProcessorCount, device);
+    if (g_num_sms <= 0) g_num_sms = 132;
+  }
+  return g_num_sms;
+}
+
+// Launch one GEMV with enough row splits to give ~2 blocks per SM; returns
+// the number of splits (partial rows written) through *ks_out.
+template <int MODE>
+cudaError_t launch_gemv(const float* W, int K, int N, const float* vec,
+                        int ks_in, float* out_part, int* ks_out, int sms,
+                        cudaStream_t st) {
+  const int nb = (N + kGemvCols - 1) / kGemvCols;
+  int ks = (2 * sms + nb - 1) / nb;
+  ks = max(1, min(ks, min(kMaxSplit, K / 32)));
+  const int rps = (K + ks - 1) / ks;
+  ks = (K + rps - 1) / rps;
+  const size_t smem = (((rps + 3) & ~3) + kGemvRowGroups * kGemvCols) * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gemv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(nb, ks);
+  gemv_kernel<MODE><<<grid, kGemvThreads, smem, st>>>(W, K, N, rps, vec, ks_in, out_part);
+  *ks_out = ks;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of scratch the C entry below needs for these widths.
+extern "C" long l3t_decode_scratch_floats(int d, int nh, int kvh, int hd, int fd) {
+  const long qd = (long)nh * hd, qkvd = qd + 2L * kvh * hd;
+  return 3L * d + qd + kMaxSplit * (qkvd + d + 2L * fd + d) +
+         (long)kAttnMaxSplit * nh * (hd + 2);
+}
+
+extern "C" int l3t_decode_layers_f32(
+    const float* wqkv, const float* wo, const float* wgu, const float* wdown,
+    const float* attn_norm, const float* ffn_norm, const float* x_in,
+    float* x_out, float* k_cache, float* v_cache, const float* cos_row,
+    const float* sin_row, float* scratch, int nl, int d, int nh, int kvh,
+    int hd, int fd, int m, int pos, float eps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaGetLastError();  // clear any stale error of this runtime
+  if (hd % 4 != 0 || hd > 128 || kvh < 1 || nh % kvh != 0 || d % 4 != 0 ||
+      fd % 2 != 0 || pos < 0 || pos >= m)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sms = num_sms(device);
+  const int qd = nh * hd, kvd = kvh * hd, qkvd = qd + 2 * kvd;
+
+  float* xn = scratch;          // [d] normalized input of the next GEMV
+  float* x_store = xn + d;      // [d] residual stream after attention input
+  float* h_buf = x_store + d;   // [d] residual stream after the FFN input
+  float* attn = h_buf + d;      // [qd]
+  float* qkv_p = attn + qd;     // [kMaxSplit][qkvd]
+  float* o_p = qkv_p + (size_t)kMaxSplit * qkvd;    // [kMaxSplit][d]
+  float* gu_p = o_p + (size_t)kMaxSplit * d;        // [kMaxSplit][2fd]
+  float* dn_p = gu_p + (size_t)kMaxSplit * 2 * fd;  // [kMaxSplit][d]
+  float* at_ml = dn_p + (size_t)kMaxSplit * d;      // [KVH][S][G][2]
+  float* at_acc = at_ml + (size_t)kAttnMaxSplit * nh * 2;  // [KVH][S][G][hd]
+
+  const float scale = (float)(1.0 / sqrt((double)hd));
+  // Attention splits: ~2 blocks per SM over (KV head, position chunk), each
+  // chunk at least kAttnMinRows rows; short caches take one split.
+  const int G = nh / kvh;
+  int S = (pos + kAttnMinRows - 1) / kAttnMinRows;
+  S = max(1, min(S, min(kAttnMaxSplit, (2 * sms + kvh - 1) / kvh)));
+  const int chunk = S == 1 ? pos : (pos + S - 1) / S;
+  const size_t attn_smem =
+      (size_t)(G * (hd + 1) + 2 * hd + 2 * G + G * (chunk + 1)) * sizeof(float);
+  if (attn_smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(attn_split_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  const float* base = x_in;  // residual stream entering the layer
+  int ks_dn = 0, ks_qkv = 0, ks_o = 0, ks_gu = 0;
+  for (int l = 0; l < nl; ++l) {
+    const float* Wqkv = wqkv + (size_t)l * d * qkvd;
+    const float* Wo = wo + (size_t)l * qd * d;
+    const float* Wgu = wgu + (size_t)l * d * 2 * fd;
+    const float* Wdn = wdown + (size_t)l * fd * d;
+    float* kc = k_cache + (size_t)l * kvh * m * hd;
+    float* vc = v_cache + (size_t)l * kvh * m * hd;
+
+    residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
+        base, dn_p, ks_dn, d, attn_norm + (size_t)l * d, eps, x_store, xn);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = launch_gemv<kPlain>(Wqkv, d, qkvd, xn, 0, qkv_p, &ks_qkv, sms, st)) != cudaSuccess)
+      return (int)err;
+    attn_split_kernel<<<dim3(kvh, S), kAttnThreads, attn_smem, st>>>(
+        qkv_p, ks_qkv, qkvd, nh, kvh, hd, cos_row, sin_row, kc, vc, m, pos,
+        chunk, scale, attn, at_ml, at_acc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if (S > 1) {
+      attn_combine_kernel<<<nh, 128, 0, st>>>(at_ml, at_acc, nh, kvh, hd, S, attn);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    if ((err = launch_gemv<kPlain>(Wo, qd, d, attn, 0, o_p, &ks_o, sms, st)) != cudaSuccess)
+      return (int)err;
+    residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
+        x_store, o_p, ks_o, d, ffn_norm + (size_t)l * d, eps, h_buf, xn);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = launch_gemv<kPlain>(Wgu, d, 2 * fd, xn, 0, gu_p, &ks_gu, sms, st)) != cudaSuccess)
+      return (int)err;
+    if ((err = launch_gemv<kSwiglu>(Wdn, fd, d, gu_p, ks_gu, dn_p, &ks_dn, sms, st)) != cudaSuccess)
+      return (int)err;
+    base = h_buf;
+  }
+  residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(base, dn_p, ks_dn, d, nullptr,
+                                                       eps, x_out, nullptr);
+  return (int)cudaGetLastError();
+}

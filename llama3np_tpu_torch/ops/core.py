@@ -1,0 +1,232 @@
+"""Plain PyTorch ops: RMSNorm, SwiGLU, fused projections, RoPE, causal and
+cache attention.
+
+The counterparts of `llama3np_tpu.ops.core`, with the same arguments,
+layouts and numerics: f32 accumulation under low-precision weights, GQA as a
+grouped einsum (KV heads are never repeated), masks instead of
+data-dependent slicing.  They run wherever no kernel does: on the CPU, under
+`attn_impl="xla"`, and for the chunked prefill against the cache, which
+stays plain in both packages.  The dense projections are `torch.matmul`, as
+the JAX package left them to XLA.
+
+Positions (`pos`) are host integers: the port's loops know them on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in float32 (the JAX package's
+    `preferred_element_type=jnp.float32`)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.matmul(a, b)
+    return torch.matmul(a.float(), b.float())
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * w, accumulated in f32."""
+    xf = x.float()
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * w
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU FFN on split weights: down( silu(x@gate) * (x@up) )."""
+    gate = _dot(x, w_gate)
+    up = _dot(x, w_up)
+    h = (F.silu(gate) * up).to(x.dtype)
+    return _dot(h, w_down).to(x.dtype)
+
+
+def fused_qkv(x: torch.Tensor, wqkv: torch.Tensor, n_heads: int,
+              kv_heads: int, head_dim: int):
+    """QKV projection on the fused [D, QD+2*KVD] weight; returns (q, k, v)
+    as [B, L, NH, HD] / [B, L, KVH, HD]."""
+    B, L, _ = x.shape
+    qd = n_heads * head_dim
+    kvd = kv_heads * head_dim
+    qkv = _dot(x, wqkv).to(x.dtype)
+    q = qkv[..., :qd].reshape(B, L, n_heads, head_dim)
+    k = qkv[..., qd : qd + kvd].reshape(B, L, kv_heads, head_dim)
+    v = qkv[..., qd + kvd :].reshape(B, L, kv_heads, head_dim)
+    return q, k, v
+
+
+def fused_o_proj(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """Output projection: attn [B, L, NH, HD] with wo [QD, D]; returns
+    [B, L, D] in f32 (the caller casts, as in the JAX package)."""
+    B, L = attn.shape[:2]
+    return _dot(attn.reshape(B, L, -1), wo)
+
+
+def fused_ffn(z: torch.Tensor, wgu: torch.Tensor,
+              w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU on the fused gate|up layout: wgu [D, 2F], w_down [F, D]."""
+    fd = w_down.shape[0]
+    gu = _dot(z, wgu)
+    ff = (F.silu(gu[..., :fd]) * gu[..., fd:]).to(z.dtype)
+    return _dot(ff, w_down).to(z.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def scale_rope_inv_freq(inv_freq: np.ndarray, scaling: dict) -> np.ndarray:
+    """Llama-3.1 frequency remap (HF `rope_type: "llama3"` semantics), in
+    numpy f64 on the host like the tables themselves."""
+    factor = float(scaling["factor"])
+    low = float(scaling.get("low_freq_factor", 1.0))
+    high = float(scaling.get("high_freq_factor", 4.0))
+    orig = float(scaling.get("original_max_position_embeddings", 8192))
+    wavelen = 2.0 * np.pi / inv_freq
+    smooth = (orig / wavelen - low) / (high - low)
+    smoothed = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+    out = np.where(wavelen > orig / low, inv_freq / factor, inv_freq)
+    medium = (wavelen >= orig / high) & (wavelen <= orig / low)
+    return np.where(medium, smoothed, out)
+
+
+def rope_tables(head_dim: int, max_seq_len: int, theta: float = 10000.0,
+                dtype=torch.float32, scaling: Optional[dict] = None, *,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Precomputed cos/sin tables [M, HD//2] on `device`, computed on the
+    host in f64 then cast."""
+    exponents = np.arange(0, head_dim, 2, dtype=np.float64)[: head_dim // 2] / head_dim
+    inv_freq = 1.0 / (theta ** exponents)
+    if scaling is not None:
+        inv_freq = scale_rope_inv_freq(inv_freq, scaling)
+    angles = np.arange(max_seq_len, dtype=np.float64)[:, None] * inv_freq[None, :]
+    cos = torch.from_numpy(np.cos(angles)).to(device=device, dtype=dtype)
+    sin = torch.from_numpy(np.sin(angles)).to(device=device, dtype=dtype)
+    return cos, sin
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate interleaved (even, odd) pairs of the last axis.
+    x: [B, L, H, HD]; cos/sin: [L, HD//2]."""
+    shape = x.shape
+    xp = x.reshape(*shape[:-1], shape[-1] // 2, 2)
+    xr, xi = xp[..., 0], xp[..., 1]
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    out = torch.stack([xr * c - xi * s, xr * s + xi * c], dim=-1)
+    return out.reshape(shape).to(x.dtype)
+
+
+def apply_rope_split(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE in split-halves layout: pairs are (x[..., :HD/2], x[..., HD/2:]);
+    equal to `apply_rope` on columns permuted by `rope_split_permutation`."""
+    hd = x.shape[-1]
+    x1, x2 = x[..., : hd // 2], x[..., hd // 2 :]
+    c = cos[None, :, None, :]
+    s = sin[None, :, None, :]
+    out = torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_split_permutation(n_heads: int, head_dim: int) -> np.ndarray:
+    """Column permutation taking interleaved RoPE layout to split-halves:
+    perm[new_index] = old_index over the flat [n_heads * head_dim] axis."""
+    half = head_dim // 2
+    within = np.concatenate([np.arange(half) * 2, np.arange(half) * 2 + 1])
+    return (np.arange(n_heads)[:, None] * head_dim + within[None, :]).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Self-attention within one block (first prefill chunk, start_pos == 0).
+
+    q: [B, L, NH, HD]; k, v: [B, L, KVH, HD].  Returns [B, L, NH, HD].
+    """
+    B, L, NH, HD = q.shape
+    KVH = k.shape[2]
+    qg = q.reshape(B, L, KVH, NH // KVH, HD).float()
+    scores = torch.einsum("blkgd,bmkd->bkglm", qg, k.float()) / math.sqrt(HD)
+    mask = torch.ones(L, L, dtype=torch.bool, device=q.device).tril()
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkglm,bmkd->blkgd", probs.float(), v.float())
+    return out.reshape(B, L, NH, HD).to(q.dtype)
+
+
+def cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+    """Attention of q against the whole static-shape cache, masked to the
+    causally visible prefix `kv_idx <= pos + l`.
+
+    q: [B, L, NH, HD] at absolute positions pos..pos+L-1, whose K/V are
+    already written into the cache; k_cache, v_cache: [B, KVH, M, HD].
+    """
+    B, L, NH, HD = q.shape
+    KVH, M = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, L, KVH, NH // KVH, HD).float()
+    scores = torch.einsum("blkgd,bkmd->bkglm", qg, k_cache.float()) / math.sqrt(HD)
+    q_pos = pos + torch.arange(L, device=q.device)[:, None]
+    kv_idx = torch.arange(M, device=q.device)[None, :]
+    scores = scores.masked_fill(~(kv_idx <= q_pos), float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bkglm,bkmd->blkgd", probs.float(), v_cache.float())
+    return out.reshape(B, L, NH, HD).to(q.dtype)
+
+
+def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, pos: int,
+                               kv_block: int = 512) -> torch.Tensor:
+    """Flash-semantics causal attention: online-softmax accumulation over KV
+    blocks, so peak memory is O(L * kv_block) instead of O(L * T).
+
+    q: [B, L, NH, HD] at absolute positions pos..pos+L-1; k, v:
+    [B, T, KVH, HD], the visible key range from absolute position 0.  T must
+    be a multiple of kv_block.
+    """
+    B, L, NH, HD = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = NH // KVH
+    if T % kv_block:
+        raise ValueError(f"key length {T} is not a multiple of kv_block {kv_block}")
+    qg = q.reshape(B, L, KVH, G, HD).float()
+    q_pos = pos + torch.arange(L, device=q.device)[:, None]
+    acc = torch.zeros(B, KVH, G, L, HD, device=q.device)
+    m = torch.full((B, KVH, G, L, 1), float("-inf"), device=q.device)
+    l = torch.zeros(B, KVH, G, L, 1, device=q.device)
+    for j in range(T // kv_block):
+        kj = k[:, j * kv_block : (j + 1) * kv_block].float()
+        vj = v[:, j * kv_block : (j + 1) * kv_block]
+        s = torch.einsum("blkgd,bckd->bkglc", qg, kj) / math.sqrt(HD)
+        kv_idx = j * kv_block + torch.arange(kv_block, device=q.device)[None, :]
+        s = s.masked_fill(~(kv_idx <= q_pos), float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        # exp(-inf - -inf) is nan; a fully-masked running max stays -inf, so
+        # guard the rescale factor.
+        dead = torch.isneginf(m_new)
+        alpha = torch.where(dead, 0.0, torch.exp(m - m_new))
+        p = torch.where(dead, 0.0, torch.exp(s - m_new))
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bkglc,bckd->bkgld", p.to(vj.dtype).float(), vj.float())
+        acc = acc * alpha + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    # [B, KVH, G, L, HD] -> [B, L, NH, HD]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, L, NH, HD).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, pos: int):
+    """Write k, v [B, L, KVH, HD] into the caches [B, KVH, M, HD] at
+    positions pos..pos+L-1, in place.  Returns (k_cache, v_cache)."""
+    L = k.shape[1]
+    k_cache[:, :, pos : pos + L] = k.transpose(1, 2).to(k_cache.dtype)
+    v_cache[:, :, pos : pos + L] = v.transpose(1, 2).to(v_cache.dtype)
+    return k_cache, v_cache

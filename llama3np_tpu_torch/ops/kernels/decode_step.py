@@ -1,0 +1,178 @@
+"""Fused batch-1 decode step: all transformer layers of one token, as a
+hand-written CUDA kernel sequence (`csrc/decode_step.cu`) beside its plain
+PyTorch version.
+
+Counterpart of `llama3np_tpu.ops.kernels.decode_step.decode_layers` with
+the same signature and return.  Per layer: RMSNorm -> fused QKV ->
+split-halves RoPE -> attention over the cache masked to `kv_idx < pos`, with
+the current token's (k_rot, v_new) appended as an explicit column -> o-proj
++ residual -> RMSNorm -> SwiGLU + residual.  Row `pos` of the cache is never
+read, which is what keeps padded prefill tails and stale slots out of the
+softmax; because of that mask the new rows are written into the caches at
+`pos` in place (the JAX kernel emitted them and scattered afterwards), and
+the caches passed in are the ones returned.
+
+`decode_layers` launches the kernels for CUDA tensors and runs
+`decode_layers_plain` for CPU tensors; there is no fallback from one to the
+other.  `decode_layers.launches` counts launches (one per call: one call
+runs every layer of one token).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+
+from ..core import _dot
+from . import _build
+
+
+def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of an f32 row, the scale multiplied in before the weight."""
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w.float()
+
+
+def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
+                        k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        cos_row: torch.Tensor, sin_row: torch.Tensor,
+                        *, n_heads: int, kv_heads: int, head_dim: int,
+                        norm_eps: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same function in plain PyTorch, with the appended-column math of
+    the TPU kernel's `_attend_head` written out.  Updates the caches at
+    `pos` in place and returns (x_out, k_cache, v_cache)."""
+    nh, kvh, hd = n_heads, kv_heads, head_dim
+    g, half = nh // kvh, hd // 2
+    qd, kvd = nh * hd, kvh * hd
+    inv_sqrt_hd = 1.0 / math.sqrt(hd)
+    cos, sin = cos_row.float(), sin_row.float()  # [1, HD/2]
+
+    def rope(t):  # split-halves RoPE on [..., HD]
+        t1, t2 = t[..., :half], t[..., half:]
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1)
+
+    m = k_cache.shape[2]
+    visible = torch.arange(m, device=x.device) < pos  # never row pos
+    h = x.float()
+    for layer in range(layers["wqkv"].shape[0]):
+        xn = _rms_scale(h, layers["attn_norm"][layer].reshape(-1), norm_eps)
+        qkv = _dot(xn, layers["wqkv"][layer])                 # [1, QD+2KVD]
+        q = rope(qkv[0, :qd].reshape(kvh, g, hd))             # [KVH, G, HD]
+        k_rot = rope(qkv[0, qd : qd + kvd].reshape(kvh, 1, hd))
+        v_new = qkv[0, qd + kvd :].reshape(kvh, 1, hd)
+        ks = k_cache[layer].float()                           # [KVH, M, HD]
+        vs = v_cache[layer].float()
+        scores = torch.einsum("kgd,kmd->kgm", q, ks) * inv_sqrt_hd
+        scores = scores.masked_fill(~visible, float("-inf"))
+        s_new = torch.sum(q * k_rot, dim=-1, keepdim=True) * inv_sqrt_hd
+        smax = torch.maximum(scores.amax(dim=-1, keepdim=True), s_new)
+        sexp = torch.exp(scores - smax)
+        e_new = torch.exp(s_new - smax)
+        denom = sexp.sum(dim=-1, keepdim=True) + e_new
+        attn = (torch.einsum("kgm,kmd->kgd", sexp, vs) + e_new * v_new) / denom
+        k_cache[layer, :, pos] = k_rot[:, 0].to(k_cache.dtype)
+        v_cache[layer, :, pos] = v_new[:, 0].to(v_cache.dtype)
+        h = h + _dot(attn.reshape(1, qd), layers["wo"][layer])
+        zn = _rms_scale(h, layers["ffn_norm"][layer].reshape(-1), norm_eps)
+        gu = _dot(zn, layers["wgu"][layer])
+        fd = layers["w_down"].shape[1]
+        gate = gu[:, :fd]
+        ff = gate * (1.0 / (1.0 + torch.exp(-gate))) * gu[:, fd:]
+        h = h + _dot(ff, layers["w_down"][layer])
+    return h.to(x.dtype), k_cache, v_cache
+
+
+def _check_args(layers, x, pos, k_cache, v_cache, cos_row, sin_row,
+                n_heads, kv_heads, head_dim):
+    nl, d, qkvd = layers["wqkv"].shape
+    fd = layers["w_down"].shape[1]
+    qd = n_heads * head_dim
+    want = {
+        "wqkv": (nl, d, qd + 2 * kv_heads * head_dim),
+        "wo": (nl, qd, d),
+        "wgu": (nl, d, 2 * fd),
+        "w_down": (nl, fd, d),
+    }
+    for name, shape in want.items():
+        if tuple(layers[name].shape) != shape:
+            raise ValueError(f"decode_layers: {name} is {tuple(layers[name].shape)}, "
+                             f"expected {shape} (fused whole-layer layout)")
+    for name in ("attn_norm", "ffn_norm"):
+        if layers[name].numel() != nl * d:
+            raise ValueError(f"decode_layers: {name} must hold [NL, D] values")
+    if tuple(x.shape) != (1, d):
+        raise ValueError(f"decode_layers: x must be [1, {d}], got {tuple(x.shape)}")
+    if k_cache.dim() != 4 or tuple(k_cache.shape[:2]) != (nl, kv_heads) \
+            or k_cache.shape[3] != head_dim or v_cache.shape != k_cache.shape:
+        raise ValueError(f"decode_layers: caches must be [NL, KVH, M, HD] = "
+                         f"[{nl}, {kv_heads}, M, {head_dim}], got "
+                         f"{tuple(k_cache.shape)} / {tuple(v_cache.shape)}")
+    if tuple(cos_row.shape) != (1, head_dim // 2) or sin_row.shape != cos_row.shape:
+        raise ValueError("decode_layers: cos_row/sin_row must be [1, HD/2]")
+    if not 0 <= pos < k_cache.shape[2]:
+        raise ValueError(f"decode_layers: pos {pos} outside the cache "
+                         f"[0, {k_cache.shape[2]})")
+
+
+def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
+                  k_cache: torch.Tensor, v_cache: torch.Tensor,
+                  cos_row: torch.Tensor, sin_row: torch.Tensor,
+                  *, n_heads: int, kv_heads: int, head_dim: int,
+                  norm_eps: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run all layers of one batch-1 decode step.
+
+    layers: fused whole-layer tree in rope-split layout ("wqkv"
+    [NL,D,QD+2KVD], "wo" [NL,QD,D], "wgu" [NL,D,2FD], "w_down" [NL,FD,D],
+    "attn_norm"/"ffn_norm" [NL,1,D]).  x: [1, D] embedded token.  pos: host
+    int, the token's position.  k_cache/v_cache: [NL, KVH, M, HD] (one batch
+    row), read at rows < pos and written at row pos in place.
+    cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
+
+    Returns (x_out [1, D], k_cache, v_cache).
+    """
+    pos = int(pos)
+    _check_args(layers, x, pos, k_cache, v_cache, cos_row, sin_row,
+                n_heads, kv_heads, head_dim)
+    kw = dict(n_heads=n_heads, kv_heads=kv_heads, head_dim=head_dim,
+              norm_eps=norm_eps)
+    if x.device.type == "cpu":
+        return decode_layers_plain(layers, x, pos, k_cache, v_cache,
+                                   cos_row, sin_row, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"decode_layers runs on CUDA or CPU tensors, not {x.device}")
+    names = ("wqkv", "wo", "wgu", "w_down", "attn_norm", "ffn_norm")
+    tensors = [layers[n] for n in names] + [x, k_cache, v_cache, cos_row, sin_row]
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise NotImplementedError(
+            "the decode_layers kernel takes float32 weights, caches and rows; "
+            "bf16 kernels are still to port (ROADMAP.md); use attn_impl='xla'")
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("decode_layers: every tensor must lie on x's device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("decode_layers takes contiguous tensors")
+    nl, d, _ = layers["wqkv"].shape
+    fd = layers["w_down"].shape[1]
+    if head_dim % 4 or head_dim > 128 or d % 4 or fd % 2:
+        raise ValueError(f"decode_layers kernel takes head_dim % 4 == 0 and <= 128, "
+                         f"dim % 4 == 0, even hidden_dim; got {head_dim}, {d}, {fd}")
+    lib = _build.KernelLibrary.get()
+    scratch = torch.empty(
+        lib.l3t_decode_scratch_floats(d, n_heads, kv_heads, head_dim, fd),
+        dtype=torch.float32, device=x.device)
+    x_out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.l3t_decode_layers_f32(
+        *(layers[n].data_ptr() for n in names),
+        x.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cos_row.data_ptr(), sin_row.data_ptr(), scratch.data_ptr(),
+        nl, d, n_heads, kv_heads, head_dim, fd, k_cache.shape[2], pos,
+        float(norm_eps), x.device.index, stream)
+    _build.check(rc, "decode_layers")
+    decode_layers.launches += 1
+    return x_out, k_cache, v_cache
+
+
+decode_layers.launches = 0

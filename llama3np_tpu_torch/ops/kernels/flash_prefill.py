@@ -1,0 +1,74 @@
+"""Flash prefill attention: causal GQA self-attention for the start_pos == 0
+prefill, as a hand-written CUDA kernel (`csrc/flash_prefill.cu`) beside its
+plain PyTorch version.
+
+Counterpart of `llama3np_tpu.ops.kernels.flash_prefill.flash_prefill`.  The
+kernel masks a ragged L itself, so every first-chunk prefill on the card
+goes through it; the JAX `supports(L)` gate was a TPU tiling rule and has no
+counterpart.  `flash_prefill` launches the kernel for CUDA tensors and runs
+`flash_prefill_plain` for CPU tensors; there is no fallback from one to the
+other.  `flash_prefill.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import causal_attention
+from . import _build
+
+
+def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """The same function in plain PyTorch: dense causal attention
+    (`ops.core.causal_attention`).  q: [B, L, NH, HD]; k, v: [B, L, KVH,
+    HD].  Returns [B, L, NH, HD]."""
+    return causal_attention(q, k, v)
+
+
+def _check_args(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_prefill takes q [B,L,NH,HD], k/v [B,L,KVH,HD]; "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, L, NH, HD = q.shape
+    if k.shape[0] != B or k.shape[1] != L or k.shape[3] != HD:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
+    if NH % k.shape[2]:
+        raise ValueError(f"kv heads ({k.shape[2]}) must divide heads ({NH})")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over one block at start_pos == 0.
+
+    q: [B, L, NH, HD]; k, v: [B, L, KVH, HD], any L >= 1, HD <= 128.
+    Returns [B, L, NH, HD].  CUDA tensors must be float32 and contiguous.
+    """
+    _check_args(q, k, v)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_prefill runs on CUDA or CPU tensors, not {q.device}")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise NotImplementedError(
+            f"the flash_prefill kernel takes float32 (got {q.dtype}); bf16 "
+            "kernels are still to port (ROADMAP.md); use attn_impl='xla'")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_prefill takes contiguous q, k, v")
+    B, L, NH, HD = q.shape
+    if HD > 128:
+        raise ValueError(f"flash_prefill takes head_dim <= 128, got {HD}")
+    lib = _build.KernelLibrary.get()
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.l3t_flash_prefill_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   o.data_ptr(), B, L, NH, k.shape[2], HD,
+                                   q.device.index, stream)
+    _build.check(rc, "flash_prefill")
+    flash_prefill.launches += 1
+    return o
+
+
+flash_prefill.launches = 0
