@@ -12,8 +12,12 @@ generation end to end through the port's entry points (stories15M against
 the port's NumPy oracle; tinyllama-1.1b at full width and depth against the
 plain path on the same card), traces each model's prefill and a few
 decode tokens with torch.profiler (device time by kernel, device busy
-share), runs the CLI, and prints one JSON
-line per phase.  Any failure raises and exits non-zero; the last line,
+share), runs the CLI, then drives continuous-batching serving of
+tinyllama-1.1b at full width and depth over the paged KV cache (12
+staggered requests at quanta 1 and 4 and with chunked admission, every
+served stream against its solo stream, exact launch counts, no leaked
+pages; the plain path's rate; a traced window of serving steps), and
+prints one JSON line per phase.  Any failure raises and exits non-zero; the last line,
 `{"ok": true, "device": {...}}`, is printed only when every phase passed.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -25,6 +29,7 @@ launches; bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s fp32
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -68,6 +73,28 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, match: str, warmup: int = 3) -> float:
+    """Device time per call of `fn` spent in the kernels whose names hold
+    `match`, from torch.profiler over `reps` calls after warm-up: the
+    kernel's own time, without the host's enqueue of each call (which
+    bounds back-to-back CUDA-event timings of a short kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and match in e.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no device time in {match!r} kernels")
+    return total / 1e3 / reps
 
 
 def compare(torch, got, want, rtol, atol, what):
@@ -184,35 +211,126 @@ class Smoke:
         emit(row)
         return row
 
+    def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
+                    Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3):
+        """The paged-attention kernel against its plain twin in its three
+        modes (plain, stacked with the current column, window at win_count
+        0, 1 and Q), on shuffled block tables with null-page padding, and
+        an overrun row.  Timing rotates over NL layers of pools (more than
+        the 50 MB L2 at tinyllama widths), as a decode step's layers find
+        their pools cold.  `ms` is the kernels' device time per call (the
+        attention kernel and the merge); `event_ms` the CUDA-event time of
+        back-to-back wrapper calls, which the host's enqueue bounds."""
+        torch = self.torch
+        from llama3np_tpu_torch.ops.kernels.paged_attention import (
+            paged_attention, paged_attention_plain)
 
-def profile_phase(torch, model: str, engine, prompt, card: str):
-    """Trace the prefill and 8 decode tokens (kernel path) with
-    torch.profiler: device time by kernel (top 6) and the device's busy
-    share of each traced window.  Only device-side events count.  The
-    profiler's own host overhead lengthens the windows, so a busy share is
-    a lower bound."""
+        P = 1 + B * maxp
+        bt = (torch.randperm(P - 1, generator=self.g)[: B * maxp] + 1).reshape(B, maxp)
+        bt = bt.to(torch.int32)
+        for b, p in enumerate(pos_list):  # unused entries -> null page 0
+            bt[b, min(p // page + 1, maxp):] = 0
+        bt = bt.to("cuda")
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        q = self.randn(B, 1, NH, HD)
+        kp, vp = self.randn(NL, P, KVH, page, HD), self.randn(NL, P, KVH, page, HD)
+        ck, cv = self.randn(B, KVH, HD), self.randn(B, KVH, HD)
+        wk, wv = self.randn(B, KVH, Q, HD), self.randn(B, KVH, Q, HD)
+
+        def call(mode, li, p=pos):
+            if mode == "plain":
+                return (q, kp[li], vp[li], bt, p), {}
+            kw = dict(layer=li, cur_k=ck, cur_v=cv)
+            if mode.startswith("window"):
+                kw.update(win_k=wk, win_v=wv, win_count=int(mode[6:]))
+            return (q, kp, vp, bt, p), kw
+
+        def rotate(fn, mode):
+            it = itertools.count()
+
+            def run():
+                a, kw = call(mode, next(it) % NL)
+                return fn(*a, **kw)
+            return run
+
+        rtol, atol = 1e-4, 1e-5
+        launches = paged_attention.launches
+        modes = {}
+        for mode in ("plain", "stacked", "window0", "window1", f"window{Q}"):
+            a, kw = call(mode, layer)
+            got = paged_attention(*a, **kw)
+            torch.cuda.synchronize()
+            want = paged_attention_plain(*a, **kw)
+            max_abs, max_rel = compare(torch, got, want, rtol, atol,
+                                       f"paged_attention {model} {mode}")
+            held = [min(p if mode != "plain" else p + 1, maxp * page) for p in pos_list]
+            extra = 0 if mode == "plain" else 1 + kw.get("win_count", 0)
+            cols = sum(held) + B * extra
+            pages = sum(-(-h // page) for h in held)
+            nbytes = 4.0 * (2 * KVH * HD * cols + 2 * B * NH * HD + pages + B)
+            bound_ms, bound_by = bound(nbytes, 4.0 * NH * HD * cols)
+            modes[mode] = {
+                "max_abs_err": max_abs, "max_rel_err": max_rel,
+                "ms": device_ms(torch, rotate(paged_attention, mode), 50, "paged_attn"),
+                "event_ms": time_ms(torch, rotate(paged_attention, mode), 50),
+                "plain_ms": time_ms(torch, rotate(paged_attention_plain, mode), 5, warmup=1),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "visible_kv_mb": 8.0 * KVH * HD * cols / 1e6}
+        # An overrun row (pos past its table) stays in bounds and finite,
+        # and leaves the other rows' outputs bit for bit as they were.
+        over = pos.clone()
+        over[over_row] = maxp * page + 40
+        a, kw = call("stacked", layer)
+        base = paged_attention(*a, **kw)
+        a, kw = call("stacked", layer, over)
+        got = paged_attention(*a, **kw)
+        torch.cuda.synchronize()
+        others = torch.arange(B, device="cuda") != over_row
+        if not torch.equal(got[others], base[others]) or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention {model}: the overrun row changed "
+                                 "other rows or is not finite")
+        compare(torch, got, paged_attention_plain(*a, **kw), rtol, atol,
+                f"paged_attention {model} overrun row")
+        paged_attention.launches = launches  # comparison launches do not count
+        row = {"phase": "kernel", "kernel": "paged_attention", "model": model,
+               "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
+                         "maxp": maxp, "P": P, "pos": pos_list, "Q": Q},
+               "tol": {"rtol": rtol, "atol": atol}, "modes": modes,
+               "overrun_row_ok": True, "library_ms": None, "card": self.card}
+        emit(row)
+        return row
+
+
+def trace(torch, fn, top: int = 6):
+    """Run `fn` under torch.profiler: device time by kernel (the `top`
+    largest) and the device's busy share of the traced window.  Only
+    device-side events count.  The profiler's own host overhead lengthens
+    the window, so a busy share is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from llama3np_tpu_torch.generate import pad_prompt, prefill_step
-
-    def trace(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA
-                       and e.self_device_time_total > 0), key=lambda r: -r[1])
-        device_ms = sum(r[1] for r in rows)
-        return out, {"wall_ms": wall_ms,
-                     "device_ms": device_ms if rows else "not measured",
-                     "device_busy_share": device_ms / wall_ms if rows else "not measured",
-                     "top": [{"name": k[:80], "device_ms": ms, "count": n}
-                             for k, ms, n in rows[:6]]}
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return out, {"wall_ms": wall_ms,
+                 "device_ms": device_ms if rows else "not measured",
+                 "device_busy_share": device_ms / wall_ms if rows else "not measured",
+                 "top": [{"name": k[:80], "device_ms": ms, "count": n}
+                         for k, ms, n in rows[:top]]}, rows
+
+
+def profile_phase(torch, model: str, engine, prompt, card: str):
+    """Trace the prefill and 8 decode tokens (kernel path) with
+    torch.profiler (`trace`)."""
+    from llama3np_tpu_torch.generate import pad_prompt, prefill_step
 
     gen = engine._gen
     padded, L = pad_prompt(prompt, engine.args)
@@ -224,27 +342,143 @@ def profile_phase(torch, model: str, engine, prompt, card: str):
 
     prefill(engine.init_cache(1))  # warm
     cache = engine.init_cache(1)  # allocated outside the traced window
-    (tok0, cache), pre = trace(lambda: prefill(cache))
+    (tok0, cache), pre, _ = trace(torch, lambda: prefill(cache))
     gen.decode_fn(2)(engine.params, tok0, L, cache, engine.cos, engine.sin)  # warm
-    _, dec = trace(lambda: gen.decode_fn(8)(engine.params, tok0, L, cache,
-                                            engine.cos, engine.sin))
+    _, dec, _ = trace(torch, lambda: gen.decode_fn(8)(engine.params, tok0, L, cache,
+                                                      engine.cos, engine.sin))
     return {"phase": "profile", "model": model, "path": "kernels",
             "prefill": {"bucket": int(ids.shape[1]), **pre},
             "decode": {"tokens": 8, "from_pos": L, **dec}, "card": card}
 
 
-def counters():
+def _wrappers():
     from llama3np_tpu_torch.ops.kernels.decode_step import decode_layers
     from llama3np_tpu_torch.ops.kernels.flash_prefill import flash_prefill
-    return {"flash_prefill": flash_prefill.launches,
-            "decode_layers": decode_layers.launches}
+    from llama3np_tpu_torch.ops.kernels.paged_attention import paged_attention
+    return {"flash_prefill": flash_prefill, "decode_layers": decode_layers,
+            "paged_attention": paged_attention}
+
+
+def counters():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_counters():
-    from llama3np_tpu_torch.ops.kernels.decode_step import decode_layers
-    from llama3np_tpu_torch.ops.kernels.flash_prefill import flash_prefill
-    flash_prefill.launches = 0
-    decode_layers.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+STOP_IDS = (1, 2)
+
+
+def serve_workload(vocab_size: int, seed: int = 0):
+    """12 requests: seeded prompts of 17, 64, 200, 500 and 1000 tokens in
+    turn, budgets of 24-48 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = (17, 64, 200, 500, 1000)
+    return [(rng.integers(3, vocab_size, size=lens[i % len(lens)]).tolist(),
+             int(rng.integers(24, 49))) for i in range(12)]
+
+
+def solo_streams(engine, workload):
+    """Each prompt's greedy stream from `Llama.generate_tokens`, cut at the
+    stop ids as the serving engine cuts it."""
+    import numpy as np
+
+    out = []
+    for prompt, budget in workload:
+        toks = engine.generate_tokens(np.array([prompt]), budget).cpu()[0].tolist()
+        cut = next((i for i, t in enumerate(toks) if t in STOP_IDS), len(toks))
+        out.append(toks[:cut])
+    return out
+
+
+def serve(torch, engine, workload, quantum: int, admit_chunk=None):
+    """Serve `workload` through a paged BatchEngine (capacity 8, page 16):
+    6 requests at once, then 2 more after every 3 steps, so some queue;
+    then drain.  Returns the streams and the run's counts and times.  The
+    admission time (prefill, fenced) is kept apart from the decode time."""
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    be = BatchEngine(engine, capacity=8, paged=True, page_size=16,
+                     admit_chunk=admit_chunk)
+    st = {"decode_steps": 0, "step_calls": 0, "admissions": 0, "admit_s": 0.0}
+    step, prefill_into = be.step, be._prefill_into
+
+    def counted_step(quantum=1):  # chunked admission steps from inside too
+        if be.num_active:
+            st["decode_steps"] += quantum
+            st["step_calls"] += 1
+        return step(quantum)
+
+    def timed_prefill(slot, req):
+        t0 = time.perf_counter()
+        prefill_into(slot, req)
+        torch.cuda.synchronize()
+        st["admissions"] += 1
+        st["admit_s"] += time.perf_counter() - t0
+
+    be.step, be._prefill_into = counted_step, timed_prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [be.submit(p, n, stop_ids=STOP_IDS) for p, n in workload[:6]]
+    calls = 0
+    while be.num_active or be._queue or len(reqs) < len(workload):
+        if calls and calls % 3 == 0 and len(reqs) < len(workload):
+            reqs += [be.submit(p, n, stop_ids=STOP_IDS)
+                     for p, n in workload[len(reqs) : len(reqs) + 2]]
+        be.step(quantum)
+        calls += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if be.allocator.available != be.allocator.num_pages - 1:
+        raise AssertionError(f"pages leaked: {be.allocator.available} of "
+                             f"{be.allocator.num_pages - 1} free")
+    decode_s = wall - st["admit_s"]
+    tokens = sum(len(r.generated) for r in reqs) - len(reqs)  # less admissions' first tokens
+    del be
+    return [r.generated for r in reqs], {
+        "quantum": quantum, "admit_chunk": admit_chunk, "requests": len(reqs),
+        "decode_steps": st["decode_steps"], "admissions": st["admissions"],
+        "decode_tokens": tokens, "wall_s": wall, "admit_s": st["admit_s"],
+        "decode_s": decode_s, "served_tok_s": tokens / decode_s,
+        "ms_per_step": decode_s * 1e3 / max(st["decode_steps"], 1)}
+
+
+def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: int = 4):
+    """Trace `steps` serving steps at B=8 (quantum 1) with torch.profiler,
+    and split device time into the GEMMs (cuBLAS/CUTLASS), the
+    paged-attention kernel and the other torch ops (norms, RoPE, SwiGLU,
+    residuals, embedding, argmax)."""
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    be = BatchEngine(engine, capacity=8, paged=True, page_size=16)
+    for p, _ in workload[:8]:
+        be.submit(p, 400, stop_ids=())
+    be.step()
+    be.step()  # warm
+    _, win, rows = trace(torch, lambda: [be.step() for _ in range(steps)], top=8)
+    pos = be.pos.tolist()
+    del be
+
+    def kind(name):
+        n = name.lower()
+        if "paged_attn" in n:
+            return "paged_attention"
+        if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
+            return "gemm"
+        return "other"
+
+    by_kind = {}
+    for name, ms, _ in rows:
+        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
+    dev = sum(by_kind.values()) or 1.0
+    return {"phase": "profile", "model": model, "path": "serving", "batch": 8,
+            "steps": steps, "pos_after": pos, **win,
+            "device_ms_by_kind": by_kind,
+            "device_share_by_kind": {k: v / dev for k, v in by_kind.items()},
+            "card": card}
 
 
 def synthetic_vocab(path: str, size: int, seed: int = 0):
@@ -333,7 +567,8 @@ def main() -> int:
         at = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
         raise AssertionError(f"stories15M greedy stream diverges from NumpyLlama "
                              f"at token {at}: {got[:8]} vs {want[:8]}")
-    if s_counts != {"flash_prefill": s_args.n_layers, "decode_layers": n_check - 1}:
+    if s_counts != {"flash_prefill": s_args.n_layers, "decode_layers": n_check - 1,
+                    "paged_attention": 0}:
         raise AssertionError(f"stories15M launch counts {s_counts}")
     toks, stats = timed_generate(s_eng, ids, 1000)
     if toks.shape != (1, 1000) or toks.cpu()[0, :n_check].tolist() != want:
@@ -344,6 +579,8 @@ def main() -> int:
           "card": card})
     emit(profile_phase(torch, "stories15M", s_eng, ids, card))
     del s_eng
+    smoke.paged_phase("stories15M", 4, s_args.n_heads, s_args.kv_heads, hd, 16,
+                      s_args.max_seq_len // 16, [0, 100, 511, 1023], over_row=1)
 
     # ---- tinyllama-1.1b at full width and depth ---------------------------
     t_args = preset("tinyllama-1.1b")
@@ -359,7 +596,8 @@ def main() -> int:
     reset_counters()  # the main path: greedy generation through the kernels
     toks_k = t_eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
     main_counts = counters()
-    if main_counts != {"flash_prefill": t_args.n_layers, "decode_layers": n_tok - 1}:
+    if main_counts != {"flash_prefill": t_args.n_layers, "decode_layers": n_tok - 1,
+                       "paged_attention": 0}:
         raise AssertionError(f"tinyllama launch counts {main_counts}")
     logits_k = torch.from_numpy(t_eng(prompt, 0))  # ragged L=500 prefill
     k_stats = timed_generate(t_eng, prompt, 64)[1]
@@ -404,17 +642,76 @@ def main() -> int:
     emit({"phase": "cli", "last_line": last,
           "stats": cli.stderr.strip().splitlines()[-1]})
 
+    # ---- serving: tinyllama-1.1b at full width and depth, paged cache -------
+    nl = t_args.n_layers
+    paged_row = smoke.paged_phase(
+        "tinyllama-1.1b", 8, t_args.n_heads, t_args.kv_heads, t_args.head_dim, 16,
+        t_args.max_seq_len // 16, [0, 15, 16, 255, 500, 1023, 1500, 2047])
+    v_eng = Llama(t_weights, t_args, device="cuda")
+    workload = serve_workload(t_args.vocab_size)
+    solo = solo_streams(v_eng, workload)
+    served = {}
+    for run, quantum, chunk in (("q1", 1, None), ("q4", 4, None), ("chunked", 1, 512)):
+        reset_counters()  # the main path: serving through the kernels
+        streams, st = serve(torch, v_eng, workload, quantum, chunk)
+        counts = counters()
+        bad = [i for i, (g, w) in enumerate(zip(streams, solo)) if g != w]
+        if bad:
+            i = bad[0]
+            at = next((j for j, (a, b) in enumerate(zip(streams[i], solo[i])) if a != b),
+                      min(len(streams[i]), len(solo[i])))
+            raise AssertionError(f"serving {run}: request {i} (prompt "
+                                 f"{len(workload[i][0])}) diverges from its solo "
+                                 f"stream at token {at}; {len(bad)} of 12 differ")
+        expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
+                  "paged_attention": nl * st["decode_steps"]}
+        if counts != expect or st["admissions"] != len(workload):
+            raise AssertionError(f"serving {run} launch counts {counts}, expected "
+                                 f"{expect} ({st['admissions']} admissions)")
+        served[run] = {**st, "launches": counts}
+        emit({"phase": "e2e", "model": "tinyllama-1.1b", "path": "serving",
+              "run": run, **st, "launches": counts,
+              "streams_equal_solo": len(streams), "pages_leaked": 0, "card": card})
+    emit(serve_profile_phase(torch, "tinyllama-1.1b", v_eng, workload, card))
+    del v_eng
+    torch.cuda.empty_cache()
+
+    x_eng = Llama(t_weights, t_args.replace(attn_impl="xla"), device="cuda")
+    reset_counters()
+    x_streams, x_st = serve(torch, x_eng, workload, 1)
+    x_counts = counters()
+    del x_eng
+    if any(x_counts.values()):
+        raise AssertionError(f"the plain serving path launched kernels: {x_counts}")
+    emit({"phase": "e2e", "model": "tinyllama-1.1b", "path": "serving-plain",
+          "run": "q1", **x_st,
+          "streams_equal_solo": sum(g == w for g, w in zip(x_streams, solo)),
+          "card": card})
+
     # ---- summary --------------------------------------------------------------
     sources = {"flash_prefill": ("llama3np_tpu_torch/csrc/flash_prefill.cu",
                                  "llama3np_tpu/ops/kernels/flash_prefill.py:76"),
                "decode_layers": ("llama3np_tpu_torch/csrc/decode_step.cu",
-                                 "llama3np_tpu/ops/kernels/decode_step.py:917")}
+                                 "llama3np_tpu/ops/kernels/decode_step.py:917"),
+               "paged_attention": ("llama3np_tpu_torch/csrc/paged_attention.cu",
+                                   "llama3np_tpu/ops/kernels/paged_attention.py:257")}
+    # Launches: each kernel's count in the main path that carries it (the
+    # serving run at quantum 1 for flash_prefill and paged_attention, greedy
+    # generation for decode_layers), and the count in each path.
+    by_path = {name: {"generate": main_counts[name],
+                      "serve_q1": served["q1"]["launches"][name],
+                      "serve_q4": served["q4"]["launches"][name]}
+               for name in sources}
+    stacked = {**paged_row, **paged_row["modes"]["stacked"], "mode": "stacked"}
     kernels = []
-    for row in (flash_row, decode_row):
-        src, replaces = sources[row["kernel"]]
+    for row in (flash_row, decode_row, stacked):
+        name = row["kernel"]
+        src, replaces = sources[name]
+        path = "generate" if name == "decode_layers" else "serve_q1"
         kernels.append({
-            "name": row["kernel"], "route": "cuda", "source": src,
-            "replaces": replaces, "launches": main_counts[row["kernel"]],
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": by_path[name][path],
+            "launches_by_path": by_path[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

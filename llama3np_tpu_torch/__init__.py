@@ -3,10 +3,12 @@
 A second package beside the JAX one, with the same module names and the
 reference's public surface: `ModelArgs`, `Tokenizer`, `load_parameters`,
 `Llama(model_path, args)`, `model(ids, start_pos)`, `model.generate(...)`
-and the `python -m llama3np_tpu_torch.cli "prompt"` driver.  The two
-kernels of the main path (flash prefill attention and the fused batch-1
-decode step) are hand-written CUDA for Hopper (`csrc/`), built at first
-use.  Entry points run on the card unless the caller asks for the CPU.
+and the `python -m llama3np_tpu_torch.cli "prompt"` entry point, and the
+continuous-batching engine `serving.BatchEngine` over the dense or paged
+KV cache.  The kernels of both paths (flash prefill attention, the fused
+batch-1 decode step and paged decode attention) are hand-written CUDA for
+Hopper (`csrc/`), built at first use.  Entry points run on the card unless
+the caller asks for the CPU.
 
 The port imports torch and numpy, never jax or the JAX package;
 `params_from_jax` takes the JAX package's parameter tree as numpy arrays.

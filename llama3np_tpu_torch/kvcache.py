@@ -1,7 +1,8 @@
-"""Dense KV cache.
+"""KV cache containers: the dense cache, and the paged pool with its page
+allocator (the serving path).
 
-The cache is a pair of tensors covering all layers, in the JAX package's
-layout:
+The dense cache is a pair of tensors covering all layers, in the JAX
+package's layout:
 
     k: [n_layers, B, KVH, M, HD]
     v: [n_layers, B, KVH, M, HD]
@@ -11,11 +12,16 @@ the forward writes each layer's new rows into `cache["k"][layer]`, and the
 decode kernel writes its row at `pos` straight into the batch-1 view
 `cache["k"][:, 0]`.  A position's row is contiguous, so that write is one
 row.
+
+The paged pool (`init_paged_cache`) and its host-side `PageAllocator` are
+the counterparts of `llama3np_tpu.kvcache.init_paged_cache` and
+`PageAllocator`: the same layout, the same reserved null page 0, the same
+free-list order and refcounts.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -42,3 +48,80 @@ def cache_nbytes(args: ModelArgs, batch_size: Optional[int] = None) -> int:
     B = batch_size or args.max_batch_size
     per_row = args.head_dim * torch_dtype(args.kv_dtype).itemsize
     return 2 * args.n_layers * B * args.kv_heads * args.max_seq_len * per_row
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache (serving path)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
+                     dtype=None, quant: Optional[str] = None, *,
+                     device) -> Dict[str, torch.Tensor]:
+    """Zeroed page pools on `device`; pages go to sequences on demand, so
+    device memory holds the tokens that exist, not `capacity x max_seq_len`
+    dense rows.
+
+        k, v: [n_layers, num_pages, KVH, page_size, HD]
+
+    KVH comes before page_size so that one (page id, KV head) slice is a
+    contiguous [page_size, HD] block, the unit the paged-attention kernel
+    reads.  Page 0 is the null page: block tables point unused entries at
+    it, and every read from it is masked off by the row's length.
+    quant="int8" (int8 pools with per-(token, head) scales) is still to
+    port (ROADMAP A8).
+    """
+    if quant is not None:
+        raise NotImplementedError(f"kv quant {quant!r} is still to port "
+                                  "(ROADMAP A8)")
+    shape = (args.n_layers, num_pages, args.kv_heads, page_size, args.head_dim)
+    dt = torch_dtype(dtype or args.kv_dtype)
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+class PageAllocator:
+    """Host-side refcounted free-list allocator over the page pool (page 0
+    reserved).  A page returns to the free list when its last reference
+    drops; `share` adds references (the prefix cache's use, still to port)."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = num_pages
+        self._free = list(range(num_pages - 1, 0, -1))  # stack; 0 reserved
+        self._rc = [0] * num_pages
+
+    def alloc(self, n: int) -> List[int]:
+        if n > len(self._free):
+            raise MemoryError(
+                f"paged KV cache exhausted: need {n} pages, "
+                f"{len(self._free)} free of {self.num_pages - 1}"
+            )
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._rc[p] = 1
+        return pages
+
+    def share(self, pages) -> None:
+        """Add a reference to already-allocated pages."""
+        for p in pages:
+            if p != 0:
+                if self._rc[p] <= 0:
+                    raise ValueError(f"share of free page {p}")
+                self._rc[p] += 1
+
+    def free(self, pages) -> None:
+        for p in pages:
+            if p != 0:
+                if self._rc[p] <= 0:
+                    raise ValueError(f"double free of page {p}")
+                self._rc[p] -= 1
+                if self._rc[p] == 0:
+                    self._free.append(p)
+
+    def refcount(self, page: int) -> int:
+        return self._rc[page]
+
+    @property
+    def available(self) -> int:
+        return len(self._free)

@@ -7,6 +7,11 @@ the dense `[NL, B, KVH, M, HD]` pair updated in place, and the layer loop is
 a Python loop over the stacked weights.  First-chunk prefill attention goes
 through the flash kernel on the card; the greedy decode loop through the
 fused decode kernel (`generate.kernel_decode_steps`).
+
+The serving path's ragged decode (`forward_ragged_decode`: every batch row
+at its own position, over the dense cache or the page pool) and its quantum
+loop (`ragged_decode_steps`) are here too; on the card a paged step runs
+the paged-attention kernel once per layer.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from ..config import ModelArgs
 from ..kvcache import init_cache
 from ..ops import core as ops
 from ..ops.kernels.flash_prefill import flash_prefill
+from ..ops.kernels.paged_attention import paged_attention
 
 
 class StaticConfig(NamedTuple):
@@ -33,7 +39,8 @@ class StaticConfig(NamedTuple):
     norm_eps: float
     rope_split: bool = True      # wq/wk permuted to split-halves RoPE layout
     kv_block: int = 512          # blockwise-attention block (0 = always dense)
-    kernels: bool = False        # CUDA kernels: flash prefill, fused decode
+    kernels: bool = False        # CUDA kernels: flash prefill, fused decode,
+                                 # paged attention
 
     @classmethod
     def from_args(cls, args: ModelArgs, device) -> "StaticConfig":
@@ -122,6 +129,192 @@ def forward(params: Dict, input_ids: torch.Tensor, pos: int, cache: Dict,
                               first_chunk)
     h = ops.rms_norm(h[:, -1:, :], params["norm"], cfg.norm_eps)
     return lm_logits(params, h), cache
+
+
+# ---------------------------------------------------------------------------
+# Ragged (per-row position) decode: the serving path
+# ---------------------------------------------------------------------------
+
+def _refuse_unported(lora=None, adapter_ids=None, lora_rows=None,
+                     scale_rows=None, cache=None):
+    if lora is not None or adapter_ids is not None or lora_rows is not None:
+        raise NotImplementedError("multi-LoRA serving is still to port "
+                                  "(ROADMAP A12)")
+    if scale_rows is not None or (cache is not None and "k_s" in cache):
+        raise NotImplementedError("int8 KV is still to port (ROADMAP A8)")
+
+
+def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
+                          pos: torch.Tensor, cache: Dict, cos, sin,
+                          cfg: StaticConfig, block_table=None, pos0=None,
+                          win=None, win_count: Optional[int] = None,
+                          commit: bool = True, scale_rows=None, lora=None,
+                          adapter_ids=None, lora_rows=None):
+    """One decode step where every batch row sits at its own position.
+
+    tokens: [B] integer ids; pos: [B] (row b's token goes to slot pos[b]),
+    both on the cache's device.  Dense mode (block_table None): cache k/v
+    are [NL, B, KVH, M, HD].  Paged mode: page pools [NL, P, KVH, page, HD]
+    and block_table [B, maxp] int32 (kvcache.init_paged_cache).
+
+    The cache is read-only through the layer loop: attention masks to
+    kv_idx < pos0 and takes the current token's K/V as an explicit appended
+    column, so no layer reads a row this step writes.  commit=True writes
+    all layers' new rows once after the loop, in place, and returns (logits
+    [B, VS], cache).  Deferred-commit mode (the quantum loop): pos0 [B] is
+    the quantum's start position, `win` the in-flight window ({"k"/"v":
+    [NL, B, KVH, Q, HD]}) with `win_count` visible columns, and
+    commit=False returns (logits, (k_rows, v_rows)), each [NL, B, KVH, HD],
+    for the caller to insert into the window.
+
+    On the card (`cfg.kernels`) paged attention runs the CUDA kernel, once
+    per layer; otherwise the gather form (`ops.paged_attention_stacked`).
+    Dense attention is plain in both packages.  int8 caches (`scale_rows`,
+    ROADMAP A8) and LoRA (`lora`, `adapter_ids`, `lora_rows`, A12) are still
+    to port and raise.
+    """
+    _refuse_unported(lora, adapter_ids, lora_rows, scale_rows, cache)
+    if pos0 is None:
+        pos0 = pos
+    kc_all, vc_all = cache["k"], cache["v"]
+    NL, kv_dt = kc_all.shape[0], kc_all.dtype
+    h = embed_tokens(params, tokens.long()[:, None])  # [B, 1, D]
+    # Rows that overran max_seq_len mid-quantum take the last table row;
+    # their outputs are discarded (the JAX package reads NaN there).
+    pc = pos.long().clamp(0, cos.shape[0] - 1)
+    cos_b, sin_b = cos[pc][:, None, None, :], sin[pc][:, None, None, :]
+    hd = cfg.head_dim
+
+    def rope_rows(x):  # [B, 1, H, HD] with per-row tables
+        if cfg.rope_split:
+            x1, x2 = x[..., : hd // 2], x[..., hd // 2 :]
+        else:
+            xp = x.reshape(*x.shape[:-1], hd // 2, 2)
+            x1, x2 = xp[..., 0], xp[..., 1]
+        r1 = x1 * cos_b - x2 * sin_b
+        r2 = x1 * sin_b + x2 * cos_b
+        if cfg.rope_split:
+            return torch.cat([r1, r2], dim=-1).to(x.dtype)
+        return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+    layers = params["layers"]
+    k_rows, v_rows = [], []
+    for li in range(NL):
+        lp = {name: w[li] for name, w in layers.items()}
+        x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads, hd)
+        q = rope_rows(q)
+        cur_k = rope_rows(k)[:, 0].to(kv_dt).contiguous()  # pool dtype: a read-back
+        cur_v = v[:, 0].to(kv_dt).contiguous()
+        wk = win["k"][li] if win is not None else None
+        wv = win["v"][li] if win is not None else None
+        wc = win_count if win is not None else None
+        if block_table is not None and cfg.kernels:
+            attn = paged_attention(q.contiguous(), kc_all, vc_all, block_table,
+                                   pos0, layer=li, cur_k=cur_k, cur_v=cur_v,
+                                   win_k=wk, win_v=wv, win_count=wc)
+        elif block_table is not None:
+            attn = ops.paged_attention_stacked(q, kc_all, vc_all, li,
+                                               block_table, pos0, cur_k=cur_k,
+                                               cur_v=cur_v, win_k=wk,
+                                               win_v=wv, win_count=wc)
+        else:
+            attn = ops.ragged_cache_attention(q, kc_all[li], vc_all[li], pos0,
+                                              cur_k=cur_k, cur_v=cur_v,
+                                              win_k=wk, win_v=wv,
+                                              win_count=wc)
+        h = h + ops.fused_o_proj(attn, lp["wo"]).to(h.dtype)
+        z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
+        h = h + ops.fused_ffn(z, lp["wgu"], lp["w_down"])
+        k_rows.append(cur_k)
+        v_rows.append(cur_v)
+    rows = (torch.stack(k_rows), torch.stack(v_rows))  # [NL, B, KVH, HD]
+    logits = lm_logits(params, ops.rms_norm(h[:, -1, :], params["norm"],
+                                            cfg.norm_eps))
+    if not commit:
+        return logits, rows
+    if block_table is not None:
+        page, maxp = kc_all.shape[3], block_table.shape[1]
+        p = pos.long()
+        page_ids = torch.gather(block_table.long(), 1,
+                                torch.clamp(p // page, max=maxp - 1)[:, None])[:, 0]
+        cache = ops.commit_decode_rows_paged(cache, *rows, page_ids, p % page)
+    else:
+        cache = ops.commit_decode_rows_dense(cache, *rows, pos)
+    return logits, cache
+
+
+def token_logprobs(logits: torch.Tensor, chosen: torch.Tensor, k: int):
+    """Serving log-probabilities: log_softmax over the raw logits at the
+    chosen token, plus the top-k alternatives.  logits [B, VS], chosen [B],
+    k >= 1.  Returns (chosen_lp [B] f32, top_ids [B, k] int64, top_lps
+    [B, k] f32)."""
+    lps = torch.log_softmax(logits.float(), dim=-1)
+    chosen_lp = torch.gather(lps, 1, chosen.long()[:, None])[:, 0]
+    top_lps, top_ids = torch.topk(lps, k, dim=-1)
+    return chosen_lp, top_ids, top_lps
+
+
+def init_decode_window(cache: Dict, B: int, num_steps: int) -> Dict:
+    """Zeroed in-flight K/V window for a quantum: {"k"/"v": [NL, B, KVH, Q,
+    HD]} in the pool dtype, on the cache's device."""
+    k = cache["k"]
+    NL, KVH, HD = k.shape[0], k.shape[2], k.shape[-1]
+    shape = (NL, B, KVH, num_steps, HD)
+    return {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
+            "v": torch.zeros(shape, dtype=cache["v"].dtype, device=k.device)}
+
+
+def insert_window_rows(win: Dict, rows, s: int) -> Dict:
+    """Write one step's new rows (forward_ragged_decode commit=False:
+    (k, v), each [NL, B, KVH, HD]) into window column `s`, in place."""
+    win["k"][:, :, :, s] = rows[0]
+    win["v"][:, :, :, s] = rows[1]
+    return win
+
+
+def commit_window(cache: Dict, win: Dict, pos0: torch.Tensor, block_table,
+                  num_steps: int) -> Dict:
+    """Commit a quantum's window to the paged pool or the dense cache."""
+    if block_table is not None:
+        return ops.commit_window_paged(cache, win, pos0, block_table, num_steps)
+    return ops.commit_window_dense(cache, win, pos0, num_steps)
+
+
+def ragged_decode_steps(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+                        cache: Dict, cos, sin, cfg: StaticConfig,
+                        num_steps: int, block_table=None,
+                        num_logprobs: Optional[int] = None, lora=None,
+                        adapter_ids=None):
+    """`num_steps` greedy ragged decode steps: the serving decode quantum.
+
+    The cache is frozen for the quantum: each step attends it (tokens <
+    pos[b]) plus the in-flight window of the quantum's own rows, and one
+    commit writes the whole window after the loop.  So the kernel's window
+    mode stays on the path and no step reads a row that it writes.  The
+    tokens stay on the device.  Returns (tokens [B, num_steps], cache);
+    with num_logprobs=k, (tokens, (chosen_lp [B, n], top_ids [B, n, k],
+    top_lps [B, n, k]), cache).  Paged mode requires the block tables to
+    cover positions pos .. pos + num_steps - 1.
+    """
+    _refuse_unported(lora, adapter_ids, cache=cache)
+    pos0 = pos
+    win = init_decode_window(cache, tokens.shape[0], num_steps)
+    tok, toks, lps = tokens, [], []
+    for s in range(num_steps):
+        logits, rows = forward_ragged_decode(
+            params, tok, pos0 + s, cache, cos, sin, cfg, block_table,
+            pos0=pos0, win=win, win_count=s, commit=False)
+        insert_window_rows(win, rows, s)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        if num_logprobs is not None:
+            lps.append(token_logprobs(logits, tok, num_logprobs))
+    cache = commit_window(cache, win, pos0, block_table, num_steps)
+    toks = torch.stack(toks, dim=1)
+    if num_logprobs is None:
+        return toks, cache
+    return toks, tuple(torch.stack(x, dim=1) for x in zip(*lps)), cache
 
 
 def resolve_device(device) -> torch.device:

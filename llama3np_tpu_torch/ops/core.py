@@ -1,5 +1,6 @@
 """Plain PyTorch ops: RMSNorm, SwiGLU, fused projections, RoPE, causal and
-cache attention.
+cache attention, and the serving path's ragged and paged decode attention
+and cache commits.
 
 The counterparts of `llama3np_tpu.ops.core`, with the same arguments,
 layouts and numerics: f32 accumulation under low-precision weights, GQA as a
@@ -9,13 +10,18 @@ data-dependent slicing.  They run wherever no kernel does: on the CPU, under
 stays plain in both packages.  The dense projections are `torch.matmul`, as
 the JAX package left them to XLA.
 
-Positions (`pos`) are host integers: the port's loops know them on the host.
+Positions (`pos`) of the dense path are host integers: the port's loops
+know them on the host.  The serving ops take per-row positions as [B]
+integer tensors on the device, and update caches and pools in place (the
+JAX package returns new arrays); each commit is one advanced-index
+assignment into the pool.  The int8 forms (`quantize_kv_rows`, the scale
+gathers) are still to port (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -230,3 +236,218 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     k_cache[:, :, pos : pos + L] = k.transpose(1, 2).to(k_cache.dtype)
     v_cache[:, :, pos : pos + L] = v.transpose(1, 2).to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Ragged (per-row position) decode: the serving path
+# ---------------------------------------------------------------------------
+
+def ragged_update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                           k: torch.Tensor, v: torch.Tensor,
+                           pos: torch.Tensor):
+    """Per-row single-token cache write: row b lands at its own pos[b].
+
+    k, v: [B, 1, KVH, HD]; pos: [B]; caches [B, KVH, M, HD], updated in
+    place and returned.  A position past the cache clamps to its last row,
+    as the JAX package's `dynamic_update_slice` does."""
+    B, M = k_cache.shape[0], k_cache.shape[2]
+    rows = torch.arange(B, device=k_cache.device)
+    p = pos.long().clamp(0, M - 1)
+    k_cache[rows, :, p] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, :, p] = v[:, 0].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def paged_update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          page_ids: torch.Tensor, offsets: torch.Tensor):
+    """Scatter one token's K/V per row into one layer's page pool
+    [P, KVH, page, HD], in place: row b's token lands at (page_ids[b], :,
+    offsets[b]).  k, v: [B, 1, KVH, HD]."""
+    k_pages[page_ids.long(), :, offsets.long()] = k[:, 0].to(k_pages.dtype)
+    v_pages[page_ids.long(), :, offsets.long()] = v[:, 0].to(v_pages.dtype)
+    return k_pages, v_pages
+
+
+def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """One layer's pool [P, KVH, page, HD] gathered by the block table
+    [B, maxp] into per-row dense rows [B, KVH, maxp*page, HD]."""
+    B, maxp = block_table.shape
+    kvh, page, hd = pool.shape[1], pool.shape[2], pool.shape[3]
+    g = pool[block_table.long()]  # [B, maxp, KVH, page, HD]
+    return g.transpose(1, 2).reshape(B, kvh, maxp * page, hd)
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    """Decode attention over one layer's page pool (gather form).
+
+    q: [B, 1, NH, HD]; pools [P, KVH, page, HD]; block_table [B, maxp]
+    (unused entries -> null page 0); pos [B]: row b attends kv_idx <=
+    pos[b].  Gathers each row's pages into a dense view and applies the
+    ragged mask: the numerics oracle of the paged-attention kernel
+    (`ops.kernels.paged_attention`), which follows the block table instead
+    of materializing the gather.  Returns [B, 1, NH, HD]."""
+    return ragged_cache_attention(q, _gather_pages(k_pages, block_table),
+                                  _gather_pages(v_pages, block_table), pos)
+
+
+def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor,
+                           cur_k: Optional[torch.Tensor] = None,
+                           cur_v: Optional[torch.Tensor] = None,
+                           win_k: Optional[torch.Tensor] = None,
+                           win_v: Optional[torch.Tensor] = None,
+                           win_count: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention with per-row visible lengths.
+
+    q: [B, 1, NH, HD]; caches [B, KVH, M, HD]; pos: [B].  Returns
+    [B, 1, NH, HD].
+
+    Plain mode: row b attends kv_idx <= pos[b].
+
+    Appended-current mode (cur_k/cur_v [B, KVH, HD], cache dtype): the
+    cache is read-only and holds tokens 0..pos[b]-1 (the mask is strict,
+    kv_idx < pos), and the current token's K/V are one explicit appended
+    column, so a layer loop never writes the cache it reads and all layers'
+    rows commit once after it.
+
+    In-flight window mode (win_k/win_v [B, KVH, Q, HD], cache dtype, with
+    host int win_count; needs appended-current mode): the quantum loop's
+    deferred-commit form.  `pos` is the quantum's start position (the cache
+    holds tokens < pos[b] for the whole quantum), window column s holds the
+    K/V of the token decoded at quantum step s, and only columns s <
+    win_count are visible.
+    """
+    B, L, NH, HD = q.shape
+    if L != 1:
+        raise ValueError("ragged attention is a decode (single-token) op")
+    KVH, M = k_cache.shape[1], k_cache.shape[2]
+    G = NH // KVH
+    append = cur_k is not None
+    if win_k is not None and not append:
+        raise ValueError("window mode requires appended-current mode")
+    qg = q.reshape(B, KVH, G, HD).float()
+    scores = torch.einsum("bkgd,bkmd->bkgm", qg, k_cache.float()) / math.sqrt(HD)
+    kv_idx = torch.arange(M, device=q.device)[None, None, None, :]
+    lim = pos.to(q.device)[:, None, None, None]
+    nwin = 0
+    if append:
+        scores = scores.masked_fill(~(kv_idx < lim), float("-inf"))
+        parts = [scores]
+        if win_k is not None:
+            nwin = win_k.shape[2]
+            s_win = torch.einsum("bkgd,bkqd->bkgq", qg, win_k.float()) / math.sqrt(HD)
+            col = torch.arange(nwin, device=q.device)
+            parts.append(s_win.masked_fill(~(col < win_count), float("-inf")))
+        s_cur = torch.einsum("bkgd,bkd->bkg", qg, cur_k.float()) / math.sqrt(HD)
+        parts.append(s_cur[..., None])
+        scores = torch.cat(parts, dim=-1)
+    else:
+        scores = scores.masked_fill(~(kv_idx <= lim), float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    p_win = probs[..., M : M + nwin] if nwin else None
+    p_cur = probs[..., M + nwin :] if append else None  # [B, KVH, G, 1]
+    probs = probs[..., :M].to(v_cache.dtype)
+    out = torch.einsum("bkgm,bkmd->bkgd", probs.float(), v_cache.float())
+    if nwin:
+        # Masked columns carry probs exactly 0 (softmax of -inf), so the
+        # stale rows in unwritten window columns contribute nothing.
+        out = out + torch.einsum("bkgq,bkqd->bkgd",
+                                 p_win.to(q.dtype).float(), win_v.float())
+    if append:
+        out = out + p_cur * cur_v.float()[:, :, None, :]
+    return out.reshape(B, 1, NH, HD).to(q.dtype)
+
+
+def paged_attention_stacked(q: torch.Tensor, k_pools: torch.Tensor,
+                            v_pools: torch.Tensor, li: int,
+                            block_table: torch.Tensor, pos: torch.Tensor,
+                            cur_k: Optional[torch.Tensor] = None,
+                            cur_v: Optional[torch.Tensor] = None,
+                            win_k: Optional[torch.Tensor] = None,
+                            win_v: Optional[torch.Tensor] = None,
+                            win_count: Optional[int] = None) -> torch.Tensor:
+    """Paged decode attention reading layer `li` of the stacked pools
+    [NL, P, KVH, page, HD]: gathers layer li's block-table pages and
+    attends with the current token appended (and the in-flight window,
+    when given), as `ragged_cache_attention` sets out."""
+    return ragged_cache_attention(
+        q, _gather_pages(k_pools[li], block_table),
+        _gather_pages(v_pools[li], block_table), pos, cur_k=cur_k,
+        cur_v=cur_v, win_k=win_k, win_v=win_v, win_count=win_count)
+
+
+# The commits below write every layer's new rows into the cache in one
+# in-place advanced-index assignment.  Where two targets coincide (quantum
+# overrun positions clamp into a row's last page; parked and idle rows all
+# write the null page) the order in which they land is undefined, as in
+# the JAX package's scatter; those slots are never attended before they are
+# written again.  Indexing dims 1 and 3 of a 5-d cache puts the index dims
+# first: `cache[:, i, :, j]` is [*i.shape, NL, KVH, HD].
+
+def commit_decode_rows_paged(cache: Dict, k_rows: torch.Tensor,
+                             v_rows: torch.Tensor, page_ids: torch.Tensor,
+                             offsets: torch.Tensor) -> Dict:
+    """Commit every layer's new decode K/V rows [NL, B, KVH, HD] to the
+    paged pool in place: row b lands at (layer, page_ids[b], :,
+    offsets[b]).  Returns the cache."""
+    pid, off = page_ids.long(), offsets.long()
+    cache["k"][:, pid, :, off] = k_rows.transpose(0, 1).to(cache["k"].dtype)
+    cache["v"][:, pid, :, off] = v_rows.transpose(0, 1).to(cache["v"].dtype)
+    return cache
+
+
+def _window_slots(pos0: torch.Tensor, num_steps: int) -> torch.Tensor:
+    """Positions pos0[b] + s of a quantum's window columns, [B, Q]."""
+    return (pos0.long()[:, None]
+            + torch.arange(num_steps, device=pos0.device)[None, :])
+
+
+def commit_window_paged(cache: Dict, win: Dict, pos0: torch.Tensor,
+                        block_table: torch.Tensor, num_steps: int) -> Dict:
+    """Commit a whole quantum's in-flight window to the paged pool in place:
+    win["k"/"v"] [NL, B, KVH, Q, HD]; column s of row b lands at the (page,
+    offset) of position pos0[b] + s through the block table.  Positions
+    past the table clamp into the row's last block-table entry."""
+    page = cache["k"].shape[3]
+    maxp = block_table.shape[1]
+    steps = _window_slots(pos0, num_steps)
+    pidx = torch.gather(block_table.long(), 1,
+                        torch.clamp(steps // page, max=maxp - 1))
+    offs = steps % page
+    for name in ("k", "v"):  # [NL, B, KVH, Q, HD] -> [B, Q, NL, KVH, HD]
+        cache[name][:, pidx, :, offs] = win[name].permute(1, 3, 0, 2, 4).to(
+            cache[name].dtype)
+    return cache
+
+
+def commit_window_dense(cache: Dict, win: Dict, pos0: torch.Tensor,
+                        num_steps: int) -> Dict:
+    """Dense-cache counterpart of `commit_window_paged`: window column s of
+    row b lands at (layer, b, :, pos0[b] + s) of the [NL, B, KVH, M, HD]
+    cache; overrun positions past M are dropped, as the JAX scatter drops
+    them.  (Selecting the in-range slots synchronises with the host.)"""
+    B, M = cache["k"].shape[1], cache["k"].shape[3]
+    steps = _window_slots(pos0, num_steps)
+    rows = torch.arange(B, device=steps.device)[:, None].expand_as(steps)
+    ok = steps < M
+    for name in ("k", "v"):
+        vals = win[name].permute(1, 3, 0, 2, 4)[ok]  # [N, NL, KVH, HD]
+        cache[name][:, rows[ok], :, steps[ok]] = vals.to(cache[name].dtype)
+    return cache
+
+
+def commit_decode_rows_dense(cache: Dict, k_rows: torch.Tensor,
+                             v_rows: torch.Tensor, pos: torch.Tensor) -> Dict:
+    """Dense-cache counterpart of `commit_decode_rows_paged`: rows
+    [NL, B, KVH, HD] land at (layer, b, :, pos[b]) of the [NL, B, KVH, M,
+    HD] cache in place; positions past M are dropped."""
+    B, M = cache["k"].shape[1], cache["k"].shape[3]
+    p = pos.long()
+    ok = p < M
+    rows = torch.arange(B, device=p.device)[ok]
+    cache["k"][:, rows, :, p[ok]] = k_rows.transpose(0, 1)[ok].to(cache["k"].dtype)
+    cache["v"][:, rows, :, p[ok]] = v_rows.transpose(0, 1)[ok].to(cache["v"].dtype)
+    return cache

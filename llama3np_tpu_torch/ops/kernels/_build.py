@@ -48,6 +48,14 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
         ctypes.c_float, _I, _P,            # eps, device, stream
     ]),
+    "l3t_paged_attention_f32": (ctypes.c_int, [
+        _P, _P, _P, _P, _P,                # q, k_pools, v_pools, table, pos
+        _P, _P, _P, _P,                    # cur_k, cur_v, win_k, win_v
+        _P, _P, _P,                        # out, part_ml, part_acc
+        _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
+        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
+        _I, _P,                            # device, stream
+    ]),
 }
 
 

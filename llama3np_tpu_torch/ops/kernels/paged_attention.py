@@ -1,0 +1,177 @@
+"""Paged decode attention: batched single-token attention over the page
+pool, following each row's block table, as a hand-written CUDA kernel
+(`csrc/paged_attention.cu`) beside its plain PyTorch version.
+
+Counterpart of `llama3np_tpu.ops.kernels.paged_attention.paged_attention`,
+with the same arguments and the same three float32 modes:
+
+* plain: pools [P, KVH, page, HD], row b attends kv_idx <= pos[b];
+* stacked (`layer` given): the whole-model pools [NL, P, KVH, page, HD]
+  read at `layer`, holding tokens < pos[b], with the current token's
+  cur_k/cur_v [B, KVH, HD] appended as one column;
+* window (stacked plus win_k/win_v [B, KVH, Q, HD] and host int
+  `win_count`): the quantum loop's in-flight rows, the first `win_count`
+  visible.
+
+The kernel takes float32 pools and any even HD <= 128; the JAX
+`supports()` gate (HD % 128 == 0) was a TPU DMA rule and has no
+counterpart, so every paged decode on the card goes through the kernel.
+int8 pools (the scale arguments) and bf16 pools are still to port (ROADMAP
+A8).  `paged_attention` launches the kernel for CUDA tensors and runs
+`paged_attention_plain` for CPU tensors; there is no fallback from one to
+the other.  `paged_attention.launches` counts launches (one per call).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from .. import core
+from . import _build
+
+
+def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, block_table: torch.Tensor,
+                          pos: torch.Tensor, layer: Optional[int] = None,
+                          cur_k=None, cur_v=None, win_k=None, win_v=None,
+                          win_count: Optional[int] = None) -> torch.Tensor:
+    """The same function in plain PyTorch: the gather oracle
+    (`ops.core.paged_attention`, or `paged_attention_stacked` when `layer`
+    is given)."""
+    if layer is None:
+        return core.paged_attention(q, k_pages, v_pages, block_table, pos)
+    return core.paged_attention_stacked(q, k_pages, v_pages, layer,
+                                        block_table, pos, cur_k=cur_k,
+                                        cur_v=cur_v, win_k=win_k, win_v=win_v,
+                                        win_count=win_count)
+
+
+def _check_args(q, k_pages, v_pages, block_table, pos, layer, cur_k, cur_v,
+                win_k, win_v, win_count):
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"paged_attention takes q [B, 1, NH, HD], got {tuple(q.shape)}")
+    B, _, NH, HD = q.shape
+    stacked = layer is not None
+    want_dim = 5 if stacked else 4
+    if k_pages.dim() != want_dim or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_attention takes pools of {want_dim} dims "
+                         f"({'[NL, P, KVH, page, HD]' if stacked else '[P, KVH, page, HD]'}); "
+                         f"got {tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    KVH, hd = k_pages.shape[-3], k_pages.shape[-1]
+    if hd != HD or NH % KVH:
+        raise ValueError(f"q {tuple(q.shape)} and pools {tuple(k_pages.shape)} disagree")
+    if stacked and not 0 <= layer < k_pages.shape[0]:
+        raise ValueError(f"layer {layer} outside the pools' {k_pages.shape[0]} layers")
+    if block_table.dim() != 2 or block_table.shape[0] != B or tuple(pos.shape) != (B,):
+        raise ValueError(f"block_table must be [B, maxp] and pos [B] for B={B}; got "
+                         f"{tuple(block_table.shape)} / {tuple(pos.shape)}")
+    if stacked != (cur_k is not None) or (cur_k is None) != (cur_v is None):
+        raise ValueError("stacked mode (layer given) takes cur_k and cur_v, "
+                         "plain mode neither")
+    if stacked and (tuple(cur_k.shape) != (B, KVH, HD) or cur_v.shape != cur_k.shape):
+        raise ValueError(f"cur_k/cur_v must be [B, KVH, HD] = [{B}, {KVH}, {HD}]")
+    window = win_k is not None
+    if window:
+        if not stacked:
+            raise ValueError("window mode requires stacked mode")
+        if win_k.dim() != 4 or tuple(win_k.shape[:2]) != (B, KVH) \
+                or win_k.shape[3] != HD or win_v is None or win_v.shape != win_k.shape:
+            raise ValueError(f"win_k/win_v must be [B, KVH, Q, HD] = [{B}, {KVH}, Q, {HD}]")
+        if win_count is None or not 0 <= int(win_count) <= win_k.shape[2]:
+            raise ValueError(f"win_count must be in [0, {win_k.shape[2]}], got {win_count}")
+    elif win_v is not None:
+        raise ValueError("win_v given without win_k")
+    tensors = [q, k_pages, v_pages, block_table, pos] + [
+        t for t in (cur_k, cur_v, win_k, win_v) if t is not None]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("paged_attention: every tensor must lie on q's device")
+    return tensors
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits(B: int, KVH: int, maxp: int, device) -> int:
+    """Blocks a row's page list is split over: about four blocks per SM for
+    the whole batch (three fit by shared memory, and the blocks of short
+    rows end at once), never more than the table has pages."""
+    return max(1, min(-(-4 * _sm_count(device.index) // (B * KVH)), maxp))
+
+
+def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, block_table: torch.Tensor,
+                    pos: torch.Tensor, k_scale_rows=None, v_scale_rows=None,
+                    layer: Optional[int] = None, cur_k=None, cur_v=None,
+                    cur_ks=None, cur_vs=None, win_k=None, win_v=None,
+                    win_ks=None, win_vs=None,
+                    win_count: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over the paged cache, following the block tables.
+
+    q: [B, 1, NH, HD]; pools [P, KVH, page, HD] (or [NL, P, KVH, page, HD]
+    with `layer`); block_table [B, maxp] (unused entries -> null page 0);
+    pos [B].  Modes as the module docstring sets out.  A row whose pos ran
+    past its table attends the table's pages and stays in bounds.  Returns
+    [B, 1, NH, HD].  CUDA tensors must be contiguous, float32 (pools, q and
+    the appended rows) and int32 (block_table, pos).
+    """
+    if any(t is not None for t in (k_scale_rows, v_scale_rows, cur_ks,
+                                   cur_vs, win_ks, win_vs)):
+        raise NotImplementedError("int8 paged pools are still to port "
+                                  "(ROADMAP A8)")
+    tensors = _check_args(q, k_pages, v_pages, block_table, pos, layer,
+                          cur_k, cur_v, win_k, win_v, win_count)
+    win_count = 0 if win_k is None else int(win_count)
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, block_table, pos,
+                                     layer, cur_k, cur_v, win_k, win_v,
+                                     win_count if win_k is not None else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on CUDA or CPU tensors, not {q.device}")
+    floats = [t for t in tensors if t is not block_table and t is not pos]
+    if any(t.dtype != torch.float32 for t in floats):
+        raise NotImplementedError(
+            f"the paged_attention kernel takes float32 pools and rows (got "
+            f"{k_pages.dtype} pools); bf16 and int8 pools are still to port "
+            "(ROADMAP A8); use attn_impl='xla'")
+    if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("paged_attention takes int32 block_table and pos on the card")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention takes contiguous tensors")
+    B, _, NH, HD = q.shape
+    KVH, page = k_pages.shape[-3], k_pages.shape[-2]
+    P, maxp = k_pages.shape[-4], block_table.shape[1]
+    G = NH // KVH
+    if HD % 2 or HD > 128 or G * HD > 2048 or page > 128:
+        raise ValueError(f"the paged_attention kernel takes an even head_dim <= 128, "
+                         f"G*HD <= 2048 and page <= 128; got HD={HD}, G={G}, page={page}")
+    win_q = 0 if win_k is None else win_k.shape[2]
+    lib = _build.KernelLibrary.get()
+    S = _splits(B, KVH, maxp, q.device)
+    o = torch.empty_like(q)
+    scratch = torch.empty(B * KVH * S * G * (HD + 2) if S > 1 else 1,
+                          dtype=torch.float32, device=q.device)
+    part_ml = scratch[: B * KVH * S * G * 2]
+    part_acc = scratch[B * KVH * S * G * 2 :] if S > 1 else scratch
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.l3t_paged_attention_f32(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), pos.data_ptr(), ptr(cur_k), ptr(cur_v),
+        ptr(win_k), ptr(win_v), o.data_ptr(), part_ml.data_ptr(),
+        part_acc.data_ptr(), B, NH, KVH, HD, P, page, maxp,
+        0 if layer is None else int(layer), int(layer is not None), win_q,
+        win_count, S, q.device.index, stream)
+    _build.check(rc, "paged_attention")
+    paged_attention.launches += 1
+    return o
+
+
+paged_attention.launches = 0

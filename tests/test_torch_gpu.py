@@ -7,6 +7,7 @@ only torch and the port, so it needs no JAX and runs on the card as
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +16,9 @@ from llama3np_tpu_torch.ops.kernels.decode_step import (decode_layers,
                                                         decode_layers_plain)
 from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
                                                           flash_prefill_plain)
+from llama3np_tpu_torch.ops.kernels.paged_attention import (
+    paged_attention, paged_attention_plain)
+from llama3np_tpu_torch.serving import BatchEngine
 
 pytestmark = pytest.mark.gpu
 
@@ -92,3 +96,117 @@ def test_card_engine_matches_cpu_engine(cuda, name):
     assert decode_layers.launches == before[1] + 11
     want = Llama(w, args, device="cpu").generate_tokens(ids, 12)
     assert got.tolist() == want.tolist()
+
+
+def _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed):
+    """Pools with shuffled block tables and null-page padding; row 0 overran
+    its table (pos past maxp*page), the others are ragged."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g).to(cuda)
+
+    P = 1 + B * maxp
+    perm = torch.randperm(P - 1, generator=g)[: B * maxp] + 1
+    bt = perm.reshape(B, maxp).to(torch.int32)
+    pos = torch.randint(0, maxp * page, (B,), generator=g, dtype=torch.int32)
+    pos[0] = maxp * page + 5
+    pos[1] = 0
+    for b in range(1, B):  # unused entries -> null page 0
+        bt[b, int(pos[b]) // page + 1 :] = 0
+    return dict(q=rnd(B, 1, NH, HD), kp=rnd(NL, P, KVH, page, HD),
+                vp=rnd(NL, P, KVH, page, HD), bt=bt.to(cuda), pos=pos.to(cuda),
+                ck=rnd(B, KVH, HD), cv=rnd(B, KVH, HD),
+                wk=rnd(B, KVH, Q, HD), wv=rnd(B, KVH, Q, HD))
+
+
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window0", "window1", "window3"])
+@pytest.mark.parametrize("NH,KVH,HD", [(6, 6, 48), (8, 2, 64), (4, 1, 128)])
+def test_paged_attention_kernel_matches_plain(cuda, mode, NH, KVH, HD):
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD)
+    if mode == "plain":
+        args = (a["q"], a["kp"][1].contiguous(), a["vp"][1].contiguous(), a["bt"], a["pos"])
+        kw = {}
+    else:
+        args = (a["q"], a["kp"], a["vp"], a["bt"], a["pos"])
+        kw = dict(layer=1, cur_k=a["ck"], cur_v=a["cv"])
+        if mode.startswith("window"):
+            kw.update(win_k=a["wk"], win_v=a["wv"], win_count=int(mode[-1]))
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    want = paged_attention_plain(*args, **kw)
+    torch.testing.assert_close(got[1:], want[1:], rtol=1e-4, atol=1e-5)
+    # The overrun row attends its whole table, as the gather oracle does.
+    torch.testing.assert_close(got[:1], want[:1], rtol=1e-4, atol=1e-5)
+
+
+def test_paged_attention_kernel_ignores_masked_garbage(cuda):
+    """Non-finite values behind the mask (the tail of a row's last page,
+    the null page, unwritten window columns) must not reach the output."""
+    B, NH, KVH, HD, page, maxp = 3, 8, 2, 64, 16, 4
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, 2, 4, seed=1)
+    pos = torch.tensor([5, 17, 40], dtype=torch.int32, device=cuda)
+    bt = torch.arange(1, 1 + B * maxp, dtype=torch.int32, device=cuda).reshape(B, maxp)
+    bt[:, 3:] = 0
+    clean = paged_attention(a["q"], a["kp"], a["vp"], bt, pos, layer=0,
+                            cur_k=a["ck"], cur_v=a["cv"], win_k=a["wk"],
+                            win_v=a["wv"], win_count=2)
+    kp, vp, wk, wv = a["kp"].clone(), a["vp"].clone(), a["wk"].clone(), a["wv"].clone()
+    kp[:, 0] = float("nan")
+    vp[:, 0] = float("inf")
+    for b, p in enumerate(pos.tolist()):  # slots >= pos of the row's pages
+        for t in range(p, 3 * page):
+            pid = int(bt[b, t // page])
+            kp[0, pid, :, t % page] = float("nan")
+            vp[0, pid, :, t % page] = float("nan")
+    wk[:, :, 2:] = float("nan")
+    wv[:, :, 2:] = float("inf")
+    got = paged_attention(a["q"], kp, vp, bt, pos, layer=0, cur_k=a["ck"],
+                          cur_v=a["cv"], win_k=wk, win_v=wv, win_count=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, clean, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_paged_attention_kernel_refuses_unported_pools(cuda, dtype):
+    q = torch.zeros(1, 1, 4, 16, device=cuda)
+    pool = torch.zeros(3, 2, 8, 16, device=cuda).to(dtype)
+    bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        paged_attention(q, pool, pool, bt, pos)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        paged_attention(q, pool.float(), pool.float(), bt, pos,
+                        k_scale_rows=torch.ones(1, 2, 16, device=cuda),
+                        v_scale_rows=torch.ones(1, 2, 16, device=cuda))
+
+
+@pytest.mark.parametrize("quantum", [1, 3])
+def test_card_batch_engine_matches_cpu_engine(cuda, quantum):
+    args = preset("test-tiny")
+    w = synthetic_weights(args, seed=23)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, args.vocab_size, size=n).tolist() for n in (4, 9, 6)]
+
+    def serve(device):
+        be = BatchEngine(Llama(w, args, device=device), capacity=2, paged=True,
+                         page_size=8)
+        reqs, steps = [be.submit(prompts[0], 10)], 0
+        for p in prompts[1:]:
+            be.step(quantum)
+            steps += quantum
+            reqs.append(be.submit(p, 10))
+        while be.num_active or be._queue:
+            be.step(quantum)
+            steps += quantum
+        assert be.allocator.available == be.allocator.num_pages - 1
+        return [r.generated for r in reqs], steps
+
+    before = paged_attention.launches
+    got, steps = serve(cuda)
+    assert paged_attention.launches == before + args.n_layers * steps
+    assert got == serve("cpu")[0]
