@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from `llama3np_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the shapes the
-main path gives it (stories15M and tinyllama-1.1b widths), drives greedy
+main path gives it (stories15M and tinyllama-1.1b widths; the decode and
+paged-attention kernels in their float32 and int8 modes), drives greedy
 generation end to end through the port's entry points (stories15M against
 the port's NumPy oracle; tinyllama-1.1b at full width and depth against the
 plain path on the same card), traces each model's prefill and a few
@@ -16,7 +17,12 @@ share), runs the CLI, then drives continuous-batching serving of
 tinyllama-1.1b at full width and depth over the paged KV cache (12
 staggered requests at quanta 1 and 4 and with chunked admission, every
 served stream against its solo stream, exact launch counts, no leaked
-pages; the plain path's rate; a traced window of serving steps), and
+pages; the plain path's rate; a traced window of serving steps).  Last,
+tinyllama-1.1b with int8 weights: greedy generation through the decode
+kernel's int8 mode (on grid-snapped weights against the fp32 kernel
+stream, on the synthetic weights against the int8 plain path), and
+serving with int8 weights and int8 KV through the paged kernel's int8
+mode (every stream against its capacity-1 stream), each traced.  It
 prints one JSON line per phase.  Any failure raises and exits non-zero; the last line,
 `{"ok": true, "device": {...}}`, is printed only when every phase passed.
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -162,6 +168,8 @@ class Smoke:
         return row
 
     def decode_phase(self, model: str, layers, args, pos: int):
+        """The decode kernel against its plain twin; `layers` holds float32
+        weights, or int8 weights with their scales (the int8 mode)."""
         torch = self.torch
         from llama3np_tpu_torch.ops.kernels.decode_step import (
             decode_layers, decode_layers_plain)
@@ -194,13 +202,13 @@ class Smoke:
         plain_ms = time_ms(torch, lambda: decode_layers_plain(
             layers, x, pos, k2, v2, cos, sin, **kw), reps)
         decode_layers.launches = launches  # comparison launches do not count
-        w_elems = sum(layers[n].numel() for n in
-                      ("wqkv", "wo", "wgu", "w_down", "attn_norm", "ffn_norm"))
-        nbytes = 4.0 * (w_elems + 2 * args.dim + hd
-                        + 2 * nl * kvh * hd * (pos + 1))
+        mode = "int8" if "wqkv_scale" in layers else "fp32"
+        w_elems = sum(layers[n].numel() for n in ("wqkv", "wo", "wgu", "w_down"))
+        nbytes = (sum(t.numel() * t.element_size() for t in layers.values())
+                  + 4.0 * (2 * args.dim + hd + 2 * nl * kvh * hd * (pos + 1)))
         flops = 2.0 * w_elems + 4.0 * nl * args.n_heads * hd * (pos + 1)
         bound_ms, bound_by = bound(nbytes, flops)
-        row = {"phase": "kernel", "kernel": "decode_layers", "model": model,
+        row = {"phase": "kernel", "kernel": "decode_layers", "mode": mode, "model": model,
                "shape": {"NL": nl, "D": args.dim, "NH": args.n_heads,
                          "KVH": kvh, "HD": hd, "FD": args.hidden_dim, "M": M,
                          "pos": pos},
@@ -212,16 +220,21 @@ class Smoke:
         return row
 
     def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
-                    Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3):
+                    Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3,
+                    quant: bool = False):
         """The paged-attention kernel against its plain twin in its three
         modes (plain, stacked with the current column, window at win_count
         0, 1 and Q), on shuffled block tables with null-page padding, and
-        an overrun row.  Timing rotates over NL layers of pools (more than
-        the 50 MB L2 at tinyllama widths), as a decode step's layers find
-        their pools cold.  `ms` is the kernels' device time per call (the
-        attention kernel and the merge); `event_ms` the CUDA-event time of
-        back-to-back wrapper calls, which the host's enqueue bounds."""
+        an overrun row; `quant` runs the int8-pool mode (pools, rows and
+        window quantized per token and KV head, with their scales) and
+        also fills the scale slots no row may read with NaN/inf.  Timing
+        rotates over NL layers of pools (more than the 50 MB L2), as a
+        decode step's layers find their pools cold.  `ms` is the kernels'
+        device time per call (the attention kernel and the merge);
+        `event_ms` the CUDA-event time of back-to-back wrapper calls, which
+        the host's enqueue bounds."""
         torch = self.torch
+        from llama3np_tpu_torch.ops.core import quantize_kv_rows
         from llama3np_tpu_torch.ops.kernels.paged_attention import (
             paged_attention, paged_attention_plain)
 
@@ -236,13 +249,26 @@ class Smoke:
         kp, vp = self.randn(NL, P, KVH, page, HD), self.randn(NL, P, KVH, page, HD)
         ck, cv = self.randn(B, KVH, HD), self.randn(B, KVH, HD)
         wk, wv = self.randn(B, KVH, Q, HD), self.randn(B, KVH, Q, HD)
+        sc = {}
+        if quant:
+            (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
+            (ck, cks), (cv, cvs) = quantize_kv_rows(ck), quantize_kv_rows(cv)
+            (wk, wks), (wv, wvs) = quantize_kv_rows(wk), quantize_kv_rows(wv)
+            sc = dict(k_scale=ks, v_scale=vs, cur_ks=cks, cur_vs=cvs,
+                      win_ks=wks, win_vs=wvs)
 
-        def call(mode, li, p=pos):
+        def call(mode, li, p=pos, sc=sc, kp=kp, vp=vp):
             if mode == "plain":
-                return (q, kp[li], vp[li], bt, p), {}
+                kw = dict(k_scale=sc["k_scale"][li], v_scale=sc["v_scale"][li]) if sc else {}
+                return (q, kp[li], vp[li], bt, p), kw
             kw = dict(layer=li, cur_k=ck, cur_v=cv)
+            if sc:
+                kw.update(k_scale=sc["k_scale"], v_scale=sc["v_scale"],
+                          cur_ks=sc["cur_ks"], cur_vs=sc["cur_vs"])
             if mode.startswith("window"):
                 kw.update(win_k=wk, win_v=wv, win_count=int(mode[6:]))
+                if sc:
+                    kw.update(win_ks=sc["win_ks"], win_vs=sc["win_vs"])
             return (q, kp, vp, bt, p), kw
 
         def rotate(fn, mode):
@@ -267,7 +293,8 @@ class Smoke:
             extra = 0 if mode == "plain" else 1 + kw.get("win_count", 0)
             cols = sum(held) + B * extra
             pages = sum(-(-h // page) for h in held)
-            nbytes = 4.0 * (2 * KVH * HD * cols + 2 * B * NH * HD + pages + B)
+            per_token = 2 * KVH * (HD + 4) if quant else 8 * KVH * HD  # K, V (+ scales)
+            nbytes = per_token * cols + 4.0 * (2 * B * NH * HD + pages + B)
             bound_ms, bound_by = bound(nbytes, 4.0 * NH * HD * cols)
             modes[mode] = {
                 "max_abs_err": max_abs, "max_rel_err": max_rel,
@@ -275,7 +302,7 @@ class Smoke:
                 "event_ms": time_ms(torch, rotate(paged_attention, mode), 50),
                 "plain_ms": time_ms(torch, rotate(paged_attention_plain, mode), 5, warmup=1),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "visible_kv_mb": 8.0 * KVH * HD * cols / 1e6}
+                "visible_kv_mb": per_token * cols / 1e6}
         # An overrun row (pos past its table) stays in bounds and finite,
         # and leaves the other rows' outputs bit for bit as they were.
         over = pos.clone()
@@ -291,12 +318,35 @@ class Smoke:
                                  "other rows or is not finite")
         compare(torch, got, paged_attention_plain(*a, **kw), rtol, atol,
                 f"paged_attention {model} overrun row")
+        if quant:  # slots behind the mask hold NaN/inf scales and garbage values
+            wc = Q // 2
+            a, kw = call(f"window{wc}", layer)
+            clean = paged_attention(*a, **kw)
+            bad = {k: v.clone() for k, v in sc.items()}
+            kp2, vp2 = kp.clone(), vp.clone()
+            bad["k_scale"][:, 0], bad["v_scale"][:, 0] = float("nan"), float("inf")
+            kp2[:, 0], vp2[:, 0] = 127, -128
+            for b, p in enumerate(pos_list):  # the tail of each row's last page
+                for t in range(p, min(-(-p // page) * page, maxp * page)):
+                    pid = int(bt[b, t // page])
+                    bad["k_scale"][:, pid, :, t % page] = float("nan")
+                    bad["v_scale"][:, pid, :, t % page] = float("inf")
+                    vp2[:, pid, :, t % page] = 99
+            bad["win_ks"][:, :, wc:], bad["win_vs"][:, :, wc:] = float("nan"), float("inf")
+            a, kw = call(f"window{wc}", layer, sc=bad, kp=kp2, vp=vp2)
+            got = paged_attention(*a, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, clean):
+                raise AssertionError(f"paged_attention int8 {model}: masked scale "
+                                     "slots changed the output")
         paged_attention.launches = launches  # comparison launches do not count
-        row = {"phase": "kernel", "kernel": "paged_attention", "model": model,
+        row = {"phase": "kernel", "kernel": "paged_attention",
+               "mode": "int8" if quant else "fp32", "model": model,
                "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
-                         "maxp": maxp, "P": P, "pos": pos_list, "Q": Q},
+                         "maxp": maxp, "P": P, "pos": pos_list, "Q": Q, "NL": NL},
                "tol": {"rtol": rtol, "atol": atol}, "modes": modes,
-               "overrun_row_ok": True, "library_ms": None, "card": self.card}
+               "overrun_row_ok": True, "masked_scales_ignored": quant or None,
+               "library_ms": None, "card": self.card}
         emit(row)
         return row
 
@@ -327,9 +377,31 @@ def trace(torch, fn, top: int = 6):
                          for k, ms, n in rows[:top]]}, rows
 
 
+def kind(name: str) -> str:
+    """The class of a device kernel, for the time splits of the traces:
+    GEMMs (cuBLAS/CUTLASS), the paged-attention kernel, copies and casts
+    (an int8 weight's conversion to f32 before its matmul is one), and the
+    other torch ops."""
+    n = name.lower()
+    if "paged_attn" in n:
+        return "paged_attention"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
+        return "gemm"
+    if "copy" in n:
+        return "copy_cast"
+    return "other"
+
+
+def by_kind(rows) -> dict:
+    out = {}
+    for name, ms, _ in rows:
+        out[kind(name)] = out.get(kind(name), 0.0) + ms
+    return out
+
+
 def profile_phase(torch, model: str, engine, prompt, card: str):
     """Trace the prefill and 8 decode tokens (kernel path) with
-    torch.profiler (`trace`)."""
+    torch.profiler (`trace`), with the device time by kind of kernel."""
     from llama3np_tpu_torch.generate import pad_prompt, prefill_step
 
     gen = engine._gen
@@ -342,13 +414,15 @@ def profile_phase(torch, model: str, engine, prompt, card: str):
 
     prefill(engine.init_cache(1))  # warm
     cache = engine.init_cache(1)  # allocated outside the traced window
-    (tok0, cache), pre, _ = trace(torch, lambda: prefill(cache))
+    (tok0, cache), pre, pre_rows = trace(torch, lambda: prefill(cache))
     gen.decode_fn(2)(engine.params, tok0, L, cache, engine.cos, engine.sin)  # warm
-    _, dec, _ = trace(torch, lambda: gen.decode_fn(8)(engine.params, tok0, L, cache,
-                                                      engine.cos, engine.sin))
+    _, dec, dec_rows = trace(torch, lambda: gen.decode_fn(8)(
+        engine.params, tok0, L, cache, engine.cos, engine.sin))
     return {"phase": "profile", "model": model, "path": "kernels",
-            "prefill": {"bucket": int(ids.shape[1]), **pre},
-            "decode": {"tokens": 8, "from_pos": L, **dec}, "card": card}
+            "prefill": {"bucket": int(ids.shape[1]), **pre,
+                        "device_ms_by_kind": by_kind(pre_rows)},
+            "decode": {"tokens": 8, "from_pos": L, **dec,
+                       "device_ms_by_kind": by_kind(dec_rows)}, "card": card}
 
 
 def _wrappers():
@@ -394,7 +468,8 @@ def solo_streams(engine, workload):
     return out
 
 
-def serve(torch, engine, workload, quantum: int, admit_chunk=None):
+def serve(torch, engine, workload, quantum: int, admit_chunk=None,
+          kv_quant=None):
     """Serve `workload` through a paged BatchEngine (capacity 8, page 16):
     6 requests at once, then 2 more after every 3 steps, so some queue;
     then drain.  Returns the streams and the run's counts and times.  The
@@ -402,7 +477,7 @@ def serve(torch, engine, workload, quantum: int, admit_chunk=None):
     from llama3np_tpu_torch.serving import BatchEngine
 
     be = BatchEngine(engine, capacity=8, paged=True, page_size=16,
-                     admit_chunk=admit_chunk)
+                     admit_chunk=admit_chunk, kv_quant=kv_quant)
     st = {"decode_steps": 0, "step_calls": 0, "admissions": 0, "admit_s": 0.0}
     step, prefill_into = be.step, be._prefill_into
 
@@ -439,21 +514,23 @@ def serve(torch, engine, workload, quantum: int, admit_chunk=None):
     tokens = sum(len(r.generated) for r in reqs) - len(reqs)  # less admissions' first tokens
     del be
     return [r.generated for r in reqs], {
-        "quantum": quantum, "admit_chunk": admit_chunk, "requests": len(reqs),
+        "quantum": quantum, "admit_chunk": admit_chunk, "kv_quant": kv_quant,
+        "requests": len(reqs),
         "decode_steps": st["decode_steps"], "admissions": st["admissions"],
         "decode_tokens": tokens, "wall_s": wall, "admit_s": st["admit_s"],
         "decode_s": decode_s, "served_tok_s": tokens / decode_s,
         "ms_per_step": decode_s * 1e3 / max(st["decode_steps"], 1)}
 
 
-def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: int = 4):
+def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: int = 4,
+                        kv_quant=None):
     """Trace `steps` serving steps at B=8 (quantum 1) with torch.profiler,
-    and split device time into the GEMMs (cuBLAS/CUTLASS), the
-    paged-attention kernel and the other torch ops (norms, RoPE, SwiGLU,
-    residuals, embedding, argmax)."""
+    and split device time by kind of kernel (`kind`: GEMMs, the
+    paged-attention kernel, copies and casts, the other torch ops: norms,
+    RoPE, SwiGLU, residuals, embedding, argmax)."""
     from llama3np_tpu_torch.serving import BatchEngine
 
-    be = BatchEngine(engine, capacity=8, paged=True, page_size=16)
+    be = BatchEngine(engine, capacity=8, paged=True, page_size=16, kv_quant=kv_quant)
     for p, _ in workload[:8]:
         be.submit(p, 400, stop_ids=())
     be.step()
@@ -462,23 +539,168 @@ def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: i
     pos = be.pos.tolist()
     del be
 
-    def kind(name):
-        n = name.lower()
-        if "paged_attn" in n:
-            return "paged_attention"
-        if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
-            return "gemm"
-        return "other"
-
-    by_kind = {}
-    for name, ms, _ in rows:
-        by_kind[kind(name)] = by_kind.get(kind(name), 0.0) + ms
-    dev = sum(by_kind.values()) or 1.0
+    split = by_kind(rows)
+    dev = sum(split.values()) or 1.0
     return {"phase": "profile", "model": model, "path": "serving", "batch": 8,
-            "steps": steps, "pos_after": pos, **win,
-            "device_ms_by_kind": by_kind,
-            "device_share_by_kind": {k: v / dev for k, v in by_kind.items()},
+            "kv_quant": kv_quant, "steps": steps, "pos_after": pos, **win,
+            "device_ms_by_kind": split,
+            "device_share_by_kind": {k: v / dev for k, v in split.items()},
             "card": card}
+
+
+def grid_weights(torch, weights):
+    """Weights snapped onto an int8 grid per output channel (the rule of
+    tests/test_quant.py:27-41), computed on the card: quantization then
+    round-trips, so the int8 engine computes the fp32 engine's numbers."""
+    out = {}
+    for k, v in weights.items():
+        if v.ndim == 2:
+            w = torch.from_numpy(v).to("cuda")
+            sc = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
+            v = (torch.clamp(torch.round(w / sc), -127, 127) * sc).cpu().numpy()
+        out[k] = v
+    return out
+
+
+def plain_twin(engine):
+    """The engine with its kernels off (the plain path: attn_impl="xla"),
+    sharing its weights on the card."""
+    import copy
+
+    twin = copy.copy(engine)
+    twin.cfg = engine.cfg._replace(kernels=False)
+    twin._gen = None
+    twin.cache = engine.init_cache()
+    return twin
+
+
+def solo_serve(engine, workload, kv_quant):
+    """Each request's stream from a capacity-1 paged engine (the
+    schedule-independence rule of tests/test_kv_quant.py:160-178)."""
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    out = []
+    for prompt, budget in workload:
+        be = BatchEngine(engine, capacity=1, paged=True, page_size=16,
+                         kv_quant=kv_quant)
+        req = be.submit(prompt, budget, stop_ids=STOP_IDS)
+        be.run_to_completion()
+        out.append(req.generated)
+    return out
+
+
+def first_diff(a, b) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def int8_phases(torch, smoke, args, weights, prompt, workload, card):
+    """tinyllama-1.1b with int8 weights: the decode kernel's int8 mode at
+    full width and depth, greedy generation ((a) on grid weights against
+    the fp32 kernel path, (b) on the synthetic weights against the int8
+    plain path), then serving with int8 weights and int8 KV (the paged
+    kernel's int8 mode).  Returns the kernel rows and the main paths'
+    launch counts for the summary."""
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+
+    nl, n_tok = args.n_layers, 32
+    q_args = args.replace(quant="int8")
+    gen_counts = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0}
+
+    def generate(eng, what):
+        reset_counters()
+        toks = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+        counts = counters()
+        if eng.cfg.kernels and counts != gen_counts:
+            raise AssertionError(f"{what} launch counts {counts}, expected {gen_counts}")
+        return toks, counts, torch.from_numpy(eng(prompt, 0))
+
+    # (a) grid weights: the int8 kernel stream is the fp32 kernel stream.
+    g_weights = grid_weights(torch, weights)
+    eng = Llama(g_weights, args, device="cuda")
+    toks_f, _, logits_f = generate(eng, "tinyllama fp32 (grid)")
+    del eng
+    torch.cuda.empty_cache()
+    eng = Llama(g_weights, q_args, device="cuda")
+    toks_g, _, logits_g = generate(eng, "tinyllama int8 (grid)")
+    del eng, g_weights
+    torch.cuda.empty_cache()
+    if toks_g != toks_f:
+        raise AssertionError("tinyllama int8 stream on grid weights diverges from the "
+                             f"fp32 stream at token {first_diff(toks_g, toks_f)}")
+    g_abs, g_rel = compare(torch, logits_g, logits_f, 1e-3, 1e-3,
+                           "tinyllama int8 vs fp32 logits (grid weights)")
+
+    # (b) the synthetic weights: the int8 kernels against the int8 plain path.
+    q_eng = Llama(weights, q_args, device="cuda")
+    smoke.decode_phase("tinyllama-1.1b", q_eng.params["layers"], args, 0)
+    decode_row = smoke.decode_phase("tinyllama-1.1b", q_eng.params["layers"], args, 511)
+    toks_q, q_counts, logits_q = generate(q_eng, "tinyllama int8")
+    q_stats = timed_generate(q_eng, prompt, 64)[1]
+    emit(profile_phase(torch, "tinyllama-1.1b-int8", q_eng, prompt, card))
+    x_eng = plain_twin(q_eng)
+    toks_x, _, logits_x = generate(x_eng, "tinyllama int8 plain")
+    x_stats = timed_generate(x_eng, prompt, 64)[1]
+    if toks_q != toks_x:
+        raise AssertionError("tinyllama int8 kernel stream diverges from the int8 "
+                             f"plain path at token {first_diff(toks_q, toks_x)}")
+    q_abs, q_rel = compare(torch, logits_q, logits_x, 1e-3, 1e-3,
+                           "tinyllama int8 kernel vs plain logits")
+    if not torch.isfinite(logits_q).all():
+        raise AssertionError("non-finite int8 logits")
+    emit({"phase": "e2e", "model": "tinyllama-1.1b", "quant": "int8",
+          "prompt_tokens": int(prompt.shape[1]), "launches": q_counts,
+          "grid": {"greedy_tokens_equal_fp32": n_tok, "logits_max_abs_err": g_abs,
+                   "logits_max_rel_err": g_rel},
+          "synthetic": {"greedy_tokens_equal_plain": n_tok, "logits_max_abs_err": q_abs,
+                        "logits_max_rel_err": q_rel},
+          "logits_tol": {"rtol": 1e-3, "atol": 1e-3},
+          "kernels": {"prefill_ms": q_stats.prefill_ms, "decode_tok_s": q_stats.decode_tok_s},
+          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
+          "timed_tokens": 64, "card": card})
+
+    # Serving: int8 weights and int8 KV, paged, at quanta 1 and 4.
+    paged_row = smoke.paged_phase(
+        "tinyllama-1.1b", 8, args.n_heads, args.kv_heads, args.head_dim, 16,
+        args.max_seq_len // 16, [0, 15, 16, 255, 500, 1023, 1500, 2047], NL=24,
+        quant=True)
+    solo = solo_serve(q_eng, workload, "int8")
+    served = {}
+    for run, quantum in (("q1", 1), ("q4", 4)):
+        reset_counters()  # the main path: int8 serving through the kernels
+        streams, st = serve(torch, q_eng, workload, quantum, kv_quant="int8")
+        counts = counters()
+        bad = [i for i, (g, w) in enumerate(zip(streams, solo)) if g != w]
+        if bad:
+            i = bad[0]
+            raise AssertionError(f"int8 serving {run}: request {i} diverges from its "
+                                 f"capacity-1 stream at token "
+                                 f"{first_diff(streams[i], solo[i])}; {len(bad)} of 12 differ")
+        expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
+                  "paged_attention": nl * st["decode_steps"]}
+        if counts != expect or st["admissions"] != len(workload):
+            raise AssertionError(f"int8 serving {run} launch counts {counts}, expected "
+                                 f"{expect} ({st['admissions']} admissions)")
+        served[run] = {**st, "launches": counts}
+        emit({"phase": "e2e", "model": "tinyllama-1.1b", "path": "serving",
+              "quant": "int8", "run": run, **st, "launches": counts,
+              "streams_equal_solo": len(streams), "pages_leaked": 0, "card": card})
+    emit(serve_profile_phase(torch, "tinyllama-1.1b-int8", q_eng, workload, card,
+                             kv_quant="int8"))
+    reset_counters()
+    x_streams, x_st = serve(torch, x_eng, workload, 1, kv_quant="int8")
+    if any(counters().values()):
+        raise AssertionError(f"the plain int8 serving path launched kernels: {counters()}")
+    emit({"phase": "e2e", "model": "tinyllama-1.1b", "path": "serving-plain",
+          "quant": "int8", "run": "q1", **x_st,
+          "streams_equal_solo": sum(g == w for g, w in zip(x_streams, solo)),
+          "card": card})
+    del q_eng, x_eng
+    torch.cuda.empty_cache()
+    return decode_row, paged_row, {
+        "decode_layers": {"generate": q_counts["decode_layers"]},
+        "paged_attention": {"serve_q1": served["q1"]["launches"]["paged_attention"],
+                            "serve_q4": served["q4"]["launches"]["paged_attention"]}}
 
 
 def synthetic_vocab(path: str, size: int, seed: int = 0):
@@ -551,6 +773,10 @@ def main() -> int:
         smoke.flash_phase("stories15M", 1, L, s_args.n_heads, s_args.kv_heads, hd)
     for pos in (0, 5, 1023):
         smoke.decode_phase("stories15M", s_eng.params["layers"], s_args, pos)
+    s_q8 = Llama(s_weights, s_args.replace(quant="int8"), device="cuda")
+    for pos in (0, 5, 1023):
+        smoke.decode_phase("stories15M", s_q8.params["layers"], s_args, pos)
+    del s_q8
 
     ids = np.array([PROMPT], np.int64)
     oracle = NumpyLlama(build_param_tree(s_weights, s_args), s_args)
@@ -579,8 +805,10 @@ def main() -> int:
           "card": card})
     emit(profile_phase(torch, "stories15M", s_eng, ids, card))
     del s_eng
-    smoke.paged_phase("stories15M", 4, s_args.n_heads, s_args.kv_heads, hd, 16,
-                      s_args.max_seq_len // 16, [0, 100, 511, 1023], over_row=1)
+    for quant in (False, True):
+        smoke.paged_phase("stories15M", 4, s_args.n_heads, s_args.kv_heads, hd, 16,
+                          s_args.max_seq_len // 16, [0, 100, 511, 1023], over_row=1,
+                          quant=quant)
 
     # ---- tinyllama-1.1b at full width and depth ---------------------------
     t_args = preset("tinyllama-1.1b")
@@ -688,6 +916,10 @@ def main() -> int:
           "streams_equal_solo": sum(g == w for g, w in zip(x_streams, solo)),
           "card": card})
 
+    # ---- tinyllama-1.1b with int8 weights and int8 KV ----------------------
+    decode_i8, paged_i8, i8_paths = int8_phases(torch, smoke, t_args, t_weights, prompt,
+                                                workload, card)
+
     # ---- summary --------------------------------------------------------------
     sources = {"flash_prefill": ("llama3np_tpu_torch/csrc/flash_prefill.cu",
                                  "llama3np_tpu/ops/kernels/flash_prefill.py:76"),
@@ -697,21 +929,33 @@ def main() -> int:
                                    "llama3np_tpu/ops/kernels/paged_attention.py:257")}
     # Launches: each kernel's count in the main path that carries it (the
     # serving run at quantum 1 for flash_prefill and paged_attention, greedy
-    # generation for decode_layers), and the count in each path.
+    # generation for decode_layers; the int8 modes' own int8 runs), and the
+    # count in each path.
     by_path = {name: {"generate": main_counts[name],
                       "serve_q1": served["q1"]["launches"][name],
                       "serve_q4": served["q4"]["launches"][name]}
                for name in sources}
-    stacked = {**paged_row, **paged_row["modes"]["stacked"], "mode": "stacked"}
+    main_path = {"flash_prefill": "serve_q1", "decode_layers": "generate",
+                 "paged_attention": "serve_q1"}
+
+    def stacked(row):  # the paged kernel's stacked mode stands for the row
+        return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
+
     kernels = []
-    for row in (flash_row, decode_row, stacked):
+    for row, paths in ((flash_row, by_path["flash_prefill"]),
+                       (decode_row, by_path["decode_layers"]),
+                       (stacked(paged_row), by_path["paged_attention"]),
+                       (decode_i8, i8_paths["decode_layers"]),
+                       (stacked(paged_i8), i8_paths["paged_attention"])):
         name = row["kernel"]
         src, replaces = sources[name]
-        path = "generate" if name == "decode_layers" else "serve_q1"
+        if row.get("mode") == "int8":
+            replaces = {"decode_layers": "llama3np_tpu/ops/kernels/decode_step.py:793",
+                        "paged_attention": replaces}[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": by_path[name][path],
-            "launches_by_path": by_path[name],
+            "name": name, "mode": row.get("mode", "fp32"), "route": "cuda",
+            "source": src, "replaces": replaces,
+            "launches": paths[main_path[name]], "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

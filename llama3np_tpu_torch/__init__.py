@@ -5,9 +5,11 @@ reference's public surface: `ModelArgs`, `Tokenizer`, `load_parameters`,
 `Llama(model_path, args)`, `model(ids, start_pos)`, `model.generate(...)`
 and the `python -m llama3np_tpu_torch.cli "prompt"` entry point, and the
 continuous-batching engine `serving.BatchEngine` over the dense or paged
-KV cache.  The kernels of both paths (flash prefill attention, the fused
-batch-1 decode step and paged decode attention) are hand-written CUDA for
-Hopper (`csrc/`), built at first use.  Entry points run on the card unless
+KV cache, with int8 weights (`quant="int8"`) and int8 KV
+(`kv_quant="int8"`).  The kernels of these paths (flash prefill attention,
+the fused batch-1 decode step and paged decode attention, the last two
+with int8 modes) are hand-written CUDA for Hopper (`csrc/`), built at
+first use.  Entry points run on the card unless
 the caller asks for the CPU.
 
 The port imports torch and numpy, never jax or the JAX package;
@@ -15,7 +17,7 @@ The port imports torch and numpy, never jax or the JAX package;
 """
 
 from .checkpoint import (build_param_tree, load_parameters, params_from_jax,
-                         save_npz, synthetic_weights)
+                         quantize_param_tree, save_npz, synthetic_weights)
 from .config import PRESETS, ModelArgs, preset
 from .kvcache import init_cache
 from .models.llama import Llama
@@ -26,6 +28,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ModelArgs", "PRESETS", "preset", "Tokenizer",
-    "load_parameters", "build_param_tree", "synthetic_weights", "save_npz",
+    "load_parameters", "build_param_tree", "quantize_param_tree",
+    "synthetic_weights", "save_npz",
     "init_cache", "Llama", "NumpyLlama", "params_from_jax",
 ]

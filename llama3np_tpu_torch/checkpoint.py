@@ -19,6 +19,8 @@ from neighbouring addresses.  The port runs the fused whole-layer layout
 (`fuse_param_tree`) in the split-halves RoPE column order
 (`permute_rope_layout`), which is the layout `llama3np_tpu`'s single-chip
 engine holds in `Llama.params`; `params_from_jax` carries such a tree over.
+`quantize_param_tree` makes its int8 form (int8 payloads beside f32
+`*_scale` leaves), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -145,6 +147,46 @@ def fuse_param_tree(params: Dict) -> Dict:
     return {**params, "layers": fused}
 
 
+def quantize_param_tree(params: Dict, bits: int = 8) -> Dict:
+    """Weight-only int8 quantization of the fused whole-layer tree or of the
+    split tree (the numpy counterpart of `llama3np_tpu.checkpoint.
+    quantize_param_tree` for bits=8, giving the same payloads and scales).
+
+    Matmul weights (wqkv/wo/wgu/w_down or wq/wk/wv/wo/w_gate/w_up/w_down,
+    and lm_head) get per-output-column symmetric scales reduced over the
+    contraction (second-to-last) axis: s = max|w_col| / 127 (floored at
+    1e-12), w8 = clip(rint(w / s), -127, 127).  The scale commutes with the
+    matmul, x @ (w8 * s) == (x @ w8) * s, so consumers post-scale the
+    product and never dequantize a weight ahead of time.  The embedding
+    gets one scale per row, applied after the gather.  Norms stay as they
+    are."""
+    if bits != 8:
+        raise NotImplementedError("int4 and mixed-bit trees run the "
+                                  "split-weight layout, still to port "
+                                  "(ROADMAP A8)")
+
+    def q(w, axis):
+        w = np.asarray(w, np.float32)
+        s = np.max(np.abs(w), axis=axis, keepdims=True) / 127
+        s = np.maximum(s, 1e-12).astype(np.float32)
+        return np.clip(np.rint(w / s), -127, 127).astype(np.int8), s
+
+    ly = dict(params["layers"])
+    kinds = (("wqkv", "wo", "wgu", "w_down") if "wqkv" in ly
+             else ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+    tasks = [(kind, partial(q, ly[kind], -2)) for kind in kinds]
+    tasks += [("lm_head", partial(q, params["lm_head"], -2)),
+              ("tok_embedding", partial(q, params["tok_embedding"], -1))]
+    done = _parallel_items(tasks)
+    for kind in kinds:
+        ly[kind], ly[kind + "_scale"] = done[kind]
+    head8, head_s = done["lm_head"]
+    emb8, emb_s = done["tok_embedding"]
+    return {**params, "layers": ly,
+            "tok_embedding": emb8, "tok_embedding_scale": emb_s,
+            "lm_head": head8, "lm_head_scale": head_s}
+
+
 def _to_tensor(a, device, dtype) -> torch.Tensor:
     arr = np.asarray(a)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
@@ -162,14 +204,21 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
 def params_to_device(tree: Dict, device, dtype=None) -> Dict:
     """Copy a numpy parameter tree onto `device` as torch tensors, cast to
     `dtype` (a `ModelArgs` dtype string or torch dtype; None keeps each
-    leaf's own)."""
+    leaf's own).  int8 payloads stay torch.int8 and `*_scale` leaves
+    float32 whatever `dtype` is."""
     dt = None if dtype is None else torch_dtype(dtype)
+
+    def put(name, v):
+        if np.asarray(v).dtype == np.int8:
+            return _to_tensor(v, device, None)
+        return _to_tensor(v, device, torch.float32 if name.endswith("_scale") else dt)
+
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = {kk: _to_tensor(vv, device, dt) for kk, vv in v.items()}
+            out[k] = {kk: put(kk, vv) for kk, vv in v.items()}
         else:
-            out[k] = _to_tensor(v, device, dt)
+            out[k] = put(k, v)
     return out
 
 
@@ -180,14 +229,14 @@ def params_from_jax(tree: Dict, device) -> Dict:
     numpy arrays: the fused, rope-split, whole-layer layout ("wqkv"
     [NL,D,QD+2KVD], "wo", "wgu" [NL,D,2FD], "w_down", norms [NL,1,D]).
     Returns the port's tensor tree on `device`, which both packages then
-    compute the same function with.  The TPU-only blocked and grouped
-    layouts and quantized trees are refused."""
+    compute the same function with.  An int8 tree (`quant="int8"`) carries
+    over with its `*_scale` leaves.  The TPU-only FFN-blocked and
+    KV-head-grouped layouts are refused: their per-(block, column) scales
+    belong to a TPU VMEM plan."""
     ly = tree["layers"]
     if "wqkv" not in ly:
         raise ValueError("params_from_jax takes the fused tree "
                          "(ModelArgs.fuse_matmuls=True)")
-    if any(k.endswith("_scale") for k in ly) or "lm_head_scale" in tree:
-        raise ValueError("quantized trees are not ported yet (see ROADMAP.md)")
     if np.ndim(ly["wqkv"]) != 3 or np.ndim(ly["wgu"]) != 3:
         raise ValueError("only the whole-layer fused layout carries over; the "
                          "FFN-blocked / KV-head-grouped layouts are TPU VMEM "

@@ -3,8 +3,8 @@
 Mirrors `llama3np_tpu.cli`: the same streamed text and the same final
 `Token count: N, elapsed: S, T tokens/s` line (quirks Q3/Q6), with the
 prefill/decode split on stderr.  It runs on the card unless `--device cpu`
-is given.  Trace, debug, quantisation and sampling flags wait for later
-slices.
+is given.  `--quant int8` runs int8 weights (int4 exits with the ROADMAP
+message).  Trace, debug and sampling flags wait for later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None,
                    choices=[None, "float32", "bfloat16", "float16"])
     p.add_argument("--attn-impl", default=None, choices=[None, "auto", "xla", "pallas"])
+    p.add_argument("--quant", default=None, choices=[None, "int8", "int4"],
+                   help="weight-only quantization (int8 per-output-channel "
+                        "scales; int4 is still to port)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises if there is no card)")
     p.add_argument("--fixed-decode", action="store_true",
@@ -54,7 +57,13 @@ def main(argv=None) -> int:
         overrides["dtype"] = args_ns.dtype
     if args_ns.attn_impl:
         overrides["attn_impl"] = args_ns.attn_impl
-    margs = preset(args_ns.preset, **overrides)
+    if args_ns.quant:
+        overrides["quant"] = args_ns.quant
+    try:
+        margs = preset(args_ns.preset, **overrides)
+    except NotImplementedError as e:
+        print(f"llama3np_tpu_torch: {e}", file=sys.stderr)
+        return 2
 
     tokenizer = Tokenizer(args_ns.tokenizer, fix_decode=args_ns.fixed_decode)
     source = (synthetic_weights(margs, seed=0) if args_ns.synthetic

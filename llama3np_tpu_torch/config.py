@@ -82,9 +82,10 @@ class ModelArgs:
     pallas_ffn_block: Optional[int] = None
     pallas_attn_group: bool = False
     pallas_stream: Optional[tuple] = None
-    # Weight-only quantization: None, "int8" or "int4" (not ported yet).
+    # Weight-only quantization: None or "int8" (per-output-channel scales);
+    # "int4" needs the split-weight layout and is still to port.
     quant: Optional[str] = None
-    # KV-cache quantization for the serving engine (not ported yet).
+    # KV-cache quantization for the serving engine: None or "int8".
     kv_quant: Optional[str] = None
     # Prompt-length padding buckets for prefill (static shapes).
     prefill_buckets: tuple = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
@@ -113,6 +114,13 @@ class ModelArgs:
             raise ValueError(f"n_heads ({self.n_heads}) must divide dim ({self.dim})")
         if self.n_heads % self.kv_heads:
             raise ValueError(f"kv_heads ({self.kv_heads}) must divide n_heads ({self.n_heads}) (GQA)")
+        if self.quant == "int4":
+            raise NotImplementedError("quant='int4' runs the split-weight layout, "
+                                      "which is still to port (ROADMAP A8)")
+        if self.quant not in (None, "int8"):
+            raise ValueError(f"unsupported quant {self.quant!r}")
+        if self.kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant {self.kv_quant!r}")
         return self
 
     def replace(self, **kw) -> "ModelArgs":

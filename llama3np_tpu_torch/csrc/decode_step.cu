@@ -1,19 +1,23 @@
-// Fused batch-1 decode step for Hopper (sm_90a), float32: all layers of one
-// token.
+// Fused batch-1 decode step for Hopper (sm_90a): all layers of one token,
+// with float32 weights or int8 weights and per-output-column f32 scales.
 //
 // Replaces: llama3np_tpu/ops/kernels/decode_step.py, `decode_layers` (:917)
 // in its whole-layer form (`make_decode_kernel` :266, pallas_call at :992),
 // and so the math its FFN-blocked / KV-head-grouped / streamed TPU layouts
-// (:417, :563, :793) share: per layer RMSNorm -> fused QKV -> split-halves
+// (:417, :563, :793) share; the int8 mode is the streamed layout's
+// (`_streamed_decode_layers` :793 with its scale blocks, pallas_call :899):
+// per layer RMSNorm -> fused QKV -> split-halves
 // RoPE -> attention over the cache masked to kv_idx < pos with the current
 // token appended as an explicit column -> o-proj + residual -> RMSNorm ->
 // SwiGLU + residual, emitting the new K/V rows for position `pos`.
 //
 // What bounds it on the H100: bytes.  Each token reads every layer weight
-// once (fp32: 23.9 MB for stories15M, 3.88 GB for tinyllama-1.1b), plus
-// 2*KVH*HD*4 bytes of cache per layer and position, at 1 FLOP per 2 bytes:
-// far below the card's ratio of compute to bandwidth.  The floor is
-// bytes / 3.35 TB/s (~1.16 ms a token at tinyllama widths).
+// once (fp32: 23.9 MB for stories15M, 3.88 GB for tinyllama-1.1b; int8 a
+// quarter of that plus 4 bytes of scale per output column), plus
+// 2*KVH*HD*4 bytes of cache per layer and position, at 1 FLOP per 2 bytes
+// (fp32) or 2 FLOPs per byte (int8): far below the card's ratio of compute
+// to bandwidth.  The floor is bytes / 3.35 TB/s (~1.16 ms a token at
+// tinyllama widths in fp32, ~0.29 ms in int8).
 //
 // Design.  The TPU kernel walks the layers as one sequential grid with all
 // of a layer resident in VMEM.  A GPU needs the weight stream spread across
@@ -32,31 +36,76 @@
 //      (max, sum, P.V) per query head;
 //   4. GEMV attn @ wo;  5. residual + RMSNorm;  6. GEMV z_norm @ wgu;
 //   7. GEMV silu(gate)*up @ w_down, the SwiGLU taken in its prologue.
-// The GEMVs are hand-written: weights are [in, out] row-major, a warp reads
-// 128 neighbouring output columns of one row as float4 (512 contiguous
-// bytes), 8 warps take interleaved rows, and when the columns alone give too
-// few blocks the rows are split across blocks too ("split-K"), each split
-// writing its own partial sums; the consumer adds the partials in a fixed
-// order, so results are deterministic.  No atomics, no cuBLAS.
+// The GEMVs are hand-written: weights are [in, out] row-major, each lane
+// reads 16 bytes of a row (a float4, or 16 int8 weights), so a warp reads
+// 128 (fp32) or 512 (int8) neighbouring output columns of one row as 512
+// contiguous bytes; 8 warps take interleaved rows, and when the columns
+// alone give too few blocks the rows are split across blocks too
+// ("split-K": up to 16 splits in fp32, 32 in int8, whose blocks hold 4x
+// the columns), each split writing its own partial sums; the consumer adds
+// the partials in a fixed order, so results are deterministic.  No
+// atomics, no cuBLAS.
+// int8 mode: a lane widens its 16 weights to f32 with byte permutes (the
+// float whose bits are 0x4B0000uu is 2^23 + uu, exact, at full ALU rate,
+// where an I2F conversion runs at a quarter of it) and multiplies them by
+// the f32 activations, which are never narrowed (the TPU kernel's bf16 cast
+// in `_wdot` :241 was an MXU dtype rule; the XLA int8 path, the numerics
+// oracle, keeps f32).  The per-column scale multiplies each split's
+// finished partial sum in the GEMV's epilogue: (sum of partials) * s equals
+// the sum of (partial * s) up to rounding, so the consumers (the
+// residual+RMSNorm, the attention prologue, the SwiGLU prologue) read
+// scaled partials and stay as they are, and the gate/up scale is in place
+// before SiLU.
 // The cache is updated in place: chunk 0 of each KV head writes k_rot and
 // v_new into row `pos`, and attention never reads row `pos` (it masks
 // kv_idx < pos), so the write cannot race a read; pos = 0 attends only the
 // appended column; pos = M-1 writes the last row.
 // Numerics follow the TPU kernel: f32 throughout, the RMS scale multiplied
 // in before the weight (_rms_scale :235), SiLU as g/(1+exp(-g)) (:261),
-// residuals summed in f32.  CUDA graphs, wgmma and bf16/int8 weights are
-// later work; the launch count per token (7 or 8 a layer, plus one) is this
+// residuals summed in f32.  CUDA graphs, wgmma and bf16 weights are later
+// work; the launch count per token (7 or 8 a layer, plus one) is this
 // design's cost at small widths.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kMaxSplit = 16;    // max row splits of one GEMV
+constexpr int kMaxSplit = 16;    // max row splits of one fp32 GEMV
+constexpr int kMaxSplitI8 = 32;  // int8: 4x the columns a block, more splits
 constexpr int kGemvThreads = 256;
-constexpr int kGemvCols = 128;   // 32 lanes x float4
 constexpr int kGemvRowGroups = kGemvThreads / 32;
+
+// Weights a lane reads as one 16-byte vector: 4 floats or 16 int8.
+template <typename W>
+constexpr int kVec = 16 / (int)sizeof(W);
+
+__device__ __forceinline__ void load_w(const float* p, float (&w)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+// Four signed bytes of v -> floats, exactly: b ^ 0x80 = b + 128 as an
+// unsigned byte u; the float with bits 0x4B0000uu is 2^23 + u.
+__device__ __forceinline__ void i8x4_to_f32(int v, float* f) {
+  const unsigned u = static_cast<unsigned>(v) ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+__device__ __forceinline__ void load_w(const int8_t* p, float (&w)[16]) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+  i8x4_to_f32(v.x, w);
+  i8x4_to_f32(v.y, w + 4);
+  i8x4_to_f32(v.z, w + 8);
+  i8x4_to_f32(v.w, w + 12);
+}
 constexpr int kAttnThreads = 256;
 constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kNormThreads = 1024;
@@ -100,18 +149,21 @@ residual_rmsnorm_kernel(const float* __restrict__ base,
 
 enum { kPlain = 0, kSwiglu = 1 };
 
-// out_part[blockIdx.y, c] = sum over rows r of split blockIdx.y of in[r] * W[r, c].
+// out_part[blockIdx.y, c] = (sum over rows r of split blockIdx.y of
+// in[r] * W[r, c]) * wscale[c] (no scale for float weights).
 // kPlain: in = vec[K].  kSwiglu: vec holds ks_in partial rows of [gate | up]
 // ([ks_in][2K]) and in = silu(gate) * up.
-template <int MODE>
+template <int MODE, typename W>
 __global__ void __launch_bounds__(kGemvThreads)
-gemv_kernel(const float* __restrict__ W, int K, int N, int rows_per_split,
-            const float* __restrict__ vec, int ks_in,
-            float* __restrict__ out_part) {
+gemv_kernel(const W* __restrict__ Wt, const float* __restrict__ wscale, int K,
+            int N, int rows_per_split, const float* __restrict__ vec,
+            int ks_in, float* __restrict__ out_part) {
+  constexpr int V = kVec<W>;
+  constexpr int kCols = 32 * V;  // output columns of a block
   extern __shared__ float smem[];
   const int rps_al = (rows_per_split + 3) & ~3;
   float* xs = smem;             // [rows_per_split] input slice
-  float* red = smem + rps_al;   // [row groups][128] partial column sums
+  float* red = smem + rps_al;   // [row groups][kCols] partial column sums
   const int k0 = blockIdx.y * rows_per_split;
   const int nk = min(rows_per_split, K - k0);
   for (int i = threadIdx.x; i < nk; i += kGemvThreads) {
@@ -129,28 +181,32 @@ gemv_kernel(const float* __restrict__ W, int K, int N, int rows_per_split,
   __syncthreads();
 
   const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
-  const int col = blockIdx.x * kGemvCols + cx * 4;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (col < N) {  // N % 4 == 0: the whole float4 is in range
-    const float* wp = W + (size_t)k0 * N + col;
+  const int col = blockIdx.x * kCols + cx * V;
+  float acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = 0.f;
+  if (col < N) {  // N % V == 0: the whole vector is in range
+    const W* wp = Wt + (size_t)k0 * N + col;
 #pragma unroll 4
     for (int r = ry; r < nk; r += kGemvRowGroups) {
-      const float4 w = __ldg(reinterpret_cast<const float4*>(wp + (size_t)r * N));
+      float w[V];
+      load_w(wp + (size_t)r * N, w);
       const float a = xs[r];
-      acc.x = fmaf(a, w.x, acc.x);
-      acc.y = fmaf(a, w.y, acc.y);
-      acc.z = fmaf(a, w.z, acc.z);
-      acc.w = fmaf(a, w.w, acc.w);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = fmaf(a, w[j], acc[j]);
     }
   }
-  reinterpret_cast<float4*>(red)[ry * 32 + cx] = acc;
+  float4* rr = reinterpret_cast<float4*>(red + ry * kCols + cx * V);
+#pragma unroll
+  for (int j = 0; j < V / 4; ++j)
+    rr[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
   __syncthreads();
-  if (threadIdx.x < kGemvCols) {
-    const int c = blockIdx.x * kGemvCols + threadIdx.x;
+  for (int c0 = threadIdx.x; c0 < kCols; c0 += kGemvThreads) {
+    const int c = blockIdx.x * kCols + c0;
     if (c < N) {
       float s = 0.f;
-      for (int r = 0; r < kGemvRowGroups; ++r) s += red[r * kGemvCols + threadIdx.x];
-      out_part[(size_t)blockIdx.y * N + c] = s;
+      for (int r = 0; r < kGemvRowGroups; ++r) s += red[r * kCols + c0];
+      out_part[(size_t)blockIdx.y * N + c] = wscale != nullptr ? s * wscale[c] : s;
     }
   }
 }
@@ -321,61 +377,62 @@ int num_sms(int device) {
 
 // Launch one GEMV with enough row splits to give ~2 blocks per SM; returns
 // the number of splits (partial rows written) through *ks_out.
-template <int MODE>
-cudaError_t launch_gemv(const float* W, int K, int N, const float* vec,
-                        int ks_in, float* out_part, int* ks_out, int sms,
-                        cudaStream_t st) {
-  const int nb = (N + kGemvCols - 1) / kGemvCols;
+template <int MODE, typename W>
+cudaError_t launch_gemv(const W* Wt, const float* wscale, int K, int N,
+                        const float* vec, int ks_in, float* out_part,
+                        int* ks_out, int sms, cudaStream_t st) {
+  constexpr int kCols = 32 * kVec<W>;
+  constexpr int kSplits = sizeof(W) == 1 ? kMaxSplitI8 : kMaxSplit;
+  const int nb = (N + kCols - 1) / kCols;
   int ks = (2 * sms + nb - 1) / nb;
-  ks = max(1, min(ks, min(kMaxSplit, K / 32)));
+  ks = max(1, min(ks, min(kSplits, K / 32)));
   const int rps = (K + ks - 1) / ks;
   ks = (K + rps - 1) / rps;
-  const size_t smem = (((rps + 3) & ~3) + kGemvRowGroups * kGemvCols) * sizeof(float);
+  const size_t smem = (((rps + 3) & ~3) + kGemvRowGroups * kCols) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gemv_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gemv_kernel<MODE, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid(nb, ks);
-  gemv_kernel<MODE><<<grid, kGemvThreads, smem, st>>>(W, K, N, rps, vec, ks_in, out_part);
+  gemv_kernel<MODE, W><<<grid, kGemvThreads, smem, st>>>(Wt, wscale, K, N, rps, vec,
+                                                         ks_in, out_part);
   *ks_out = ks;
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of scratch the C entry below needs for these widths.
-extern "C" long l3t_decode_scratch_floats(int d, int nh, int kvh, int hd, int fd) {
-  const long qd = (long)nh * hd, qkvd = qd + 2L * kvh * hd;
-  return 3L * d + qd + kMaxSplit * (qkvd + d + 2L * fd + d) +
-         (long)kAttnMaxSplit * nh * (hd + 2);
-}
-
-extern "C" int l3t_decode_layers_f32(
-    const float* wqkv, const float* wo, const float* wgu, const float* wdown,
-    const float* attn_norm, const float* ffn_norm, const float* x_in,
-    float* x_out, float* k_cache, float* v_cache, const float* cos_row,
-    const float* sin_row, float* scratch, int nl, int d, int nh, int kvh,
-    int hd, int fd, int m, int pos, float eps, int device, void* stream) {
+// Every layer of one token; W = float, or int8_t with the per-column scales
+// s_* ([NL][N] each; null for float weights).
+template <typename W>
+int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
+                  const float* s_qkv, const float* s_o, const float* s_gu,
+                  const float* s_dn, const float* attn_norm,
+                  const float* ffn_norm, const float* x_in, float* x_out,
+                  float* k_cache, float* v_cache, const float* cos_row,
+                  const float* sin_row, float* scratch, int nl, int d, int nh,
+                  int kvh, int hd, int fd, int m, int pos, float eps,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear any stale error of this runtime
+  const int qd = nh * hd, kvd = kvh * hd, qkvd = qd + 2 * kvd;
   if (hd % 4 != 0 || hd > 128 || kvh < 1 || nh % kvh != 0 || d % 4 != 0 ||
       fd % 2 != 0 || pos < 0 || pos >= m)
     return (int)cudaErrorInvalidValue;
+  if (kVec<W> == 16 && (qkvd % 16 != 0 || d % 16 != 0 || (2 * fd) % 16 != 0))
+    return (int)cudaErrorInvalidValue;  // int8: whole, aligned 16-byte vectors
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sms = num_sms(device);
-  const int qd = nh * hd, kvd = kvh * hd, qkvd = qd + 2 * kvd;
 
   float* xn = scratch;          // [d] normalized input of the next GEMV
   float* x_store = xn + d;      // [d] residual stream after attention input
   float* h_buf = x_store + d;   // [d] residual stream after the FFN input
   float* attn = h_buf + d;      // [qd]
-  float* qkv_p = attn + qd;     // [kMaxSplit][qkvd]
-  float* o_p = qkv_p + (size_t)kMaxSplit * qkvd;    // [kMaxSplit][d]
-  float* gu_p = o_p + (size_t)kMaxSplit * d;        // [kMaxSplit][2fd]
-  float* dn_p = gu_p + (size_t)kMaxSplit * 2 * fd;  // [kMaxSplit][d]
-  float* at_ml = dn_p + (size_t)kMaxSplit * d;      // [KVH][S][G][2]
+  float* qkv_p = attn + qd;     // [kMaxSplitI8][qkvd]
+  float* o_p = qkv_p + (size_t)kMaxSplitI8 * qkvd;    // [kMaxSplitI8][d]
+  float* gu_p = o_p + (size_t)kMaxSplitI8 * d;        // [kMaxSplitI8][2fd]
+  float* dn_p = gu_p + (size_t)kMaxSplitI8 * 2 * fd;  // [kMaxSplitI8][d]
+  float* at_ml = dn_p + (size_t)kMaxSplitI8 * d;      // [KVH][S][G][2]
   float* at_acc = at_ml + (size_t)kAttnMaxSplit * nh * 2;  // [KVH][S][G][hd]
 
   const float scale = (float)(1.0 / sqrt((double)hd));
@@ -392,21 +449,25 @@ extern "C" int l3t_decode_layers_f32(
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem);
     if (err != cudaSuccess) return (int)err;
   }
+  auto layer_scale = [](const float* s, int l, int n) {
+    return s == nullptr ? nullptr : s + (size_t)l * n;
+  };
 
   const float* base = x_in;  // residual stream entering the layer
   int ks_dn = 0, ks_qkv = 0, ks_o = 0, ks_gu = 0;
   for (int l = 0; l < nl; ++l) {
-    const float* Wqkv = wqkv + (size_t)l * d * qkvd;
-    const float* Wo = wo + (size_t)l * qd * d;
-    const float* Wgu = wgu + (size_t)l * d * 2 * fd;
-    const float* Wdn = wdown + (size_t)l * fd * d;
+    const W* Wqkv = wqkv + (size_t)l * d * qkvd;
+    const W* Wo = wo + (size_t)l * qd * d;
+    const W* Wgu = wgu + (size_t)l * d * 2 * fd;
+    const W* Wdn = wdown + (size_t)l * fd * d;
     float* kc = k_cache + (size_t)l * kvh * m * hd;
     float* vc = v_cache + (size_t)l * kvh * m * hd;
 
     residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
         base, dn_p, ks_dn, d, attn_norm + (size_t)l * d, eps, x_store, xn);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = launch_gemv<kPlain>(Wqkv, d, qkvd, xn, 0, qkv_p, &ks_qkv, sms, st)) != cudaSuccess)
+    if ((err = launch_gemv<kPlain>(Wqkv, layer_scale(s_qkv, l, qkvd), d, qkvd, xn,
+                                   0, qkv_p, &ks_qkv, sms, st)) != cudaSuccess)
       return (int)err;
     attn_split_kernel<<<dim3(kvh, S), kAttnThreads, attn_smem, st>>>(
         qkv_p, ks_qkv, qkvd, nh, kvh, hd, cos_row, sin_row, kc, vc, m, pos,
@@ -416,18 +477,58 @@ extern "C" int l3t_decode_layers_f32(
       attn_combine_kernel<<<nh, 128, 0, st>>>(at_ml, at_acc, nh, kvh, hd, S, attn);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    if ((err = launch_gemv<kPlain>(Wo, qd, d, attn, 0, o_p, &ks_o, sms, st)) != cudaSuccess)
+    if ((err = launch_gemv<kPlain>(Wo, layer_scale(s_o, l, d), qd, d, attn, 0, o_p,
+                                   &ks_o, sms, st)) != cudaSuccess)
       return (int)err;
     residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
         x_store, o_p, ks_o, d, ffn_norm + (size_t)l * d, eps, h_buf, xn);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if ((err = launch_gemv<kPlain>(Wgu, d, 2 * fd, xn, 0, gu_p, &ks_gu, sms, st)) != cudaSuccess)
+    if ((err = launch_gemv<kPlain>(Wgu, layer_scale(s_gu, l, 2 * fd), d, 2 * fd, xn,
+                                   0, gu_p, &ks_gu, sms, st)) != cudaSuccess)
       return (int)err;
-    if ((err = launch_gemv<kSwiglu>(Wdn, fd, d, gu_p, ks_gu, dn_p, &ks_dn, sms, st)) != cudaSuccess)
+    if ((err = launch_gemv<kSwiglu>(Wdn, layer_scale(s_dn, l, d), fd, d, gu_p, ks_gu,
+                                    dn_p, &ks_dn, sms, st)) != cudaSuccess)
       return (int)err;
     base = h_buf;
   }
   residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(base, dn_p, ks_dn, d, nullptr,
                                                        eps, x_out, nullptr);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Floats of scratch the C entries below need for these widths.
+extern "C" long l3t_decode_scratch_floats(int d, int nh, int kvh, int hd, int fd) {
+  const long qd = (long)nh * hd, qkvd = qd + 2L * kvh * hd;
+  return 3L * d + qd + kMaxSplitI8 * (qkvd + d + 2L * fd + d) +
+         (long)kAttnMaxSplit * nh * (hd + 2);
+}
+
+extern "C" int l3t_decode_layers_f32(
+    const float* wqkv, const float* wo, const float* wgu, const float* wdown,
+    const float* attn_norm, const float* ffn_norm, const float* x_in,
+    float* x_out, float* k_cache, float* v_cache, const float* cos_row,
+    const float* sin_row, float* scratch, int nl, int d, int nh, int kvh,
+    int hd, int fd, int m, int pos, float eps, int device, void* stream) {
+  return decode_layers<float>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,
+                              nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache,
+                              v_cache, cos_row, sin_row, scratch, nl, d, nh, kvh,
+                              hd, fd, m, pos, eps, device, stream);
+}
+
+// int8 weights ([in, out] row-major like the float ones) with their
+// per-output-column f32 scales [NL][out].
+extern "C" int l3t_decode_layers_i8(
+    const int8_t* wqkv, const int8_t* wo, const int8_t* wgu,
+    const int8_t* wdown, const float* s_qkv, const float* s_o,
+    const float* s_gu, const float* s_dn, const float* attn_norm,
+    const float* ffn_norm, const float* x_in, float* x_out, float* k_cache,
+    float* v_cache, const float* cos_row, const float* sin_row,
+    float* scratch, int nl, int d, int nh, int kvh, int hd, int fd, int m,
+    int pos, float eps, int device, void* stream) {
+  return decode_layers<int8_t>(wqkv, wo, wgu, wdown, s_qkv, s_o, s_gu, s_dn,
+                               attn_norm, ffn_norm, x_in, x_out, k_cache, v_cache,
+                               cos_row, sin_row, scratch, nl, d, nh, kvh, hd, fd,
+                               m, pos, eps, device, stream);
 }

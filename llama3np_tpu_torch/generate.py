@@ -69,8 +69,9 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
     """`decode_steps` with every layer of a token in the fused decode kernel
     (`ops.kernels.decode_step.decode_layers`); the counterpart of the JAX
     package's `pallas_decode_steps`.  Batch 1 only; params in the fused,
-    rope-split layout.  The lm_head product stays a plain matmul, as it
-    stayed on XLA there; the caches are updated in place."""
+    rope-split layout, float32 or int8 (the layer tree's `*_scale` leaves
+    select the kernel's int8 mode).  The lm_head product stays a plain
+    matmul, as it stayed on XLA there; the caches are updated in place."""
     kc = cache["k"][:, 0]  # [NL, KVH, M, HD] views of the B == 1 cache
     vc = cache["v"][:, 0]
     toks = []
@@ -117,8 +118,9 @@ class Generator:
         self.cfg = engine.cfg
 
     def use_kernels(self, batch: int) -> bool:
-        """The fused decode kernel runs batch-1 greedy decode on the card
-        (attn_impl "auto"/"pallas"; the engine refuses "pallas" elsewhere)."""
+        """The fused decode kernel runs batch-1 greedy decode on the card,
+        float32 or int8 weights alike (attn_impl "auto"/"pallas"; the
+        engine refuses "pallas" elsewhere)."""
         return self.cfg.kernels and self.cfg.rope_split and batch == 1
 
     def decode_fn(self, num_steps: int, batch: int = 1):

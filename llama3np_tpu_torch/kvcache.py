@@ -16,7 +16,8 @@ row.
 The paged pool (`init_paged_cache`) and its host-side `PageAllocator` are
 the counterparts of `llama3np_tpu.kvcache.init_paged_cache` and
 `PageAllocator`: the same layout, the same reserved null page 0, the same
-free-list order and refcounts.
+free-list order and refcounts.  Both take quant="int8" (int8 values with
+f32 scales per token and KV head, the JAX package's shapes).
 """
 
 from __future__ import annotations
@@ -29,24 +30,46 @@ from .checkpoint import torch_dtype
 from .config import ModelArgs
 
 
+def _check_quant(quant):
+    if quant not in (None, "int8"):
+        raise ValueError(f"unsupported kv quant {quant!r}")
+
+
+def _zeros(shape, dt, quant, device) -> Dict[str, torch.Tensor]:
+    """k/v of `shape` (int8 under quant="int8", with f32 scales "k_s"/"v_s"
+    of `shape[:-1]`, one per (token, KV head))."""
+    _check_quant(quant)
+    if quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
 def init_cache(args: ModelArgs, batch_size: Optional[int] = None,
-               max_seq_len: Optional[int] = None, dtype=None, *,
+               max_seq_len: Optional[int] = None, dtype=None,
+               quant: Optional[str] = None, *,
                device) -> Dict[str, torch.Tensor]:
-    """Allocate a zeroed dense KV cache for `args` on `device`."""
+    """Allocate a zeroed dense KV cache for `args` on `device`.
+    quant="int8" (the serving engine's kv_quant) stores int8 rows plus
+    per-(token, KV head) f32 scales "k_s"/"v_s" [NL, B, KVH, M]."""
     B = batch_size or args.max_batch_size
     M = max_seq_len or args.max_seq_len
     shape = (args.n_layers, B, args.kv_heads, M, args.head_dim)
-    dt = torch_dtype(dtype or args.kv_dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-    }
+    return _zeros(shape, torch_dtype(dtype or args.kv_dtype), quant, device)
 
 
-def cache_nbytes(args: ModelArgs, batch_size: Optional[int] = None) -> int:
-    """Bytes of the dense cache `init_cache(args, batch_size)` allocates."""
+def cache_nbytes(args: ModelArgs, batch_size: Optional[int] = None,
+                 quant: Optional[str] = None) -> int:
+    """Bytes of the dense cache `init_cache(args, batch_size, quant=quant)`
+    allocates."""
+    _check_quant(quant)
     B = batch_size or args.max_batch_size
     per_row = args.head_dim * torch_dtype(args.kv_dtype).itemsize
+    if quant == "int8":
+        per_row = args.head_dim + 4  # int8 values + one f32 scale
     return 2 * args.n_layers * B * args.kv_heads * args.max_seq_len * per_row
 
 
@@ -67,18 +90,11 @@ def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
     contiguous [page_size, HD] block, the unit the paged-attention kernel
     reads.  Page 0 is the null page: block tables point unused entries at
     it, and every read from it is masked off by the row's length.
-    quant="int8" (int8 pools with per-(token, head) scales) is still to
-    port (ROADMAP A8).
+    quant="int8": int8 pools plus per-(token, KV head) f32 scale pools
+    "k_s"/"v_s" [NL, P, KVH, page_size], about a quarter of the fp32 bytes.
     """
-    if quant is not None:
-        raise NotImplementedError(f"kv quant {quant!r} is still to port "
-                                  "(ROADMAP A8)")
     shape = (args.n_layers, num_pages, args.kv_heads, page_size, args.head_dim)
-    dt = torch_dtype(dtype or args.kv_dtype)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
-    }
+    return _zeros(shape, torch_dtype(dtype or args.kv_dtype), quant, device)
 
 
 class PageAllocator:

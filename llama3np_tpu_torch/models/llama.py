@@ -12,6 +12,11 @@ The serving path's ragged decode (`forward_ragged_decode`: every batch row
 at its own position, over the dense cache or the page pool) and its quantum
 loop (`ragged_decode_steps`) are here too; on the card a paged step runs
 the paged-attention kernel once per layer.
+
+int8 weights (`quant="int8"`) ride the same tree with `*_scale` leaves
+beside the int8 payloads: every consumer post-scales its product.  int8 KV
+caches carry "k_s"/"v_s" scales; new rows quantize once, when they are
+made.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..checkpoint import (build_param_tree, fuse_param_tree, load_parameters,
-                          params_to_device, permute_rope_layout)
+                          params_to_device, permute_rope_layout,
+                          quantize_param_tree)
 from ..config import ModelArgs
 from ..kvcache import init_cache
 from ..ops import core as ops
@@ -57,13 +63,19 @@ class StaticConfig(NamedTuple):
 
 
 def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding gather: ids [...] int64 -> [..., D]."""
-    return F.embedding(ids, params["tok_embedding"])
+    """Embedding gather: ids [...] int64 -> [..., D]; an int8 row is
+    multiplied by its row scale after the gather."""
+    s = params.get("tok_embedding_scale")
+    if s is None:
+        return F.embedding(ids, params["tok_embedding"])
+    h = params["tok_embedding"][ids].float() * s[:, 0][ids][..., None]
+    return h.to(params["norm"].dtype)
 
 
 def lm_logits(params: Dict, h: torch.Tensor) -> torch.Tensor:
-    """Final projection to vocab logits [.., VS] in f32."""
-    return ops._dot(h, params["lm_head"])
+    """Final projection to vocab logits [.., VS] in f32 (an int8 lm_head
+    post-scales its columns)."""
+    return ops._scaled_dot(h, params["lm_head"], params.get("lm_head_scale"))
 
 
 def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
@@ -74,7 +86,7 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
     L = h.shape[1]
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads,
-                            cfg.head_dim)
+                            cfg.head_dim, scale=lp.get("wqkv_scale"))
     rope = ops.apply_rope_split if cfg.rope_split else ops.apply_rope
     q = rope(q, cos, sin)
     k = rope(k, cos, sin)
@@ -97,9 +109,14 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
             q, ck.transpose(1, 2), cv.transpose(1, 2), pos, cfg.kv_block)
     else:
         attn = ops.cache_attention(q, ck, cv, pos)
-    h = h + ops.fused_o_proj(attn, lp["wo"]).to(h.dtype)
+    h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    return h + ops.fused_ffn(z, lp["wgu"], lp["w_down"])
+    return h + _ffn(z, lp)
+
+
+def _ffn(z: torch.Tensor, lp: Dict) -> torch.Tensor:
+    return ops.fused_ffn(z, lp["wgu"], lp["w_down"], lp.get("wgu_scale"),
+                         lp.get("w_down_scale"))
 
 
 def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
@@ -135,13 +152,10 @@ def forward(params: Dict, input_ids: torch.Tensor, pos: int, cache: Dict,
 # Ragged (per-row position) decode: the serving path
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(lora=None, adapter_ids=None, lora_rows=None,
-                     scale_rows=None, cache=None):
+def _refuse_unported(lora=None, adapter_ids=None, lora_rows=None):
     if lora is not None or adapter_ids is not None or lora_rows is not None:
         raise NotImplementedError("multi-LoRA serving is still to port "
                                   "(ROADMAP A12)")
-    if scale_rows is not None or (cache is not None and "k_s" in cache):
-        raise NotImplementedError("int8 KV is still to port (ROADMAP A8)")
 
 
 def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
@@ -155,7 +169,10 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     tokens: [B] integer ids; pos: [B] (row b's token goes to slot pos[b]),
     both on the cache's device.  Dense mode (block_table None): cache k/v
     are [NL, B, KVH, M, HD].  Paged mode: page pools [NL, P, KVH, page, HD]
-    and block_table [B, maxp] int32 (kvcache.init_paged_cache).
+    and block_table [B, maxp] int32 (kvcache.init_paged_cache).  int8
+    caches (kv_quant="int8") also hold the scales "k_s"/"v_s"; the new K/V
+    rows quantize when they are made (`ops.quantize_kv_rows`) and attention
+    post-scales, dense or paged, plain or kernel.
 
     The cache is read-only through the layer loop: attention masks to
     kv_idx < pos0 and takes the current token's K/V as an explicit appended
@@ -163,20 +180,26 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     all layers' new rows once after the loop, in place, and returns (logits
     [B, VS], cache).  Deferred-commit mode (the quantum loop): pos0 [B] is
     the quantum's start position, `win` the in-flight window ({"k"/"v":
-    [NL, B, KVH, Q, HD]}) with `win_count` visible columns, and
-    commit=False returns (logits, (k_rows, v_rows)), each [NL, B, KVH, HD],
-    for the caller to insert into the window.
+    [NL, B, KVH, Q, HD]}, int8 also "k_s"/"v_s") with `win_count` visible
+    columns, and commit=False returns (logits, (k_rows, v_rows[, ks_rows,
+    vs_rows])), each [NL, B, KVH, ...], for the caller to insert into the
+    window.  `scale_rows`: every layer's int8 pool scales already gathered
+    by the block table ([NL, B, KVH, maxp*page] each,
+    `ops.gather_page_scales_all`), which the plain paged path reads instead
+    of gathering per layer.
 
     On the card (`cfg.kernels`) paged attention runs the CUDA kernel, once
-    per layer; otherwise the gather form (`ops.paged_attention_stacked`).
-    Dense attention is plain in both packages.  int8 caches (`scale_rows`,
-    ROADMAP A8) and LoRA (`lora`, `adapter_ids`, `lora_rows`, A12) are still
-    to port and raise.
+    per layer, which reads the scale pools through the block table itself;
+    otherwise the gather form (`ops.paged_attention_stacked`).  Dense
+    attention is plain in both packages.  LoRA (`lora`, `adapter_ids`,
+    `lora_rows`, ROADMAP A12) is still to port and raises.
     """
-    _refuse_unported(lora, adapter_ids, lora_rows, scale_rows, cache)
+    _refuse_unported(lora, adapter_ids, lora_rows)
     if pos0 is None:
         pos0 = pos
+    quant = "k_s" in cache
     kc_all, vc_all = cache["k"], cache["v"]
+    ks_all, vs_all = cache.get("k_s"), cache.get("v_s")
     NL, kv_dt = kc_all.shape[0], kc_all.dtype
     h = embed_tokens(params, tokens.long()[:, None])  # [B, 1, D]
     # Rows that overran max_seq_len mid-quantum take the last table row;
@@ -198,37 +221,49 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
         return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
 
     layers = params["layers"]
-    k_rows, v_rows = [], []
+    new_rows = []  # per layer: (k, v[, k_s, v_s])
     for li in range(NL):
         lp = {name: w[li] for name, w in layers.items()}
         x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads, hd)
+        q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads, hd,
+                                scale=lp.get("wqkv_scale"))
         q = rope_rows(q)
-        cur_k = rope_rows(k)[:, 0].to(kv_dt).contiguous()  # pool dtype: a read-back
-        cur_v = v[:, 0].to(kv_dt).contiguous()
-        wk = win["k"][li] if win is not None else None
-        wv = win["v"][li] if win is not None else None
-        wc = win_count if win is not None else None
+        k = rope_rows(k)
+        if quant:
+            k8, k_s = ops.quantize_kv_rows(k)  # [B, 1, KVH, HD] + [B, 1, KVH]
+            v8, v_s = ops.quantize_kv_rows(v)
+            cur = (k8[:, 0].contiguous(), v8[:, 0].contiguous(),
+                   k_s[:, 0].contiguous(), v_s[:, 0].contiguous())
+        else:  # pool dtype: a read-back
+            cur = (k[:, 0].to(kv_dt).contiguous(), v[:, 0].to(kv_dt).contiguous())
+        # The columns appended to the cache's: this token's, and the window.
+        cols = dict(zip(("cur_k", "cur_v", "cur_ks", "cur_vs"), cur))
+        if win is not None:
+            cols.update(win_k=win["k"][li], win_v=win["v"][li], win_count=win_count)
+            if quant:
+                cols.update(win_ks=win["k_s"][li], win_vs=win["v_s"][li])
         if block_table is not None and cfg.kernels:
             attn = paged_attention(q.contiguous(), kc_all, vc_all, block_table,
-                                   pos0, layer=li, cur_k=cur_k, cur_v=cur_v,
-                                   win_k=wk, win_v=wv, win_count=wc)
+                                   pos0, k_scale=ks_all, v_scale=vs_all,
+                                   layer=li, **cols)
         elif block_table is not None:
+            if quant and scale_rows is not None:
+                cols.update(k_scale_rows=scale_rows[0][li],
+                            v_scale_rows=scale_rows[1][li])
             attn = ops.paged_attention_stacked(q, kc_all, vc_all, li,
-                                               block_table, pos0, cur_k=cur_k,
-                                               cur_v=cur_v, win_k=wk,
-                                               win_v=wv, win_count=wc)
+                                               block_table, pos0,
+                                               k_scale_pool=ks_all,
+                                               v_scale_pool=vs_all, **cols)
         else:
-            attn = ops.ragged_cache_attention(q, kc_all[li], vc_all[li], pos0,
-                                              cur_k=cur_k, cur_v=cur_v,
-                                              win_k=wk, win_v=wv,
-                                              win_count=wc)
-        h = h + ops.fused_o_proj(attn, lp["wo"]).to(h.dtype)
+            attn = ops.ragged_cache_attention(
+                q, kc_all[li], vc_all[li], pos0,
+                k_scale=None if ks_all is None else ks_all[li],
+                v_scale=None if vs_all is None else vs_all[li], **cols)
+        h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
         z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        h = h + ops.fused_ffn(z, lp["wgu"], lp["w_down"])
-        k_rows.append(cur_k)
-        v_rows.append(cur_v)
-    rows = (torch.stack(k_rows), torch.stack(v_rows))  # [NL, B, KVH, HD]
+        h = h + _ffn(z, lp)
+        new_rows.append(cur)
+    rows = tuple(torch.stack(r) for r in zip(*new_rows))  # [NL, B, KVH, ...]
     logits = lm_logits(params, ops.rms_norm(h[:, -1, :], params["norm"],
                                             cfg.norm_eps))
     if not commit:
@@ -238,9 +273,11 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
         p = pos.long()
         page_ids = torch.gather(block_table.long(), 1,
                                 torch.clamp(p // page, max=maxp - 1)[:, None])[:, 0]
-        cache = ops.commit_decode_rows_paged(cache, *rows, page_ids, p % page)
+        cache = ops.commit_decode_rows_paged(cache, rows[0], rows[1], page_ids,
+                                             p % page, *rows[2:])
     else:
-        cache = ops.commit_decode_rows_dense(cache, *rows, pos)
+        cache = ops.commit_decode_rows_dense(cache, rows[0], rows[1], pos,
+                                             *rows[2:])
     return logits, cache
 
 
@@ -257,19 +294,26 @@ def token_logprobs(logits: torch.Tensor, chosen: torch.Tensor, k: int):
 
 def init_decode_window(cache: Dict, B: int, num_steps: int) -> Dict:
     """Zeroed in-flight K/V window for a quantum: {"k"/"v": [NL, B, KVH, Q,
-    HD]} in the pool dtype, on the cache's device."""
+    HD]} in the pool dtype (int8 caches add f32 "k_s"/"v_s" [NL, B, KVH,
+    Q]), on the cache's device."""
     k = cache["k"]
     NL, KVH, HD = k.shape[0], k.shape[2], k.shape[-1]
     shape = (NL, B, KVH, num_steps, HD)
-    return {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
-            "v": torch.zeros(shape, dtype=cache["v"].dtype, device=k.device)}
+    win = {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
+           "v": torch.zeros(shape, dtype=cache["v"].dtype, device=k.device)}
+    if "k_s" in cache:
+        for name in ("k_s", "v_s"):
+            win[name] = torch.zeros(shape[:-1], dtype=cache[name].dtype,
+                                    device=k.device)
+    return win
 
 
 def insert_window_rows(win: Dict, rows, s: int) -> Dict:
     """Write one step's new rows (forward_ragged_decode commit=False:
-    (k, v), each [NL, B, KVH, HD]) into window column `s`, in place."""
-    win["k"][:, :, :, s] = rows[0]
-    win["v"][:, :, :, s] = rows[1]
+    (k, v[, k_s, v_s]), each [NL, B, KVH, ...]) into window column `s`, in
+    place."""
+    for name, r in zip(("k", "v", "k_s", "v_s"), rows):
+        win[name][:, :, :, s] = r
     return win
 
 
@@ -292,19 +336,26 @@ def ragged_decode_steps(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     pos[b]) plus the in-flight window of the quantum's own rows, and one
     commit writes the whole window after the loop.  So the kernel's window
     mode stays on the path and no step reads a row that it writes.  The
-    tokens stay on the device.  Returns (tokens [B, num_steps], cache);
-    with num_logprobs=k, (tokens, (chosen_lp [B, n], top_ids [B, n, k],
-    top_lps [B, n, k]), cache).  Paged mode requires the block tables to
-    cover positions pos .. pos + num_steps - 1.
+    plain paged path gathers every layer's int8 pool scales once for the
+    quantum (`ops.gather_page_scales_all`); the kernel reads the scale
+    pools itself.  The tokens stay on the device.  Returns (tokens [B,
+    num_steps], cache); with num_logprobs=k, (tokens, (chosen_lp [B, n],
+    top_ids [B, n, k], top_lps [B, n, k]), cache).  Paged mode requires
+    the block tables to cover positions pos .. pos + num_steps - 1.
     """
-    _refuse_unported(lora, adapter_ids, cache=cache)
+    _refuse_unported(lora, adapter_ids)
     pos0 = pos
+    scale_rows = None
+    if block_table is not None and "k_s" in cache and not cfg.kernels:
+        scale_rows = (ops.gather_page_scales_all(cache["k_s"], block_table),
+                      ops.gather_page_scales_all(cache["v_s"], block_table))
     win = init_decode_window(cache, tokens.shape[0], num_steps)
     tok, toks, lps = tokens, [], []
     for s in range(num_steps):
         logits, rows = forward_ragged_decode(
             params, tok, pos0 + s, cache, cos, sin, cfg, block_table,
-            pos0=pos0, win=win, win_count=s, commit=False)
+            pos0=pos0, win=win, win_count=s, commit=False,
+            scale_rows=scale_rows)
         insert_window_rows(win, rows, s)
         tok = torch.argmax(logits, dim=-1)
         toks.append(tok)
@@ -336,16 +387,19 @@ def resolve_device(device) -> torch.device:
 class Llama:
     """Stateful engine over the functional core (reference-compatible API).
 
-    Runs on `device` ("cuda" by default; it raises if there is no card).
-    This slice is unquantised and single-device; a bf16 model runs on the
-    card only with attn_impl="xla" (the kernels take float32)."""
+    Runs on `device` ("cuda" by default; it raises if there is no card),
+    single-device, on the fused whole-layer layout.  quant="int8" holds
+    int8 weights with per-output-channel scales (built, permuted, fused,
+    then quantized, as the JAX engine's whole-layer tree); activations
+    stay float32, and on the card batch-1 decode runs the decode kernel's
+    int8 mode.  kv_quant="int8" is read by `serving.BatchEngine`.  A bf16
+    model runs on the card only with attn_impl="xla" (the kernels take
+    float32 activations)."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
                  device="cuda"):
         self.args = args.validate()
         self.device = resolve_device(device)
-        if args.quant or args.kv_quant:
-            raise NotImplementedError("quantisation is still to port (ROADMAP.md)")
         if not args.fuse_matmuls:
             raise NotImplementedError("the port runs the fused layout only "
                                       "(fuse_matmuls=True)")
@@ -364,8 +418,10 @@ class Llama:
         tree = build_param_tree(weights, args)
         if args.rope_split_layout:
             tree = permute_rope_layout(tree, args)
-        self.params = params_to_device(fuse_param_tree(tree), self.device,
-                                       args.dtype)
+        tree = fuse_param_tree(tree)
+        if args.quant == "int8":
+            tree = quantize_param_tree(tree)
+        self.params = params_to_device(tree, self.device, args.dtype)
         self.cos, self.sin = ops.rope_tables(
             args.head_dim, args.max_seq_len, args.rope_theta, torch.float32,
             scaling=args.rope_scaling, device=self.device)

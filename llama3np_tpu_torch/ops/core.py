@@ -14,8 +14,15 @@ Positions (`pos`) of the dense path are host integers: the port's loops
 know them on the host.  The serving ops take per-row positions as [B]
 integer tensors on the device, and update caches and pools in place (the
 JAX package returns new arrays); each commit is one advanced-index
-assignment into the pool.  The int8 forms (`quantize_kv_rows`, the scale
-gathers) are still to port (ROADMAP A8).
+assignment into the pool.
+
+int8 weights (`checkpoint.quantize_param_tree`) enter the projections as
+per-output scales that post-multiply the f32 product (`scale`,
+`scale_gu`, `scale_down`, `s_gate`/`s_up`/`s_down`); the product itself is
+`torch.matmul` on the int8 weight converted to f32, as XLA computed it
+outside any Pallas kernel.  int8 KV (`quantize_kv_rows`) carries a scale
+per (token, KV head): K scales post-multiply the score columns, V scales
+fold into the probabilities, and no dequantized row is kept.
 """
 
 from __future__ import annotations
@@ -43,43 +50,57 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * w
 
 
+def _scaled_dot(a: torch.Tensor, w: torch.Tensor, s=None) -> torch.Tensor:
+    """a @ w in f32, post-multiplied by the per-output scale `s` of an int8
+    weight (None for a float weight)."""
+    out = _dot(a, w)
+    return out if s is None else out * s
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN on split weights: down( silu(x@gate) * (x@up) )."""
-    gate = _dot(x, w_gate)
-    up = _dot(x, w_up)
+           w_down: torch.Tensor, s_gate=None, s_up=None,
+           s_down=None) -> torch.Tensor:
+    """SwiGLU FFN on split weights: down( silu(x@gate) * (x@up) ).  int8
+    weights pass their scales; gate's applies before the SiLU."""
+    gate = _scaled_dot(x, w_gate, s_gate)
+    up = _scaled_dot(x, w_up, s_up)
     h = (F.silu(gate) * up).to(x.dtype)
-    return _dot(h, w_down).to(x.dtype)
+    return _scaled_dot(h, w_down, s_down).to(x.dtype)
 
 
 def fused_qkv(x: torch.Tensor, wqkv: torch.Tensor, n_heads: int,
-              kv_heads: int, head_dim: int):
-    """QKV projection on the fused [D, QD+2*KVD] weight; returns (q, k, v)
-    as [B, L, NH, HD] / [B, L, KVH, HD]."""
+              kv_heads: int, head_dim: int, scale=None):
+    """QKV projection on the fused [D, QD+2*KVD] weight (int8 with its
+    [1, QD+2*KVD] `scale`); returns (q, k, v) as [B, L, NH, HD] /
+    [B, L, KVH, HD]."""
     B, L, _ = x.shape
     qd = n_heads * head_dim
     kvd = kv_heads * head_dim
-    qkv = _dot(x, wqkv).to(x.dtype)
+    qkv = _scaled_dot(x, wqkv, scale).to(x.dtype)
     q = qkv[..., :qd].reshape(B, L, n_heads, head_dim)
     k = qkv[..., qd : qd + kvd].reshape(B, L, kv_heads, head_dim)
     v = qkv[..., qd + kvd :].reshape(B, L, kv_heads, head_dim)
     return q, k, v
 
 
-def fused_o_proj(attn: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """Output projection: attn [B, L, NH, HD] with wo [QD, D]; returns
-    [B, L, D] in f32 (the caller casts, as in the JAX package)."""
+def fused_o_proj(attn: torch.Tensor, wo: torch.Tensor,
+                 scale=None) -> torch.Tensor:
+    """Output projection: attn [B, L, NH, HD] with wo [QD, D] (int8 with its
+    [1, D] `scale`); returns [B, L, D] in f32 (the caller casts, as in the
+    JAX package)."""
     B, L = attn.shape[:2]
-    return _dot(attn.reshape(B, L, -1), wo)
+    return _scaled_dot(attn.reshape(B, L, -1), wo, scale)
 
 
-def fused_ffn(z: torch.Tensor, wgu: torch.Tensor,
-              w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU on the fused gate|up layout: wgu [D, 2F], w_down [F, D]."""
+def fused_ffn(z: torch.Tensor, wgu: torch.Tensor, w_down: torch.Tensor,
+              scale_gu=None, scale_down=None) -> torch.Tensor:
+    """SwiGLU on the fused gate|up layout: wgu [D, 2F], w_down [F, D].
+    int8 weights pass their scales; `scale_gu` applies before the SiLU
+    (which is not linear), `scale_down` after the down-projection."""
     fd = w_down.shape[0]
-    gu = _dot(z, wgu)
+    gu = _scaled_dot(z, wgu, scale_gu)
     ff = (F.silu(gu[..., :fd]) * gu[..., fd:]).to(z.dtype)
-    return _dot(ff, w_down).to(z.dtype)
+    return _scaled_dot(ff, w_down, scale_down).to(z.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +260,20 @@ def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# int8 KV quantization (serving kv_quant="int8")
+# ---------------------------------------------------------------------------
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization over the last (head_dim) axis:
+    x [..., HD] -> (int8 [..., HD], f32 scales [...]), s = max|x| / 127
+    (1 for an all-zero row), rounded half to even as jnp.round does."""
+    xf = x.float()
+    m = xf.abs().amax(dim=-1)
+    s = torch.where(m > 0, m / 127.0, torch.ones_like(m))
+    return torch.round(xf / s[..., None]).to(torch.int8), s
+
+
+# ---------------------------------------------------------------------------
 # Ragged (per-row position) decode: the serving path
 # ---------------------------------------------------------------------------
 
@@ -258,6 +293,15 @@ def ragged_update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
     return k_cache, v_cache
 
 
+def ragged_update_scales(scales: torch.Tensor, s: torch.Tensor,
+                         pos: torch.Tensor) -> torch.Tensor:
+    """The int8 companion of `ragged_update_kv_cache`: scales [B, KVH, M]
+    <- s [B, KVH] at (b, :, pos[b]), in place (past M clamps to M-1)."""
+    B, M = scales.shape[0], scales.shape[2]
+    scales[torch.arange(B, device=scales.device), :, pos.long().clamp(0, M - 1)] = s
+    return scales
+
+
 def paged_update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
                           k: torch.Tensor, v: torch.Tensor,
                           page_ids: torch.Tensor, offsets: torch.Tensor):
@@ -267,6 +311,15 @@ def paged_update_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
     k_pages[page_ids.long(), :, offsets.long()] = k[:, 0].to(k_pages.dtype)
     v_pages[page_ids.long(), :, offsets.long()] = v[:, 0].to(v_pages.dtype)
     return k_pages, v_pages
+
+
+def paged_update_scales(pool: torch.Tensor, s: torch.Tensor,
+                        page_ids: torch.Tensor,
+                        offsets: torch.Tensor) -> torch.Tensor:
+    """The int8 companion of `paged_update_kv_cache`: scale pool [P, KVH,
+    page] <- s [B, KVH] at (page_ids[b], :, offsets[b]), in place."""
+    pool[page_ids.long(), :, offsets.long()] = s
+    return pool
 
 
 def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
@@ -280,17 +333,52 @@ def _gather_pages(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_table: torch.Tensor,
-                    pos: torch.Tensor) -> torch.Tensor:
+                    pos: torch.Tensor, k_scale=None, v_scale=None) -> torch.Tensor:
     """Decode attention over one layer's page pool (gather form).
 
     q: [B, 1, NH, HD]; pools [P, KVH, page, HD]; block_table [B, maxp]
     (unused entries -> null page 0); pos [B]: row b attends kv_idx <=
-    pos[b].  Gathers each row's pages into a dense view and applies the
+    pos[b].  int8 pools pass their scale pools k_scale/v_scale [P, KVH,
+    page].  Gathers each row's pages into a dense view and applies the
     ragged mask: the numerics oracle of the paged-attention kernel
     (`ops.kernels.paged_attention`), which follows the block table instead
     of materializing the gather.  Returns [B, 1, NH, HD]."""
+    ks = vs = None
+    if k_scale is not None:
+        ks = gather_page_scales(k_scale, block_table)
+        vs = gather_page_scales(v_scale, block_table)
     return ragged_cache_attention(q, _gather_pages(k_pages, block_table),
-                                  _gather_pages(v_pages, block_table), pos)
+                                  _gather_pages(v_pages, block_table), pos,
+                                  k_scale=ks, v_scale=vs)
+
+
+def gather_page_scales(scale_pool: torch.Tensor,
+                       block_table: torch.Tensor) -> torch.Tensor:
+    """[P, KVH, page] scale pool -> per-row dense scales [B, KVH,
+    maxp*page] following the block table (the plain path's gather; the
+    kernel reads the scale pools through the table itself)."""
+    B, maxp = block_table.shape
+    kvh, page = scale_pool.shape[1], scale_pool.shape[2]
+    g = scale_pool[block_table.long()]  # [B, maxp, KVH, page]
+    return g.transpose(1, 2).reshape(B, kvh, maxp * page)
+
+
+def gather_page_scales_stacked(scale_pools: torch.Tensor, li: int,
+                               block_table: torch.Tensor) -> torch.Tensor:
+    """Layer `li` of stacked scale pools [NL, P, KVH, page] -> [B, KVH,
+    maxp*page]."""
+    return gather_page_scales(scale_pools[li], block_table)
+
+
+def gather_page_scales_all(scale_pools: torch.Tensor,
+                           block_table: torch.Tensor) -> torch.Tensor:
+    """Every layer of stacked scale pools [NL, P, KVH, page] -> dense rows
+    [NL, B, KVH, maxp*page] in one gather: the plain quantum loop's hoist
+    (the pools are frozen for a quantum)."""
+    nl, _, kvh, page = scale_pools.shape
+    B, maxp = block_table.shape
+    g = scale_pools[:, block_table.long()]  # [NL, B, maxp, KVH, page]
+    return g.transpose(2, 3).reshape(nl, B, kvh, maxp * page)
 
 
 def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -299,11 +387,20 @@ def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
                            cur_v: Optional[torch.Tensor] = None,
                            win_k: Optional[torch.Tensor] = None,
                            win_v: Optional[torch.Tensor] = None,
-                           win_count: Optional[int] = None) -> torch.Tensor:
+                           win_count: Optional[int] = None,
+                           k_scale=None, v_scale=None, cur_ks=None,
+                           cur_vs=None, win_ks=None,
+                           win_vs=None) -> torch.Tensor:
     """Single-token attention with per-row visible lengths.
 
     q: [B, 1, NH, HD]; caches [B, KVH, M, HD]; pos: [B].  Returns
     [B, 1, NH, HD].
+
+    int8 caches pass k_scale/v_scale [B, KVH, M] (and int8 appended rows
+    cur_ks/cur_vs [B, KVH], int8 windows win_ks/win_vs [B, KVH, Q]): K
+    scales post-multiply the score columns and V scales fold into the
+    probabilities, so the appended rows match a read-back of the written
+    slot exactly.
 
     Plain mode: row b attends kv_idx <= pos[b].
 
@@ -329,7 +426,14 @@ def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if win_k is not None and not append:
         raise ValueError("window mode requires appended-current mode")
     qg = q.reshape(B, KVH, G, HD).float()
-    scores = torch.einsum("bkgd,bkmd->bkgm", qg, k_cache.float()) / math.sqrt(HD)
+    sq = math.sqrt(HD)
+
+    def score(keys, eq, s):  # q . keys, post-scaled by the int8 scales s
+        out = torch.einsum(eq, qg, keys.float())
+        return out if s is None else out * s
+
+    scores = score(k_cache, "bkgd,bkmd->bkgm",
+                   None if k_scale is None else k_scale[:, :, None, :]) / sq
     kv_idx = torch.arange(M, device=q.device)[None, None, None, :]
     lim = pos.to(q.device)[:, None, None, None]
     nwin = 0
@@ -338,10 +442,12 @@ def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
         parts = [scores]
         if win_k is not None:
             nwin = win_k.shape[2]
-            s_win = torch.einsum("bkgd,bkqd->bkgq", qg, win_k.float()) / math.sqrt(HD)
+            s_win = score(win_k, "bkgd,bkqd->bkgq",
+                          None if win_ks is None else win_ks[:, :, None, :]) / sq
             col = torch.arange(nwin, device=q.device)
             parts.append(s_win.masked_fill(~(col < win_count), float("-inf")))
-        s_cur = torch.einsum("bkgd,bkd->bkg", qg, cur_k.float()) / math.sqrt(HD)
+        s_cur = score(cur_k, "bkgd,bkd->bkg",
+                      None if cur_ks is None else cur_ks[:, :, None]) / sq
         parts.append(s_cur[..., None])
         scores = torch.cat(parts, dim=-1)
     else:
@@ -349,14 +455,22 @@ def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     p_win = probs[..., M : M + nwin] if nwin else None
     p_cur = probs[..., M + nwin :] if append else None  # [B, KVH, G, 1]
-    probs = probs[..., :M].to(v_cache.dtype)
-    out = torch.einsum("bkgm,bkmd->bkgd", probs.float(), v_cache.float())
+    probs = probs[..., :M]
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, :]
+    else:
+        probs = probs.to(v_cache.dtype).float()
+    out = torch.einsum("bkgm,bkmd->bkgd", probs, v_cache.float())
     if nwin:
         # Masked columns carry probs exactly 0 (softmax of -inf), so the
         # stale rows in unwritten window columns contribute nothing.
+        if win_vs is not None:
+            p_win = p_win * win_vs[:, :, None, :]
         out = out + torch.einsum("bkgq,bkqd->bkgd",
                                  p_win.to(q.dtype).float(), win_v.float())
     if append:
+        if cur_vs is not None:
+            p_cur = p_cur * cur_vs[:, :, None, None]
         out = out + p_cur * cur_v.float()[:, :, None, :]
     return out.reshape(B, 1, NH, HD).to(q.dtype)
 
@@ -368,15 +482,28 @@ def paged_attention_stacked(q: torch.Tensor, k_pools: torch.Tensor,
                             cur_v: Optional[torch.Tensor] = None,
                             win_k: Optional[torch.Tensor] = None,
                             win_v: Optional[torch.Tensor] = None,
-                            win_count: Optional[int] = None) -> torch.Tensor:
+                            win_count: Optional[int] = None,
+                            k_scale_pool=None, v_scale_pool=None,
+                            cur_ks=None, cur_vs=None, win_ks=None,
+                            win_vs=None, k_scale_rows=None,
+                            v_scale_rows=None) -> torch.Tensor:
     """Paged decode attention reading layer `li` of the stacked pools
     [NL, P, KVH, page, HD]: gathers layer li's block-table pages and
     attends with the current token appended (and the in-flight window,
-    when given), as `ragged_cache_attention` sets out."""
+    when given), as `ragged_cache_attention` sets out.  int8 pools pass
+    their scale pools [NL, P, KVH, page], or layer li's scale rows already
+    gathered (`k_scale_rows`/`v_scale_rows` [B, KVH, maxp*page], the
+    quantum loop's hoist)."""
+    ks, vs = k_scale_rows, v_scale_rows
+    if k_scale_pool is not None and ks is None:
+        ks = gather_page_scales_stacked(k_scale_pool, li, block_table)
+        vs = gather_page_scales_stacked(v_scale_pool, li, block_table)
     return ragged_cache_attention(
         q, _gather_pages(k_pools[li], block_table),
         _gather_pages(v_pools[li], block_table), pos, cur_k=cur_k,
-        cur_v=cur_v, win_k=win_k, win_v=win_v, win_count=win_count)
+        cur_v=cur_v, win_k=win_k, win_v=win_v, win_count=win_count,
+        k_scale=ks, v_scale=vs, cur_ks=cur_ks, cur_vs=cur_vs,
+        win_ks=win_ks, win_vs=win_vs)
 
 
 # The commits below write every layer's new rows into the cache in one
@@ -389,13 +516,18 @@ def paged_attention_stacked(q: torch.Tensor, k_pools: torch.Tensor,
 
 def commit_decode_rows_paged(cache: Dict, k_rows: torch.Tensor,
                              v_rows: torch.Tensor, page_ids: torch.Tensor,
-                             offsets: torch.Tensor) -> Dict:
+                             offsets: torch.Tensor, ks_rows=None,
+                             vs_rows=None) -> Dict:
     """Commit every layer's new decode K/V rows [NL, B, KVH, HD] to the
     paged pool in place: row b lands at (layer, page_ids[b], :,
-    offsets[b]).  Returns the cache."""
+    offsets[b]).  int8 pools also commit the scale rows [NL, B, KVH].
+    Returns the cache."""
     pid, off = page_ids.long(), offsets.long()
     cache["k"][:, pid, :, off] = k_rows.transpose(0, 1).to(cache["k"].dtype)
     cache["v"][:, pid, :, off] = v_rows.transpose(0, 1).to(cache["v"].dtype)
+    if ks_rows is not None:
+        cache["k_s"][:, pid, :, off] = ks_rows.transpose(0, 1)
+        cache["v_s"][:, pid, :, off] = vs_rows.transpose(0, 1)
     return cache
 
 
@@ -408,9 +540,10 @@ def _window_slots(pos0: torch.Tensor, num_steps: int) -> torch.Tensor:
 def commit_window_paged(cache: Dict, win: Dict, pos0: torch.Tensor,
                         block_table: torch.Tensor, num_steps: int) -> Dict:
     """Commit a whole quantum's in-flight window to the paged pool in place:
-    win["k"/"v"] [NL, B, KVH, Q, HD]; column s of row b lands at the (page,
-    offset) of position pos0[b] + s through the block table.  Positions
-    past the table clamp into the row's last block-table entry."""
+    win["k"/"v"] [NL, B, KVH, Q, HD] (int8 windows also "k_s"/"v_s" [NL, B,
+    KVH, Q]); column s of row b lands at the (page, offset) of position
+    pos0[b] + s through the block table.  Positions past the table clamp
+    into the row's last block-table entry."""
     page = cache["k"].shape[3]
     maxp = block_table.shape[1]
     steps = _window_slots(pos0, num_steps)
@@ -420,6 +553,8 @@ def commit_window_paged(cache: Dict, win: Dict, pos0: torch.Tensor,
     for name in ("k", "v"):  # [NL, B, KVH, Q, HD] -> [B, Q, NL, KVH, HD]
         cache[name][:, pidx, :, offs] = win[name].permute(1, 3, 0, 2, 4).to(
             cache[name].dtype)
+    for name in ("k_s", "v_s") if "k_s" in win else ():
+        cache[name][:, pidx, :, offs] = win[name].permute(1, 3, 0, 2)
     return cache
 
 
@@ -433,21 +568,27 @@ def commit_window_dense(cache: Dict, win: Dict, pos0: torch.Tensor,
     steps = _window_slots(pos0, num_steps)
     rows = torch.arange(B, device=steps.device)[:, None].expand_as(steps)
     ok = steps < M
-    for name in ("k", "v"):
-        vals = win[name].permute(1, 3, 0, 2, 4)[ok]  # [N, NL, KVH, HD]
+    for name in ("k", "v", "k_s", "v_s") if "k_s" in win else ("k", "v"):
+        w = win[name]  # [NL, B, KVH, Q, *tail] -> [N, NL, KVH, *tail]
+        vals = w.permute(1, 3, 0, 2, *range(4, w.dim()))[ok]
         cache[name][:, rows[ok], :, steps[ok]] = vals.to(cache[name].dtype)
     return cache
 
 
 def commit_decode_rows_dense(cache: Dict, k_rows: torch.Tensor,
-                             v_rows: torch.Tensor, pos: torch.Tensor) -> Dict:
+                             v_rows: torch.Tensor, pos: torch.Tensor,
+                             ks_rows=None, vs_rows=None) -> Dict:
     """Dense-cache counterpart of `commit_decode_rows_paged`: rows
-    [NL, B, KVH, HD] land at (layer, b, :, pos[b]) of the [NL, B, KVH, M,
-    HD] cache in place; positions past M are dropped."""
+    [NL, B, KVH, HD] (and int8 scale rows [NL, B, KVH]) land at (layer, b,
+    :, pos[b]) of the [NL, B, KVH, M, HD] cache in place; positions past M
+    are dropped."""
     B, M = cache["k"].shape[1], cache["k"].shape[3]
     p = pos.long()
     ok = p < M
     rows = torch.arange(B, device=p.device)[ok]
-    cache["k"][:, rows, :, p[ok]] = k_rows.transpose(0, 1)[ok].to(cache["k"].dtype)
-    cache["v"][:, rows, :, p[ok]] = v_rows.transpose(0, 1)[ok].to(cache["v"].dtype)
+    new = {"k": k_rows, "v": v_rows}
+    if ks_rows is not None:
+        new.update(k_s=ks_rows, v_s=vs_rows)
+    for name, r in new.items():
+        cache[name][:, rows, :, p[ok]] = r.transpose(0, 1)[ok].to(cache[name].dtype)
     return cache

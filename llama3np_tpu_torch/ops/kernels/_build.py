@@ -48,6 +48,25 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
         ctypes.c_float, _I, _P,            # eps, device, stream
     ]),
+    "l3t_decode_layers_i8": (ctypes.c_int, [
+        _P, _P, _P, _P,                    # wqkv, wo, wgu, w_down (int8)
+        _P, _P, _P, _P,                    # their per-column scales
+        _P, _P,                            # attn_norm, ffn_norm
+        _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
+        _P, _P, _P,                        # cos_row, sin_row, scratch
+        _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
+        ctypes.c_float, _I, _P,            # eps, device, stream
+    ]),
+    "l3t_paged_attention_i8": (ctypes.c_int, [
+        _P, _P, _P, _P, _P,                # q, k_pools, v_pools, k/v scale pools
+        _P, _P,                            # table, pos
+        _P, _P, _P, _P,                    # cur_k, cur_v, cur_ks, cur_vs
+        _P, _P, _P, _P,                    # win_k, win_v, win_ks, win_vs
+        _P, _P, _P,                        # out, part_ml, part_acc
+        _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
+        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
+        _I, _P,                            # device, stream
+    ]),
     "l3t_paged_attention_f32": (ctypes.c_int, [
         _P, _P, _P, _P, _P,                # q, k_pools, v_pools, table, pos
         _P, _P, _P, _P,                    # cur_k, cur_v, win_k, win_v

@@ -12,6 +12,13 @@ softmax; because of that mask the new rows are written into the caches at
 `pos` in place (the JAX kernel emitted them and scattered afterwards), and
 the caches passed in are the ones returned.
 
+Two modes, chosen by the tree: float32 weights, and int8 weights with
+per-output-column f32 scales ("wqkv_scale" [NL, 1, QD+2KVD] and so on,
+`checkpoint.quantize_param_tree`), the counterpart of the TPU's streamed
+layout with its scale blocks (`_streamed_decode_layers`).  int8 products
+are (x . w8) * s with x in f32 and the scale applied to the finished sum;
+activations, caches, norms and RoPE stay float32.
+
 `decode_layers` launches the kernels for CUDA tensors and runs
 `decode_layers_plain` for CPU tensors; there is no fallback from one to the
 other.  `decode_layers.launches` counts launches (one per call: one call
@@ -25,8 +32,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from ..core import _dot
+from ..core import _scaled_dot
 from . import _build
+
+_WEIGHTS = ("wqkv", "wo", "wgu", "w_down")
 
 
 def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -41,8 +50,9 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
                         norm_eps: float
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch, with the appended-column math of
-    the TPU kernel's `_attend_head` written out.  Updates the caches at
-    `pos` in place and returns (x_out, k_cache, v_cache)."""
+    the TPU kernel's `_attend_head` written out (int8 weights post-scale
+    each product).  Updates the caches at `pos` in place and returns
+    (x_out, k_cache, v_cache)."""
     nh, kvh, hd = n_heads, kv_heads, head_dim
     g, half = nh // kvh, hd // 2
     qd, kvd = nh * hd, kvh * hd
@@ -53,12 +63,17 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         t1, t2 = t[..., :half], t[..., half:]
         return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1)
 
+    def proj(a, name, layer):  # a @ w of `layer`, int8 post-scaled
+        s = layers.get(name + "_scale")
+        return _scaled_dot(a, layers[name][layer],
+                           None if s is None else s[layer])
+
     m = k_cache.shape[2]
     visible = torch.arange(m, device=x.device) < pos  # never row pos
     h = x.float()
     for layer in range(layers["wqkv"].shape[0]):
         xn = _rms_scale(h, layers["attn_norm"][layer].reshape(-1), norm_eps)
-        qkv = _dot(xn, layers["wqkv"][layer])                 # [1, QD+2KVD]
+        qkv = proj(xn, "wqkv", layer)                         # [1, QD+2KVD]
         q = rope(qkv[0, :qd].reshape(kvh, g, hd))             # [KVH, G, HD]
         k_rot = rope(qkv[0, qd : qd + kvd].reshape(kvh, 1, hd))
         v_new = qkv[0, qd + kvd :].reshape(kvh, 1, hd)
@@ -74,13 +89,13 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         attn = (torch.einsum("kgm,kmd->kgd", sexp, vs) + e_new * v_new) / denom
         k_cache[layer, :, pos] = k_rot[:, 0].to(k_cache.dtype)
         v_cache[layer, :, pos] = v_new[:, 0].to(v_cache.dtype)
-        h = h + _dot(attn.reshape(1, qd), layers["wo"][layer])
+        h = h + proj(attn.reshape(1, qd), "wo", layer)
         zn = _rms_scale(h, layers["ffn_norm"][layer].reshape(-1), norm_eps)
-        gu = _dot(zn, layers["wgu"][layer])
+        gu = proj(zn, "wgu", layer)  # the gate/up scale applies before SiLU
         fd = layers["w_down"].shape[1]
         gate = gu[:, :fd]
         ff = gate * (1.0 / (1.0 + torch.exp(-gate))) * gu[:, fd:]
-        h = h + _dot(ff, layers["w_down"][layer])
+        h = h + proj(ff, "w_down", layer)
     return h.to(x.dtype), k_cache, v_cache
 
 
@@ -102,6 +117,12 @@ def _check_args(layers, x, pos, k_cache, v_cache, cos_row, sin_row,
     for name in ("attn_norm", "ffn_norm"):
         if layers[name].numel() != nl * d:
             raise ValueError(f"decode_layers: {name} must hold [NL, D] values")
+    if "wqkv_scale" in layers:
+        for name, shape in want.items():
+            s = layers.get(name + "_scale")
+            if s is None or tuple(s.shape) != (nl, 1, shape[2]):
+                raise ValueError(f"decode_layers: int8 weights need {name}_scale "
+                                 f"[{nl}, 1, {shape[2]}]")
     if tuple(x.shape) != (1, d):
         raise ValueError(f"decode_layers: x must be [1, {d}], got {tuple(x.shape)}")
     if k_cache.dim() != 4 or tuple(k_cache.shape[:2]) != (nl, kv_heads) \
@@ -126,8 +147,9 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
 
     layers: fused whole-layer tree in rope-split layout ("wqkv"
     [NL,D,QD+2KVD], "wo" [NL,QD,D], "wgu" [NL,D,2FD], "w_down" [NL,FD,D],
-    "attn_norm"/"ffn_norm" [NL,1,D]).  x: [1, D] embedded token.  pos: host
-    int, the token's position.  k_cache/v_cache: [NL, KVH, M, HD] (one batch
+    "attn_norm"/"ffn_norm" [NL,1,D]); for int8 weights also "wqkv_scale"
+    [NL,1,QD+2KVD], "wo_scale", "wgu_scale", "w_down_scale".  x: [1, D]
+    embedded token.  pos: host int, the token's position.  k_cache/v_cache: [NL, KVH, M, HD] (one batch
     row), read at rows < pos and written at row pos in place.
     cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
 
@@ -143,33 +165,49 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
                                    cos_row, sin_row, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"decode_layers runs on CUDA or CPU tensors, not {x.device}")
-    names = ("wqkv", "wo", "wgu", "w_down", "attn_norm", "ffn_norm")
-    tensors = [layers[n] for n in names] + [x, k_cache, v_cache, cos_row, sin_row]
-    if any(t.dtype != torch.float32 for t in tensors):
+    quant = "wqkv_scale" in layers
+    weights = [layers[n] for n in _WEIGHTS]
+    scales = [layers[n + "_scale"] for n in _WEIGHTS] if quant else []
+    floats = [layers["attn_norm"], layers["ffn_norm"], x, k_cache, v_cache,
+              cos_row, sin_row] + scales
+    tensors = weights + floats
+    w_dtype = torch.int8 if quant else torch.float32
+    if any(t.dtype != w_dtype for t in weights) or any(t.dtype != torch.float32
+                                                       for t in floats):
         raise NotImplementedError(
-            "the decode_layers kernel takes float32 weights, caches and rows; "
-            "bf16 kernels are still to port (ROADMAP.md); use attn_impl='xla'")
+            "the decode_layers kernel takes float32 or int8 (+ f32 scales) "
+            "weights and float32 caches and rows; bf16 kernels are still to "
+            "port (ROADMAP.md); use attn_impl='xla'")
     if any(t.device != x.device for t in tensors):
         raise ValueError("decode_layers: every tensor must lie on x's device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_layers takes contiguous tensors")
-    nl, d, _ = layers["wqkv"].shape
+    nl, d, qkvd = layers["wqkv"].shape
     fd = layers["w_down"].shape[1]
     if head_dim % 4 or head_dim > 128 or d % 4 or fd % 2:
         raise ValueError(f"decode_layers kernel takes head_dim % 4 == 0 and <= 128, "
                          f"dim % 4 == 0, even hidden_dim; got {head_dim}, {d}, {fd}")
+    if quant and (qkvd % 16 or d % 16 or (2 * fd) % 16):
+        # One lane reads 16 int8 weights as a 16-byte vector: each output
+        # width must be a multiple of 16 for whole, aligned vectors.
+        raise ValueError(f"the int8 decode_layers kernel takes output widths "
+                         f"that are multiples of 16; got {qkvd}, {d}, {2 * fd}")
     lib = _build.KernelLibrary.get()
     scratch = torch.empty(
         lib.l3t_decode_scratch_floats(d, n_heads, kv_heads, head_dim, fd),
         dtype=torch.float32, device=x.device)
     x_out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.l3t_decode_layers_f32(
-        *(layers[n].data_ptr() for n in names),
-        x.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        cos_row.data_ptr(), sin_row.data_ptr(), scratch.data_ptr(),
-        nl, d, n_heads, kv_heads, head_dim, fd, k_cache.shape[2], pos,
-        float(norm_eps), x.device.index, stream)
+    rest = (layers["attn_norm"].data_ptr(), layers["ffn_norm"].data_ptr(),
+            x.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
+            scratch.data_ptr(), nl, d, n_heads, kv_heads, head_dim, fd,
+            k_cache.shape[2], pos, float(norm_eps), x.device.index, stream)
+    if quant:
+        rc = lib.l3t_decode_layers_i8(*(t.data_ptr() for t in weights + scales),
+                                      *rest)
+    else:
+        rc = lib.l3t_decode_layers_f32(*(t.data_ptr() for t in weights), *rest)
     _build.check(rc, "decode_layers")
     decode_layers.launches += 1
     return x_out, k_cache, v_cache

@@ -3,7 +3,7 @@ pool, following each row's block table, as a hand-written CUDA kernel
 (`csrc/paged_attention.cu`) beside its plain PyTorch version.
 
 Counterpart of `llama3np_tpu.ops.kernels.paged_attention.paged_attention`,
-with the same arguments and the same three float32 modes:
+with the same three modes, over float32 pools or int8 pools:
 
 * plain: pools [P, KVH, page, HD], row b attends kv_idx <= pos[b];
 * stacked (`layer` given): the whole-model pools [NL, P, KVH, page, HD]
@@ -13,13 +13,20 @@ with the same arguments and the same three float32 modes:
   `win_count`): the quantum loop's in-flight rows, the first `win_count`
   visible.
 
-The kernel takes float32 pools and any even HD <= 128; the JAX
-`supports()` gate (HD % 128 == 0) was a TPU DMA rule and has no
+int8 pools pass their f32 scale pools `k_scale`/`v_scale` (the pool's shape
+without HD: one scale per token and KV head), with `cur_ks`/`cur_vs` [B,
+KVH] for the appended row and `win_ks`/`win_vs` [B, KVH, Q] for the window.
+The kernel reads the scale pools through the block table, as it reads the
+values; the JAX package's per-row scale gather fed a TPU VMEM block and is
+not taken over (the plain version gathers, as the XLA path did).
+
+The kernel takes any even HD <= 128 in float32 and HD % 4 == 0 in int8;
+the JAX `supports()` gate (HD % 128 == 0) was a TPU DMA rule and has no
 counterpart, so every paged decode on the card goes through the kernel.
-int8 pools (the scale arguments) and bf16 pools are still to port (ROADMAP
-A8).  `paged_attention` launches the kernel for CUDA tensors and runs
-`paged_attention_plain` for CPU tensors; there is no fallback from one to
-the other.  `paged_attention.launches` counts launches (one per call).
+bf16 pools are still to port.  `paged_attention` launches the kernel for
+CUDA tensors and runs `paged_attention_plain` for CPU tensors; there is no
+fallback from one to the other.  `paged_attention.launches` counts launches
+(one per call).
 """
 
 from __future__ import annotations
@@ -35,22 +42,26 @@ from . import _build
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_table: torch.Tensor,
-                          pos: torch.Tensor, layer: Optional[int] = None,
-                          cur_k=None, cur_v=None, win_k=None, win_v=None,
+                          pos: torch.Tensor, k_scale=None, v_scale=None,
+                          layer: Optional[int] = None, cur_k=None, cur_v=None,
+                          cur_ks=None, cur_vs=None, win_k=None, win_v=None,
+                          win_ks=None, win_vs=None,
                           win_count: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch: the gather oracle
     (`ops.core.paged_attention`, or `paged_attention_stacked` when `layer`
     is given)."""
     if layer is None:
-        return core.paged_attention(q, k_pages, v_pages, block_table, pos)
-    return core.paged_attention_stacked(q, k_pages, v_pages, layer,
-                                        block_table, pos, cur_k=cur_k,
-                                        cur_v=cur_v, win_k=win_k, win_v=win_v,
-                                        win_count=win_count)
+        return core.paged_attention(q, k_pages, v_pages, block_table, pos,
+                                    k_scale=k_scale, v_scale=v_scale)
+    return core.paged_attention_stacked(
+        q, k_pages, v_pages, layer, block_table, pos, cur_k=cur_k,
+        cur_v=cur_v, win_k=win_k, win_v=win_v, win_count=win_count,
+        k_scale_pool=k_scale, v_scale_pool=v_scale, cur_ks=cur_ks,
+        cur_vs=cur_vs, win_ks=win_ks, win_vs=win_vs)
 
 
 def _check_args(q, k_pages, v_pages, block_table, pos, layer, cur_k, cur_v,
-                win_k, win_v, win_count):
+                win_k, win_v, win_count, scales):
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"paged_attention takes q [B, 1, NH, HD], got {tuple(q.shape)}")
     B, _, NH, HD = q.shape
@@ -84,8 +95,23 @@ def _check_args(q, k_pages, v_pages, block_table, pos, layer, cur_k, cur_v,
             raise ValueError(f"win_count must be in [0, {win_k.shape[2]}], got {win_count}")
     elif win_v is not None:
         raise ValueError("win_v given without win_k")
+    # int8: every scale that the mode reads, of its row's shape without HD.
+    want = {"k_scale": k_pages.shape[:-1], "v_scale": k_pages.shape[:-1]}
+    if stacked:
+        want.update(cur_ks=(B, KVH), cur_vs=(B, KVH))
+    if window:
+        want.update(win_ks=win_k.shape[:-1], win_vs=win_k.shape[:-1])
+    quant = k_pages.dtype == torch.int8
+    given = {n for n, t in scales.items() if t is not None}
+    if given != (set(want) if quant else set()):
+        raise ValueError(f"int8 pools take the scales {sorted(want)} and float "
+                         f"pools none; got {sorted(given)}")
+    for name in given:
+        if tuple(scales[name].shape) != tuple(want[name]):
+            raise ValueError(f"{name} must be {list(want[name])}, got "
+                             f"{list(scales[name].shape)}")
     tensors = [q, k_pages, v_pages, block_table, pos] + [
-        t for t in (cur_k, cur_v, win_k, win_v) if t is not None]
+        t for t in (cur_k, cur_v, win_k, win_v, *scales.values()) if t is not None]
     if any(t.device != q.device for t in tensors):
         raise ValueError("paged_attention: every tensor must lie on q's device")
     return tensors
@@ -105,7 +131,7 @@ def _splits(B: int, KVH: int, maxp: int, device) -> int:
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, block_table: torch.Tensor,
-                    pos: torch.Tensor, k_scale_rows=None, v_scale_rows=None,
+                    pos: torch.Tensor, k_scale=None, v_scale=None,
                     layer: Optional[int] = None, cur_k=None, cur_v=None,
                     cur_ks=None, cur_vs=None, win_k=None, win_v=None,
                     win_ks=None, win_vs=None,
@@ -113,31 +139,34 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Decode attention over the paged cache, following the block tables.
 
     q: [B, 1, NH, HD]; pools [P, KVH, page, HD] (or [NL, P, KVH, page, HD]
-    with `layer`); block_table [B, maxp] (unused entries -> null page 0);
-    pos [B].  Modes as the module docstring sets out.  A row whose pos ran
-    past its table attends the table's pages and stays in bounds.  Returns
-    [B, 1, NH, HD].  CUDA tensors must be contiguous, float32 (pools, q and
-    the appended rows) and int32 (block_table, pos).
+    with `layer`), float32 or int8 with their scale pools; block_table [B,
+    maxp] (unused entries -> null page 0); pos [B].  Modes and scales as
+    the module docstring sets out.  A row whose pos ran past its table
+    attends the table's pages and stays in bounds.  Returns [B, 1, NH,
+    HD].  CUDA tensors must be contiguous, float32 (q, scales, float pools
+    and rows) or int8 (int8 pools and rows), and int32 (block_table, pos).
     """
-    if any(t is not None for t in (k_scale_rows, v_scale_rows, cur_ks,
-                                   cur_vs, win_ks, win_vs)):
-        raise NotImplementedError("int8 paged pools are still to port "
-                                  "(ROADMAP A8)")
+    scales = dict(k_scale=k_scale, v_scale=v_scale, cur_ks=cur_ks,
+                  cur_vs=cur_vs, win_ks=win_ks, win_vs=win_vs)
     tensors = _check_args(q, k_pages, v_pages, block_table, pos, layer,
-                          cur_k, cur_v, win_k, win_v, win_count)
-    win_count = 0 if win_k is None else int(win_count)
+                          cur_k, cur_v, win_k, win_v, win_count, scales)
     if q.device.type == "cpu":
         return paged_attention_plain(q, k_pages, v_pages, block_table, pos,
-                                     layer, cur_k, cur_v, win_k, win_v,
-                                     win_count if win_k is not None else None)
+                                     layer=layer, cur_k=cur_k, cur_v=cur_v,
+                                     win_k=win_k, win_v=win_v,
+                                     win_count=win_count, **scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, not {q.device}")
-    floats = [t for t in tensors if t is not block_table and t is not pos]
-    if any(t.dtype != torch.float32 for t in floats):
+    quant = k_pages.dtype == torch.int8
+    rows = [t for t in (k_pages, v_pages, cur_k, cur_v, win_k, win_v) if t is not None]
+    floats = [q] + [t for t in scales.values() if t is not None]
+    if k_pages.dtype not in (torch.float32, torch.int8) \
+            or any(t.dtype != k_pages.dtype for t in rows) \
+            or any(t.dtype != torch.float32 for t in floats):
         raise NotImplementedError(
-            f"the paged_attention kernel takes float32 pools and rows (got "
-            f"{k_pages.dtype} pools); bf16 and int8 pools are still to port "
-            "(ROADMAP A8); use attn_impl='xla'")
+            f"the paged_attention kernel takes float32 or int8 pools and rows "
+            f"with float32 q and scales (got {k_pages.dtype} pools); bf16 "
+            "pools are still to port (ROADMAP A8); use attn_impl='xla'")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention takes int32 block_table and pos on the card")
     if not all(t.is_contiguous() for t in tensors):
@@ -146,10 +175,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     KVH, page = k_pages.shape[-3], k_pages.shape[-2]
     P, maxp = k_pages.shape[-4], block_table.shape[1]
     G = NH // KVH
-    if HD % 2 or HD > 128 or G * HD > 2048 or page > 128:
-        raise ValueError(f"the paged_attention kernel takes an even head_dim <= 128, "
-                         f"G*HD <= 2048 and page <= 128; got HD={HD}, G={G}, page={page}")
+    if HD % (4 if quant else 2) or HD > 128 or G * HD > 2048 or page > 128:
+        raise ValueError(f"the paged_attention kernel takes head_dim <= 128 "
+                         f"(a multiple of {4 if quant else 2}), G*HD <= 2048 and "
+                         f"page <= 128; got HD={HD}, G={G}, page={page}")
     win_q = 0 if win_k is None else win_k.shape[2]
+    win_count = 0 if win_k is None else int(win_count)
     lib = _build.KernelLibrary.get()
     S = _splits(B, KVH, maxp, q.device)
     o = torch.empty_like(q)
@@ -161,14 +192,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.l3t_paged_attention_f32(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), pos.data_ptr(), ptr(cur_k), ptr(cur_v),
-        ptr(win_k), ptr(win_v), o.data_ptr(), part_ml.data_ptr(),
-        part_acc.data_ptr(), B, NH, KVH, HD, P, page, maxp,
-        0 if layer is None else int(layer), int(layer is not None), win_q,
-        win_count, S, q.device.index, stream)
+    ints = (B, NH, KVH, HD, P, page, maxp, 0 if layer is None else int(layer),
+            int(layer is not None), win_q, win_count, S, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if quant:
+        rc = lib.l3t_paged_attention_i8(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_table.data_ptr(),
+            pos.data_ptr(), ptr(cur_k), ptr(cur_v), ptr(cur_ks), ptr(cur_vs),
+            ptr(win_k), ptr(win_v), ptr(win_ks), ptr(win_vs), o.data_ptr(),
+            part_ml.data_ptr(), part_acc.data_ptr(), *ints)
+    else:
+        rc = lib.l3t_paged_attention_f32(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_table.data_ptr(), pos.data_ptr(), ptr(cur_k), ptr(cur_v),
+            ptr(win_k), ptr(win_v), o.data_ptr(), part_ml.data_ptr(),
+            part_acc.data_ptr(), *ints)
     _build.check(rc, "paged_attention")
     paged_attention.launches += 1
     return o

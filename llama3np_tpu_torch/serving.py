@@ -18,10 +18,14 @@ the next admission.
     page allocator.  Each step hands them to the device once and reads the
     new tokens back once; nothing waits on the device per layer.
 
+  * int8 KV (`kv_quant="int8"`, or the model's `args.kv_quant`): the
+    cache holds int8 rows with per-(token, KV head) scales.  Admission
+    prefills into a row cache of the activation dtype, and its rows
+    quantize once, when they are copied into the slot or the pages.
+
 Still to port, each raising NotImplementedError: sampling (`temperature >
-0`, ROADMAP A5), int8 KV (`kv_quant`, A8), the prefix cache
-(`prefix_cache`, with `gather_pool_row`, A9), multi-LoRA (`adapters`, A12)
-and tensor-parallel serving (A14).
+0`, ROADMAP A5), the prefix cache (`prefix_cache`, with `gather_pool_row`,
+A9), multi-LoRA (`adapters`, A12) and tensor-parallel serving (A14).
 """
 
 from __future__ import annotations
@@ -33,51 +37,69 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .checkpoint import torch_dtype
 from .generate import _last_logits, pad_prompt
 from .kvcache import PageAllocator, init_cache, init_paged_cache
 from .models.llama import (forward_hidden, forward_ragged_decode,
                            ragged_decode_steps, token_logprobs)
+from .ops.core import quantize_kv_rows
 
 
-def _row_cache(cache, M: int):
-    """A zeroed single-request cache [NL, 1, KVH, M, HD] of the cache's
-    dtype, on its device."""
+def _row_cache(cache, M: int, row_dtype=None):
+    """A zeroed single-request cache [NL, 1, KVH, M, HD] on the cache's
+    device, of `row_dtype` (the activation dtype an int8 cache's admission
+    prefills in) or else of the cache's own dtype."""
     k = cache["k"]
     shape = (k.shape[0], 1, k.shape[2], M, k.shape[-1])
-    return {"k": torch.zeros(shape, dtype=k.dtype, device=k.device),
-            "v": torch.zeros(shape, dtype=k.dtype, device=k.device)}
+    dt = row_dtype or k.dtype
+    return {"k": torch.zeros(shape, dtype=dt, device=k.device),
+            "v": torch.zeros(shape, dtype=dt, device=k.device)}
+
+
+def _stored_rows(row, cache):
+    """The row cache's k/v as the serving cache stores them: quantized, with
+    their scales, when the cache is int8 ("k_s" present)."""
+    if "k_s" not in cache:
+        return row
+    k8, ks = quantize_kv_rows(row["k"])  # scales [NL, 1, KVH, M]
+    v8, vs = quantize_kv_rows(row["v"])
+    return {"k": k8, "v": v8, "k_s": ks, "v_s": vs}
 
 
 def admission_prefill_dense(params, padded, true_len: int, slot: int, cache,
-                            cos, sin, cfg):
+                            cos, sin, cfg, row_dtype=None):
     """Prefill one request (padded [1, L'] ids) on a fresh single-row cache
-    and copy its K/V into `slot` of the dense serving cache, in place.
-    Returns (last-position logits [1, VS], cache)."""
-    row = _row_cache(cache, cache["k"].shape[3])
+    and copy its K/V into `slot` of the dense serving cache, in place
+    (int8 caches quantize here, the single write point).  Returns
+    (last-position logits [1, VS], cache)."""
+    row = _row_cache(cache, cache["k"].shape[3], row_dtype)
     h, row = forward_hidden(params, padded, 0, row, cos, sin, cfg,
                             first_chunk=True)
-    cache["k"][:, slot] = row["k"][:, 0]
-    cache["v"][:, slot] = row["v"][:, 0]
+    for name, r in _stored_rows(row, cache).items():
+        cache[name][:, slot] = r[:, 0]
     return _last_logits(params, h, true_len, cfg)[:, -1, :], cache
 
 
 def scatter_row_paged(row, page_idx: torch.Tensor, cache):
     """Copy a request's row cache [NL, 1, KVH, M, HD] into the page pool at
     `page_idx` ([max_pages], unused entries -> null page 0), in place: page
-    j of the row lands at pool page page_idx[j] of every layer."""
-    nl, _, kvh, page, hd = cache["k"].shape
+    j of the row lands at pool page page_idx[j] of every layer.  int8 pools
+    quantize here."""
+    nl, _, kvh, page, _ = cache["k"].shape
     n = page_idx.shape[0]
-    for name in ("k", "v"):
-        r = row[name][:, 0].reshape(nl, kvh, n, page, hd).transpose(1, 2)
-        cache[name][:, page_idx.long()] = r  # [NL, n, KVH, page, HD]
+    for name, r in _stored_rows(row, cache).items():
+        tail = r.shape[4:]  # (HD,) for values, () for scales
+        r = r[:, 0].reshape(nl, kvh, n, page, *tail).transpose(1, 2)
+        cache[name][:, page_idx.long()] = r  # [NL, n, KVH, page, *tail]
     return cache
 
 
 def admission_prefill_paged(params, padded, true_len: int,
-                            page_idx: torch.Tensor, cache, cos, sin, cfg):
+                            page_idx: torch.Tensor, cache, cos, sin, cfg,
+                            row_dtype=None):
     """Paged admission: prefill one request and copy its K/V rows into the
     page pool at `page_idx`.  Returns (logits [1, VS], cache)."""
-    row = _row_cache(cache, page_idx.shape[0] * cache["k"].shape[3])
+    row = _row_cache(cache, page_idx.shape[0] * cache["k"].shape[3], row_dtype)
     h, row = forward_hidden(params, padded, 0, row, cos, sin, cfg,
                             first_chunk=True)
     logits = _last_logits(params, h, true_len, cfg)
@@ -133,6 +155,9 @@ class BatchEngine:
     crosses a page boundary, under an admission-time worst-case
     reservation, so a step never runs out of pages.  On the card each paged
     decode step runs the paged-attention kernel once per layer.
+
+    kv_quant="int8" (or the model's `args.kv_quant`) stores the cache as
+    int8 rows with f32 scales (kvcache.init_cache / init_paged_cache).
     """
 
     def __init__(self, engine, capacity: int = 8, paged: bool = False,
@@ -148,9 +173,13 @@ class BatchEngine:
         self.device = engine.device
         self.capacity = capacity
         self.paged = paged
-        if kv_quant or self.args.kv_quant:
-            raise NotImplementedError("int8 KV serving is still to port "
-                                      "(ROADMAP A8)")
+        kv_quant = kv_quant or self.args.kv_quant
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant {kv_quant!r}")
+        self.kv_quant = kv_quant
+        # int8 caches: admission prefills in the activation dtype and its
+        # rows quantize once, at the copy into the cache.
+        self._row_dt = torch_dtype(self.args.dtype) if kv_quant else None
         if prefix_cache:
             raise NotImplementedError("the prefix cache is still to port "
                                       "(ROADMAP A9)")
@@ -180,13 +209,14 @@ class BatchEngine:
                 num_pages = 1 + capacity * self.max_pages
             self.allocator = PageAllocator(num_pages)
             self.cache = init_paged_cache(self.args, num_pages, page_size,
-                                          device=self.device)
+                                          quant=kv_quant, device=self.device)
             self.block_tables = np.zeros((capacity, self.max_pages), np.int32)
             self._pages: List[List[int]] = [[] for _ in range(capacity)]
             # Reserved-but-unallocated worst-case tail pages per slot.
             self._future_pages = np.zeros(capacity, np.int64)
         else:
-            self.cache = init_cache(self.args, capacity, device=self.device)
+            self.cache = init_cache(self.args, capacity, quant=kv_quant,
+                                    device=self.device)
         self.pos = np.zeros(capacity, np.int32)     # next write position
         self.tokens = np.zeros(capacity, np.int32)  # last token per slot
         self.slots: List[Optional[Request]] = [None] * capacity
@@ -286,7 +316,7 @@ class BatchEngine:
         self.slots[slot] = req  # reserve: queued admissions skip this slot
         self.pos[slot] = 0
         M = self.max_pages * page
-        row = _row_cache(self.cache, M)
+        row = _row_cache(self.cache, M, self._row_dt)
         self._in_admission = True
         try:
             logits0, start = None, 0
@@ -331,11 +361,11 @@ class BatchEngine:
             idx[:n_needed] = pages
             logits0, self.cache = admission_prefill_paged(
                 eng.params, self._dev(padded), L, self._dev(idx), self.cache,
-                eng.cos, eng.sin, self.cfg)
+                eng.cos, eng.sin, self.cfg, self._row_dt)
         else:
             logits0, self.cache = admission_prefill_dense(
                 eng.params, self._dev(padded), L, slot, self.cache, eng.cos,
-                eng.sin, self.cfg)
+                eng.sin, self.cfg, self._row_dt)
         tok0 = torch.argmax(logits0, dim=-1)
         first = int(tok0[0])
         req.slot = slot

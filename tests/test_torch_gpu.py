@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from llama3np_tpu_torch import Llama, preset, synthetic_weights
+from llama3np_tpu_torch.ops.core import quantize_kv_rows
 from llama3np_tpu_torch.ops.kernels.decode_step import (decode_layers,
                                                         decode_layers_plain)
 from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
@@ -53,8 +54,32 @@ def test_flash_prefill_kernel_refuses_bf16(cuda):
         flash_prefill(q, q, q)
 
 
+def _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8):
+    """A fused whole-layer tree of random weights: float32, or int8 with
+    positive per-column scales."""
+    hd = d // nh
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(cuda)
+
+    shapes = {"wqkv": (d, (nh + 2 * kvh) * hd), "wo": (nh * hd, d),
+              "wgu": (d, 2 * fd), "w_down": (fd, d)}
+    layers = {"attn_norm": 1 + rnd(nl, 1, d, scale=0.05),
+              "ffn_norm": 1 + rnd(nl, 1, d, scale=0.05)}
+    for name, (k, n) in shapes.items():
+        if int8:
+            w = torch.randint(-127, 128, (nl, k, n), generator=g, dtype=torch.int8)
+            layers[name] = w.to(cuda)
+            layers[name + "_scale"] = (0.05 / 127) * (0.5 + torch.rand(
+                nl, 1, n, generator=g)).to(cuda)
+        else:
+            layers[name] = rnd(nl, k, n, scale=0.05)
+    return layers
+
+
+@pytest.mark.parametrize("int8", [False, True])
 @pytest.mark.parametrize("pos", [0, 5, 63])
-def test_decode_layers_kernel_matches_plain(cuda, pos):
+def test_decode_layers_kernel_matches_plain(cuda, pos, int8):
     nl, d, nh, kvh, fd, M = 2, 64, 4, 2, 128, 64
     hd = d // nh
     g = torch.Generator().manual_seed(pos)
@@ -62,12 +87,7 @@ def test_decode_layers_kernel_matches_plain(cuda, pos):
     def rnd(*s, scale=1.0):
         return (torch.randn(*s, generator=g) * scale).to(cuda)
 
-    layers = {"wqkv": rnd(nl, d, (nh + 2 * kvh) * hd, scale=0.05),
-              "wo": rnd(nl, nh * hd, d, scale=0.05),
-              "wgu": rnd(nl, d, 2 * fd, scale=0.05),
-              "w_down": rnd(nl, fd, d, scale=0.05),
-              "attn_norm": 1 + rnd(nl, 1, d, scale=0.05),
-              "ffn_norm": 1 + rnd(nl, 1, d, scale=0.05)}
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8)
     kc, vc, x = rnd(nl, kvh, M, hd), rnd(nl, kvh, M, hd), rnd(1, d)
     ang = rnd(1, hd // 2)
     kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
@@ -84,9 +104,44 @@ def test_decode_layers_kernel_matches_plain(cuda, pos):
     assert torch.equal(k1[:, :, others], kc[:, :, others])
 
 
+@pytest.mark.parametrize("d,nh,kvh,fd", [(48, 3, 3, 96), (288, 6, 6, 768),
+                                         (640, 10, 2, 1280)])
+def test_decode_layers_int8_kernel_widths(cuda, d, nh, kvh, fd):
+    """Output widths that leave a partial 512-column block (144, 48, 864,
+    288, 1536, 960 columns) and many row splits."""
+    g = torch.Generator().manual_seed(d)
+    nl, M, pos = 2, 96, 77
+    hd = d // nh
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8=True)
+    kc = torch.randn(nl, kvh, M, hd, generator=g).to(cuda)
+    vc = torch.randn(nl, kvh, M, hd, generator=g).to(cuda)
+    x = torch.randn(1, d, generator=g).to(cuda)
+    ang = torch.rand(1, hd // 2, generator=g).to(cuda) * pos
+    kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
+    got, _, _ = decode_layers(layers, x, pos, kc.clone(), vc.clone(), ang.cos(),
+                              ang.sin(), **kw)
+    want, _, _ = decode_layers_plain(layers, x, pos, kc.clone(), vc.clone(),
+                                     ang.cos(), ang.sin(), **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_layers_int8_kernel_refuses_widths(cuda):
+    """One lane reads 16 int8 weights: widths must be multiples of 16."""
+    g = torch.Generator().manual_seed(0)
+    nl, d, nh, kvh, fd, M = 1, 40, 2, 2, 84, 8
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8=True)
+    kc = torch.zeros(nl, kvh, M, d // nh, device=cuda)
+    row = torch.zeros(1, d // nh // 2, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        decode_layers(layers, torch.zeros(1, d, device=cuda), 1, kc, kc.clone(),
+                      row, row, n_heads=nh, kv_heads=kvh, head_dim=d // nh,
+                      norm_eps=1e-5)
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
 @pytest.mark.parametrize("name", ["test-tiny", "test-tiny-mha"])
-def test_card_engine_matches_cpu_engine(cuda, name):
-    args = preset(name)
+def test_card_engine_matches_cpu_engine(cuda, name, quant):
+    args = preset(name, quant=quant)
     w = synthetic_weights(args, seed=7)
     ids = [[1, 7, 30, 41, 5]]
     on_card = Llama(w, args, device=cuda)
@@ -171,23 +226,89 @@ def test_paged_attention_kernel_ignores_masked_garbage(cuda):
     torch.testing.assert_close(got, clean, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
-def test_paged_attention_kernel_refuses_unported_pools(cuda, dtype):
+def _int8_pools(a, layer=None):
+    """The fp32 inputs of `_paged_inputs` quantized per (token, KV head):
+    (args, kwargs) of a stacked (or, with layer None, plain) int8 call."""
+    k8, ks = quantize_kv_rows(a["kp"])
+    v8, vs = quantize_kv_rows(a["vp"])
+    ck8, cks = quantize_kv_rows(a["ck"])
+    cv8, cvs = quantize_kv_rows(a["cv"])
+    wk8, wks = quantize_kv_rows(a["wk"])
+    wv8, wvs = quantize_kv_rows(a["wv"])
+    if layer is None:
+        return ((a["q"], k8[1].contiguous(), v8[1].contiguous(), a["bt"], a["pos"]),
+                dict(k_scale=ks[1].contiguous(), v_scale=vs[1].contiguous()))
+    return ((a["q"], k8, v8, a["bt"], a["pos"]),
+            dict(k_scale=ks, v_scale=vs, layer=layer, cur_k=ck8, cur_v=cv8,
+                 cur_ks=cks, cur_vs=cvs, win_k=wk8, win_v=wv8, win_ks=wks,
+                 win_vs=wvs))
+
+
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window0", "window1", "window3"])
+@pytest.mark.parametrize("NH,KVH,HD", [(6, 6, 48), (8, 2, 64), (4, 1, 128), (4, 2, 20)])
+def test_paged_attention_int8_kernel_matches_plain(cuda, mode, NH, KVH, HD):
+    """int8 pools with scales in the three modes; HD=20 takes the 4-byte
+    loads, the others 16-byte loads."""
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD + 1)
+    args, kw = _int8_pools(a, None if mode == "plain" else 1)
+    if mode == "stacked":
+        for name in ("win_k", "win_v", "win_ks", "win_vs"):
+            kw.pop(name)
+    elif mode != "plain":
+        kw["win_count"] = int(mode[-1])
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, paged_attention_plain(*args, **kw),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_paged_attention_int8_kernel_ignores_masked_scales(cuda):
+    """NaN/inf in the scale slots of masked positions (the null page, the
+    tails of the rows' last pages, unwritten window columns) and garbage
+    int8 values there must not reach the output."""
+    B, NH, KVH, HD, page, maxp = 3, 8, 2, 64, 16, 4
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, 2, 4, seed=2)
+    pos = torch.tensor([5, 17, 40], dtype=torch.int32, device=cuda)
+    bt = torch.arange(1, 1 + B * maxp, dtype=torch.int32, device=cuda).reshape(B, maxp)
+    bt[:, 3:] = 0
+    args, kw = _int8_pools(a, layer=0)
+    args = (args[0], args[1], args[2], bt, pos)
+    kw["win_count"] = 2
+    clean = paged_attention(*args, **kw)
+    k8, v8 = args[1].clone(), args[2].clone()
+    ks, vs = kw["k_scale"].clone(), kw["v_scale"].clone()
+    ks[:, 0], vs[:, 0], k8[:, 0], v8[:, 0] = float("nan"), float("inf"), 127, -128
+    for b, p in enumerate(pos.tolist()):  # slots >= pos of the row's pages
+        for t in range(p, 3 * page):
+            pid = int(bt[b, t // page])
+            ks[0, pid, :, t % page] = float("nan")
+            vs[0, pid, :, t % page] = float("inf")
+            v8[0, pid, :, t % page] = 99
+    wks, wvs = kw["win_ks"].clone(), kw["win_vs"].clone()
+    wks[:, :, 2:], wvs[:, :, 2:] = float("nan"), float("inf")
+    kw.update(k_scale=ks, v_scale=vs, win_ks=wks, win_vs=wvs)
+    got = paged_attention(args[0], k8, v8, bt, pos, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, clean, rtol=0, atol=0)
+
+
+def test_paged_attention_kernel_refuses_unported_pools(cuda):
     q = torch.zeros(1, 1, 4, 16, device=cuda)
-    pool = torch.zeros(3, 2, 8, 16, device=cuda).to(dtype)
+    pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.bfloat16)
     bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         paged_attention(q, pool, pool, bt, pos)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        paged_attention(q, pool.float(), pool.float(), bt, pos,
-                        k_scale_rows=torch.ones(1, 2, 16, device=cuda),
-                        v_scale_rows=torch.ones(1, 2, 16, device=cuda))
 
 
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
 @pytest.mark.parametrize("quantum", [1, 3])
-def test_card_batch_engine_matches_cpu_engine(cuda, quantum):
-    args = preset("test-tiny")
+def test_card_batch_engine_matches_cpu_engine(cuda, quantum, kv_quant):
+    args = preset("test-tiny", quant=kv_quant, kv_quant=kv_quant)
     w = synthetic_weights(args, seed=23)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(3, args.vocab_size, size=n).tolist() for n in (4, 9, 6)]

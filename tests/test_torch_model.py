@@ -178,7 +178,7 @@ def test_pallas_impl_raises_on_cpu():
         Llama(w, preset("test-tiny", attn_impl="pallas"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(quant="int8"), dict(fuse_matmuls=False)])
+@pytest.mark.parametrize("kw", [dict(quant="int4"), dict(fuse_matmuls=False)])
 def test_unported_options_raise(kw):
     w = jsynth(jpreset("test-tiny"), seed=1)
     with pytest.raises(NotImplementedError):

@@ -55,8 +55,17 @@ def test_init_paged_cache_layout(name):
     for k in ("k", "v"):
         assert tuple(got[k].shape) == want[k].shape
         assert got[k].dtype == torch.float32 and not got[k].any()
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tkv.init_paged_cache(tpreset(name), 7, quant="int8", device="cpu")
+    # int8 pools: int8 values and f32 scale pools of the JAX shapes.
+    want = jkv.init_paged_cache(jpreset(name), 7, page_size=8, quant="int8")
+    got = tkv.init_paged_cache(tpreset(name), 7, page_size=8, quant="int8",
+                               device="cpu")
+    assert got.keys() == want.keys() == {"k", "v", "k_s", "v_s"}
+    for k, dt in (("k", torch.int8), ("v", torch.int8), ("k_s", torch.float32),
+                  ("v_s", torch.float32)):
+        assert tuple(got[k].shape) == want[k].shape
+        assert got[k].dtype == dt and not got[k].any()
+    with pytest.raises(ValueError, match="kv quant"):
+        tkv.init_paged_cache(tpreset(name), 7, quant="int4", device="cpu")
 
 
 def test_page_allocator_matches_jax():
@@ -322,9 +331,20 @@ def test_paged_kernel_wrapper_refusals(rng):
     q = t(normal(rng, 1, 1, 4, 16))
     pool = t(normal(rng, 3, 2, 8, 16))
     bt, pos = torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        paged_attention(q, pool, pool, bt, pos, k_scale_rows=torch.ones(1, 2, 16),
-                        v_scale_rows=torch.ones(1, 2, 16))
+    scales = torch.ones(3, 2, 8)
+    with pytest.raises(ValueError, match="float pools none"):  # scales, float pools
+        paged_attention(q, pool, pool, bt, pos, k_scale=scales, v_scale=scales)
+    pool8 = pool.to(torch.int8)
+    with pytest.raises(ValueError, match="int8 pools take"):  # int8, no scales
+        paged_attention(q, pool8, pool8, bt, pos)
+    with pytest.raises(ValueError, match="k_scale must be"):
+        paged_attention(q, pool8, pool8, bt, pos, k_scale=scales[:, :1],
+                        v_scale=scales)
+    with pytest.raises(ValueError, match="int8 pools take"):  # stacked: cur scales
+        paged_attention(q, pool8[None], pool8[None], bt, pos, k_scale=scales[None],
+                        v_scale=scales[None], layer=0,
+                        cur_k=torch.zeros(1, 2, 16, dtype=torch.int8),
+                        cur_v=torch.zeros(1, 2, 16, dtype=torch.int8))
     with pytest.raises(ValueError, match="pools"):
         paged_attention(q, pool[None], pool[None], bt, pos)  # 5-d without layer
     with pytest.raises(ValueError, match="cur_k"):
@@ -433,9 +453,22 @@ def test_ragged_decode_refuses_unported():
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
         tllama.forward_ragged_decode(teng.params, z, z, cache, teng.cos,
                                      teng.sin, teng.cfg, lora={})
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tllama.forward_ragged_decode(teng.params, z, z, cache, teng.cos,
-                                     teng.sin, teng.cfg, scale_rows=(z, z))
+    # Pre-gathered scale rows (the plain quantum loop's hoist) give the
+    # same step as the per-layer gather of the scale pools.
+    pool = tkv.init_paged_cache(args, 9, 8, quant="int8", device="cpu")
+    bt = torch.arange(1, 9, dtype=torch.int32).reshape(2, 4)
+    pos = torch.tensor([3, 17], dtype=torch.int32)
+    for name, t in pool.items():
+        t.copy_(torch.randint(-50, 50, t.shape) if t.dtype == torch.int8
+                else torch.rand(t.shape) / 50)
+    rows = (tops.gather_page_scales_all(pool["k_s"], bt),
+            tops.gather_page_scales_all(pool["v_s"], bt))
+    kw = dict(block_table=bt, commit=False)
+    want = tllama.forward_ragged_decode(teng.params, z, pos, pool, teng.cos,
+                                        teng.sin, teng.cfg, **kw)
+    got = tllama.forward_ragged_decode(teng.params, z, pos, pool, teng.cos,
+                                       teng.sin, teng.cfg, scale_rows=rows, **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
 
 
 def test_token_logprobs_matches_jax(rng):

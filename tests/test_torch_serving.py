@@ -365,12 +365,25 @@ def test_seeded_soak(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(kv_quant="int8"), "A8"), (dict(prefix_cache=True), "A9"),
-    (dict(adapters=[{}]), "A12")])
+    (dict(prefix_cache=True), "A9"), (dict(adapters=[{}]), "A12")])
 def test_unported_engine_options_raise(setup, kw, item):
     _, _, teng = setup
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         BatchEngine(teng, paged=True, **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_kv_quant_engine_option(setup, paged):
+    """kv_quant="int8" builds an int8 cache with scales; any other value is
+    refused as the JAX engine refuses it."""
+    _, jeng, teng = setup
+    be = BatchEngine(teng, capacity=2, paged=paged, kv_quant="int8")
+    assert be.cache["k"].dtype == torch.int8
+    assert be.cache["k_s"].dtype == torch.float32
+    assert tuple(be.cache["k_s"].shape) == tuple(be.cache["k"].shape[:-1])
+    for BE, eng in ((JBatchEngine, jeng), (BatchEngine, teng)):
+        with pytest.raises(ValueError, match="unsupported kv_quant"):
+            BE(eng, capacity=1, paged=paged, kv_quant="int4")
 
 
 @pytest.mark.parametrize("kw,item", [(dict(temperature=0.7), "A5"),
