@@ -7,30 +7,39 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from `llama3np_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the shapes the
-main path gives it (stories15M and tinyllama-1.1b widths; the decode and
-paged-attention kernels in their float32 and int8 modes), drives greedy
+main path gives it (stories15M, tinyllama-1.1b and llama3-8b widths; the
+decode and paged-attention kernels in their float32, int8 and bf16 modes,
+flash prefill and the greedy head in float32 and bf16), drives greedy
 generation end to end through the port's entry points (stories15M against
 the port's NumPy oracle; tinyllama-1.1b at full width and depth against the
 plain path on the same card), traces each model's prefill and a few
 decode tokens with torch.profiler (device time by kernel, device busy
-share), runs the CLI, then drives continuous-batching serving of
-tinyllama-1.1b at full width and depth over the paged KV cache (12
-staggered requests at quanta 1 and 4 and with chunked admission, every
-served stream against its solo stream, exact launch counts, no leaked
-pages; the plain path's rate; a traced window of serving steps).  Last,
-tinyllama-1.1b with int8 weights: greedy generation through the decode
-kernel's int8 mode (on grid-snapped weights against the fp32 kernel
-stream, on the synthetic weights against the int8 plain path), and
-serving with int8 weights and int8 KV through the paged kernel's int8
-mode (every stream against its capacity-1 stream), each traced.  It
-prints one JSON line per phase.  Any failure raises and exits non-zero; the last line,
+share), runs the CLI in float32 and bfloat16, then drives
+continuous-batching serving of tinyllama-1.1b at full width and depth over
+the paged KV cache (12 staggered requests at quanta 1 and 4 and with
+chunked admission, every served stream against its solo stream, exact
+launch counts, no leaked pages; the plain path's rate; a traced window of
+serving steps).  Then tinyllama-1.1b with int8 weights: greedy generation
+through the decode kernel's int8 mode (on grid-snapped weights against the
+fp32 kernel stream, on the synthetic weights against the int8 plain path),
+and serving with int8 weights and int8 KV through the paged kernel's int8
+mode (every stream against its capacity-1 stream), each traced.  Last,
+llama3-8b in bf16 at full width and depth: the engine's own loader over
+weights made on the card, the bf16 kernels at its shapes, greedy
+generation through flash prefill, the decode step and the greedy head
+against the plain path, and paged serving at quanta 1 and 4 against
+capacity-1 streams (bf16 streams may part at a near-tie: the first
+differing token must be one), each traced.  It prints one JSON line per
+phase, then the `kernels` line.  Any failure raises and exits non-zero; the last line,
 `{"ok": true, "device": {...}}`, is printed only when every phase passed.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 
 Times are CUDA-event times on the card, after warm-up, averaged over many
-launches; bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s fp32
-(TF32 stays off).
+launches (the paged kernel and the greedy head queued behind a spin
+kernel, so the host's enqueue of each call does not bound them);
+bounds use the H100 SXM's published 3.35 TB/s, 67 TFLOP/s fp32 (TF32 stays
+off) and 989 TFLOP/s bf16.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 PROMPT = [1, 76, 505, 263, 12561]  # "I have a dream" (reference tokenizer)
 
 
@@ -59,9 +69,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, flops: float):
-    """Least time in ms for the work, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+def bound(nbytes: float, flops: float, flop_s: float = FP32_FLOP_S):
+    """Least time in ms for the work, and what bounds it: float32 work at
+    the 67 TFLOP/s fp32 peak, bf16 work at the 989 TFLOP/s bf16 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -81,26 +92,30 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, match: str, warmup: int = 3) -> float:
-    """Device time per call of `fn` spent in the kernels whose names hold
-    `match`, from torch.profiler over `reps` calls after warm-up: the
-    kernel's own time, without the host's enqueue of each call (which
-    bounds back-to-back CUDA-event timings of a short kernel)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def queued_ms(torch, fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of `fn` over `reps` calls of a short kernel whose
+    host enqueue takes longer than the kernel (which bounds `time_ms`):
+    the calls are enqueued behind a spin kernel, so the card runs them back
+    to back between the two events.  The spin doubles until the card is
+    still spinning when the last call has been enqueued."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 20_000_000  # ~10 ms at the H100's clock
+    for _ in range(6):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and match in e.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no device time in {match!r} kernels")
-    return total / 1e3 / reps
+        queued = not start.query()
+        end.record()
+        end.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise AssertionError("the card drained the queue before every call was enqueued")
 
 
 def compare(torch, got, want, rtol, atol, what):
@@ -122,25 +137,38 @@ class Smoke:
         self.card = card
         self.g = torch.Generator().manual_seed(0)
 
-    def randn(self, *shape, scale=1.0):
-        return (self.torch.randn(*shape, generator=self.g) * scale).to("cuda")
+    def randn(self, *shape, scale=1.0, dtype=None):
+        """Seeded normals on the card: float32 ones made on the host (the
+        earlier phases' inputs), bf16 ones made on the card from a card
+        generator (llama3-8b sizes: a pool is half a billion values)."""
+        torch = self.torch
+        if dtype in (None, torch.float32):
+            return (torch.randn(*shape, generator=self.g) * scale).to("cuda")
+        if not hasattr(self, "gc"):
+            self.gc = torch.Generator("cuda").manual_seed(0)
+        return (torch.randn(*shape, generator=self.gc, device="cuda") * scale).to(dtype)
 
     # -- kernel phases ------------------------------------------------------
 
-    def flash_phase(self, model: str, B, L, NH, KVH, HD):
+    def flash_phase(self, model: str, B, L, NH, KVH, HD, dtype=None):
+        """The flash kernel against its twin; bf16 outputs are compared in
+        f32 within two bf16 ulps (1e-2: the one rounding of an f32 result
+        whose sums ran in another order may land the other way)."""
         torch = self.torch
         import torch.nn.functional as F
         from llama3np_tpu_torch.ops.kernels.flash_prefill import (
             flash_prefill, flash_prefill_plain)
 
-        q = self.randn(B, L, NH, HD)
-        k = self.randn(B, L, KVH, HD)
-        v = self.randn(B, L, KVH, HD)
+        dtype = dtype or torch.float32
+        bf16 = dtype == torch.bfloat16
+        q = self.randn(B, L, NH, HD, dtype=dtype)
+        k = self.randn(B, L, KVH, HD, dtype=dtype)
+        v = self.randn(B, L, KVH, HD, dtype=dtype)
         launches = flash_prefill.launches
         got = flash_prefill(q, k, v)
         torch.cuda.synchronize()
         want = flash_prefill_plain(q, k, v)
-        rtol, atol = 1e-4, 1e-5
+        rtol, atol = (1e-2, 1e-2) if bf16 else (1e-4, 1e-5)
         max_abs, max_rel = compare(torch, got, want, rtol, atol,
                                    f"flash_prefill {model} L={L}")
         reps = 200 if L <= 128 else 50
@@ -149,15 +177,16 @@ class Smoke:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
-        compare(torch, lib_out.transpose(1, 2), want, 1e-3, 1e-4,
+        compare(torch, lib_out.transpose(1, 2), want, *((2e-2, 2e-2) if bf16 else (1e-3, 1e-4)),
                 "scaled_dot_product_attention yardstick")
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps)
         flash_prefill.launches = launches  # comparison launches do not count
         flops = 4.0 * B * NH * HD * L * (L + 1) / 2
-        nbytes = 4.0 * (2 * B * L * NH * HD + 2 * B * L * KVH * HD)
-        bound_ms, bound_by = bound(nbytes, flops)
-        row = {"phase": "kernel", "kernel": "flash_prefill", "model": model,
+        nbytes = q.element_size() * (2 * B * L * NH * HD + 2 * B * L * KVH * HD)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if bf16 else FP32_FLOP_S)
+        row = {"phase": "kernel", "kernel": "flash_prefill",
+               "mode": "bf16" if bf16 else "fp32", "model": model,
                "shape": {"B": B, "L": L, "NH": NH, "KVH": KVH, "HD": HD},
                "max_abs_err": max_abs, "max_rel_err": max_rel,
                "tol": {"rtol": rtol, "atol": atol}, "ms": ms,
@@ -175,9 +204,11 @@ class Smoke:
             decode_layers, decode_layers_plain)
 
         nl, kvh, M, hd = args.n_layers, args.kv_heads, args.max_seq_len, args.head_dim
-        kc = self.randn(nl, kvh, M, hd)
-        vc = self.randn(nl, kvh, M, hd)
-        x = self.randn(1, args.dim, scale=0.5)
+        bf16 = layers["wqkv"].dtype == torch.bfloat16
+        dt = torch.bfloat16 if bf16 else torch.float32
+        kc = self.randn(nl, kvh, M, hd, dtype=dt)
+        vc = self.randn(nl, kvh, M, hd, dtype=dt)
+        x = self.randn(1, args.dim, scale=0.5, dtype=dt)
         ang = torch.rand(1, hd // 2, generator=self.g).to("cuda") * pos
         cos, sin = ang.cos(), ang.sin()
         kw = dict(n_heads=args.n_heads, kv_heads=kvh, head_dim=hd,
@@ -187,11 +218,52 @@ class Smoke:
         got, _, _ = decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)
         torch.cuda.synchronize()
         want, _, _ = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)
-        rtol, atol = 1e-4, 1e-4
-        max_abs, max_rel = compare(torch, got, want, rtol, atol,
-                                   f"decode_layers {model} pos={pos}")
-        compare(torch, k1[:, :, pos], k2[:, :, pos], rtol, atol, "new K rows")
-        compare(torch, v1[:, :, pos], v2[:, :, pos], rtol, atol, "new V rows")
+        if bf16:
+            # The twin rounds at the same points, but an f32 sum taken in
+            # another order may round the other way at any of them, and the
+            # 1-ulp flips compound through the layers (`by_depth` prints the
+            # kernel-vs-twin error over the first 1 and 8 layers).  So bf16
+            # is held normwise: kernel vs twin within 5e-2, and the kernel
+            # no farther (within 25 %) from the f32 function of the same
+            # weights and inputs (no bf16 rounding inside) than the twin.
+            rtol, atol = None, None
+            tol = {"normwise": 5e-2, "vs_f32_ratio": 1.25}
+            ref = decode_layers_plain({n: t.float() for n, t in layers.items()},
+                                      x.float(), pos, kc.float(), vc.float(), cos, sin,
+                                      **kw)[0]
+
+            def rel(a, b):
+                return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+            norm_err = {"kernel_vs_twin": rel(got, want), "kernel_vs_f32": rel(got, ref),
+                        "twin_vs_f32": rel(want, ref),
+                        "k_rows": rel(k1[:, :, pos], k2[:, :, pos]),
+                        "v_rows": rel(v1[:, :, pos], v2[:, :, pos])}
+            del ref
+            norm_err["by_depth"] = {}
+            for depth in (1, 8):
+                if depth < nl:
+                    sub = {n: t[:depth] for n, t in layers.items()}
+                    a = decode_layers(sub, x, pos, kc[:depth].clone(), vc[:depth].clone(),
+                                      cos, sin, **kw)[0]
+                    b = decode_layers_plain(sub, x, pos, kc[:depth].clone(),
+                                            vc[:depth].clone(), cos, sin, **kw)[0]
+                    norm_err["by_depth"][depth] = rel(a, b)
+            norm_err["by_depth"][nl] = norm_err["kernel_vs_twin"]
+            if not (max(norm_err["kernel_vs_twin"], norm_err["k_rows"], norm_err["v_rows"])
+                    <= tol["normwise"] and norm_err["kernel_vs_f32"]
+                    <= tol["vs_f32_ratio"] * norm_err["twin_vs_f32"] + 1e-3):
+                raise AssertionError(f"decode_layers {model} pos={pos}: normwise errors "
+                                     f"{norm_err} past {tol}")
+            max_abs = (got.float() - want.float()).abs().max().item()
+            max_rel = max_abs / want.float().abs().max().item()
+        else:
+            rtol, atol, norm_err = 1e-4, 1e-4, None
+            tol = {"rtol": rtol, "atol": atol}
+            max_abs, max_rel = compare(torch, got, want, rtol, atol,
+                                       f"decode_layers {model} pos={pos}")
+            compare(torch, k1[:, :, pos], k2[:, :, pos], rtol, atol, "new K rows")
+            compare(torch, v1[:, :, pos], v2[:, :, pos], rtol, atol, "new V rows")
         others = torch.ones(M, dtype=torch.bool, device="cuda")
         others[pos] = False
         if not (torch.equal(k1[:, :, others], kc[:, :, others])
@@ -202,18 +274,19 @@ class Smoke:
         plain_ms = time_ms(torch, lambda: decode_layers_plain(
             layers, x, pos, k2, v2, cos, sin, **kw), reps)
         decode_layers.launches = launches  # comparison launches do not count
-        mode = "int8" if "wqkv_scale" in layers else "fp32"
+        mode = "int8" if "wqkv_scale" in layers else "bf16" if bf16 else "fp32"
         w_elems = sum(layers[n].numel() for n in ("wqkv", "wo", "wgu", "w_down"))
         nbytes = (sum(t.numel() * t.element_size() for t in layers.values())
-                  + 4.0 * (2 * args.dim + hd + 2 * nl * kvh * hd * (pos + 1)))
+                  + kc.element_size() * (2 * args.dim + 2 * nl * kvh * hd * (pos + 1))
+                  + 4.0 * hd)
         flops = 2.0 * w_elems + 4.0 * nl * args.n_heads * hd * (pos + 1)
-        bound_ms, bound_by = bound(nbytes, flops)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if bf16 else FP32_FLOP_S)
         row = {"phase": "kernel", "kernel": "decode_layers", "mode": mode, "model": model,
                "shape": {"NL": nl, "D": args.dim, "NH": args.n_heads,
                          "KVH": kvh, "HD": hd, "FD": args.hidden_dim, "M": M,
                          "pos": pos},
-               "max_abs_err": max_abs, "max_rel_err": max_rel,
-               "tol": {"rtol": rtol, "atol": atol}, "ms": ms,
+               "max_abs_err": max_abs, "max_rel_err": max_rel, "normwise_err": norm_err,
+               "tol": tol, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": None, "card": self.card}
         emit(row)
@@ -221,16 +294,18 @@ class Smoke:
 
     def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
                     Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3,
-                    quant: bool = False):
+                    quant: bool = False, bf16: bool = False):
         """The paged-attention kernel against its plain twin in its three
         modes (plain, stacked with the current column, window at win_count
         0, 1 and Q), on shuffled block tables with null-page padding, and
         an overrun row; `quant` runs the int8-pool mode (pools, rows and
         window quantized per token and KV head, with their scales) and
-        also fills the scale slots no row may read with NaN/inf.  Timing
+        also fills the scale slots no row may read with NaN/inf; `bf16` the
+        bf16 mode (q, pools and rows in bf16, compared in f32 within two
+        bf16 ulps of the output: 1e-2).  Timing
         rotates over NL layers of pools (more than the 50 MB L2), as a
-        decode step's layers find their pools cold.  `ms` is the kernels'
-        device time per call (the attention kernel and the merge);
+        decode step's layers find their pools cold.  `ms` is the device
+        time per call (the attention kernel and the merge, `queued_ms`);
         `event_ms` the CUDA-event time of back-to-back wrapper calls, which
         the host's enqueue bounds."""
         torch = self.torch
@@ -245,10 +320,12 @@ class Smoke:
             bt[b, min(p // page + 1, maxp):] = 0
         bt = bt.to("cuda")
         pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-        q = self.randn(B, 1, NH, HD)
-        kp, vp = self.randn(NL, P, KVH, page, HD), self.randn(NL, P, KVH, page, HD)
-        ck, cv = self.randn(B, KVH, HD), self.randn(B, KVH, HD)
-        wk, wv = self.randn(B, KVH, Q, HD), self.randn(B, KVH, Q, HD)
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q = self.randn(B, 1, NH, HD, dtype=dt)
+        kp = self.randn(NL, P, KVH, page, HD, dtype=dt)
+        vp = self.randn(NL, P, KVH, page, HD, dtype=dt)
+        ck, cv = self.randn(B, KVH, HD, dtype=dt), self.randn(B, KVH, HD, dtype=dt)
+        wk, wv = self.randn(B, KVH, Q, HD, dtype=dt), self.randn(B, KVH, Q, HD, dtype=dt)
         sc = {}
         if quant:
             (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
@@ -279,7 +356,7 @@ class Smoke:
                 return fn(*a, **kw)
             return run
 
-        rtol, atol = 1e-4, 1e-5
+        rtol, atol = (1e-2, 1e-2) if bf16 else (1e-4, 1e-5)
         launches = paged_attention.launches
         modes = {}
         for mode in ("plain", "stacked", "window0", "window1", f"window{Q}"):
@@ -293,12 +370,13 @@ class Smoke:
             extra = 0 if mode == "plain" else 1 + kw.get("win_count", 0)
             cols = sum(held) + B * extra
             pages = sum(-(-h // page) for h in held)
-            per_token = 2 * KVH * (HD + 4) if quant else 8 * KVH * HD  # K, V (+ scales)
-            nbytes = per_token * cols + 4.0 * (2 * B * NH * HD + pages + B)
+            # K, V (+ scales) a token; q and out; table entries and pos.
+            per_token = 2 * KVH * (HD + 4) if quant else 2 * KVH * HD * kp.element_size()
+            nbytes = per_token * cols + q.element_size() * 2 * B * NH * HD + 4.0 * (pages + B)
             bound_ms, bound_by = bound(nbytes, 4.0 * NH * HD * cols)
             modes[mode] = {
                 "max_abs_err": max_abs, "max_rel_err": max_rel,
-                "ms": device_ms(torch, rotate(paged_attention, mode), 50, "paged_attn"),
+                "ms": queued_ms(torch, rotate(paged_attention, mode), 50),
                 "event_ms": time_ms(torch, rotate(paged_attention, mode), 50),
                 "plain_ms": time_ms(torch, rotate(paged_attention_plain, mode), 5, warmup=1),
                 "bound_ms": bound_ms, "bound_by": bound_by,
@@ -313,7 +391,7 @@ class Smoke:
         got = paged_attention(*a, **kw)
         torch.cuda.synchronize()
         others = torch.arange(B, device="cuda") != over_row
-        if not torch.equal(got[others], base[others]) or not torch.isfinite(got).all():
+        if not torch.equal(got[others], base[others]) or not torch.isfinite(got.float()).all():
             raise AssertionError(f"paged_attention {model}: the overrun row changed "
                                  "other rows or is not finite")
         compare(torch, got, paged_attention_plain(*a, **kw), rtol, atol,
@@ -341,12 +419,61 @@ class Smoke:
                                      "slots changed the output")
         paged_attention.launches = launches  # comparison launches do not count
         row = {"phase": "kernel", "kernel": "paged_attention",
-               "mode": "int8" if quant else "fp32", "model": model,
+               "mode": "int8" if quant else "bf16" if bf16 else "fp32", "model": model,
                "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
                          "maxp": maxp, "P": P, "pos": pos_list, "Q": Q, "NL": NL},
                "tol": {"rtol": rtol, "atol": atol}, "modes": modes,
                "overrun_row_ok": True, "masked_scales_ignored": quant or None,
                "library_ms": None, "card": self.card}
+        emit(row)
+        return row
+
+    def argmax_phase(self, model: str, w, n_x: int = 16):
+        """The greedy head against its plain twin on the model's lm_head w
+        [D, VS]: the same token for `n_x` random rows, and for a row whose
+        two top columns tie across a block boundary (the last column of
+        block 0 and the first of block 1, each summing to exactly 32: the
+        lower one must win).  `ms` is the device time per call (both
+        launches, `queued_ms`); `library_ms` one torch.matmul
+        + torch.argmax (in w's dtype: bf16 rounds the logits), a yardstick
+        the port never calls."""
+        torch = self.torch
+        from llama3np_tpu_torch.ops.kernels.greedy_head import (
+            argmax_head, argmax_head_plain)
+
+        D, VS = w.shape
+        launches = argmax_head.launches
+        xs = [self.randn(1, D, dtype=torch.bfloat16).to(w.dtype) for _ in range(n_x)]
+        got = [int(argmax_head(x, w)[0]) for x in xs]
+        want = [int(argmax_head_plain(x, w)[0]) for x in xs]
+        if got != want:
+            raise AssertionError(f"argmax_head {model}: tokens {got} vs plain {want}")
+        cols = 32 * 16 // w.element_size()  # vocab columns of a block
+        tied = w.clone()
+        tied[:, cols - 1 : cols + 1] = 0
+        tied[0, cols - 1 : cols + 1] = 8.0
+        x = xs[0].clone()
+        x[0, 0] = 4.0
+        tie = (int(argmax_head(x, tied)[0]), int(argmax_head_plain(x, tied)[0]))
+        if tie != (cols - 1, cols - 1):
+            raise AssertionError(f"argmax_head {model}: tie across a block boundary "
+                                 f"gave {tie}, expected {cols - 1}")
+        del tied
+        x = xs[1]
+        ms = queued_ms(torch, lambda: argmax_head(x, w), 50)
+        event_ms = time_ms(torch, lambda: argmax_head(x, w), 50)
+        plain_ms = time_ms(torch, lambda: argmax_head_plain(x, w), 10, warmup=1)
+        library_ms = queued_ms(torch, lambda: torch.argmax(torch.matmul(x, w), dim=-1), 50)
+        argmax_head.launches = launches  # comparison launches do not count
+        bf16 = w.dtype == torch.bfloat16
+        nbytes = w.element_size() * (D * VS + D) + 8.0
+        bound_ms, bound_by = bound(nbytes, 2.0 * D * VS, BF16_FLOP_S if bf16 else FP32_FLOP_S)
+        row = {"phase": "kernel", "kernel": "argmax_head", "mode": "bf16" if bf16 else "fp32",
+               "model": model, "shape": {"D": D, "VS": VS}, "rows_equal": n_x,
+               "tie_across_blocks_ok": True, "max_abs_err": 0.0, "tol": "exact token",
+               "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+               "weights_mb": w.numel() * w.element_size() / 1e6, "card": self.card}
         emit(row)
         return row
 
@@ -378,13 +505,20 @@ def trace(torch, fn, top: int = 6):
 
 
 def kind(name: str) -> str:
-    """The class of a device kernel, for the time splits of the traces:
-    GEMMs (cuBLAS/CUTLASS), the paged-attention kernel, copies and casts
-    (an int8 weight's conversion to f32 before its matmul is one), and the
-    other torch ops."""
+    """The class of a device kernel, for the time splits of the traces: the
+    port's kernels by name, GEMMs (cuBLAS/CUTLASS), copies and casts (an
+    int8 or bf16 weight's conversion to f32 before its matmul is one), and
+    the other torch ops."""
     n = name.lower()
     if "paged_attn" in n:
         return "paged_attention"
+    if "argmax_head" in n:
+        return "argmax_head"
+    if "flash_prefill" in n:
+        return "flash_prefill"
+    if any(k in n for k in ("residual_rmsnorm", "gemv_kernel", "attn_split",
+                            "attn_combine")):  # the fused decode step's kernels
+        return "decode_layers"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
         return "gemm"
     if "copy" in n:
@@ -428,9 +562,10 @@ def profile_phase(torch, model: str, engine, prompt, card: str):
 def _wrappers():
     from llama3np_tpu_torch.ops.kernels.decode_step import decode_layers
     from llama3np_tpu_torch.ops.kernels.flash_prefill import flash_prefill
+    from llama3np_tpu_torch.ops.kernels.greedy_head import argmax_head
     from llama3np_tpu_torch.ops.kernels.paged_attention import paged_attention
     return {"flash_prefill": flash_prefill, "decode_layers": decode_layers,
-            "paged_attention": paged_attention}
+            "paged_attention": paged_attention, "argmax_head": argmax_head}
 
 
 def counters():
@@ -574,23 +709,202 @@ def plain_twin(engine):
     return twin
 
 
-def solo_serve(engine, workload, kv_quant):
+def solo_serve(engine, workload, kv_quant, margins: bool = False):
     """Each request's stream from a capacity-1 paged engine (the
-    schedule-independence rule of tests/test_kv_quant.py:160-178)."""
+    schedule-independence rule of tests/test_kv_quant.py:160-178); with
+    `margins`, also each token's top-2 logit margin (the difference of the
+    top two log-probabilities), for the near-tie rule."""
     from llama3np_tpu_torch.serving import BatchEngine
 
-    out = []
+    out, gaps = [], []
     for prompt, budget in workload:
         be = BatchEngine(engine, capacity=1, paged=True, page_size=16,
-                         kv_quant=kv_quant)
-        req = be.submit(prompt, budget, stop_ids=STOP_IDS)
+                         kv_quant=kv_quant, logprobs=2 if margins else None)
+        req = be.submit(prompt, budget, stop_ids=STOP_IDS,
+                        logprobs=2 if margins else None)
         be.run_to_completion()
         out.append(req.generated)
-    return out
+        gaps.append([top[0][1] - top[1][1] for top in req.top_logprobs])
+    return (out, gaps) if margins else out
 
 
 def first_diff(a, b) -> int:
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+
+
+def near_tie(got, want, margin_at, limit: float, what: str) -> dict:
+    """The bf16 stream rule: `got` equals `want`, or the first token where
+    they differ is a near-tie of the reference path: its top-2 logit
+    margin there (`margin_at(i)`) is under `limit` (twice the measured
+    logits max-abs error between the two paths).  A stream that stops
+    early must be a prefix of the other at the stop."""
+    i = first_diff(got, want)
+    if i == len(got) == len(want):
+        return {"equal_tokens": i, "first_diff": None, "margin": None}
+    if i == min(len(got), len(want)):
+        raise AssertionError(f"{what}: one stream stops at {i}, the other goes on")
+    margin = margin_at(i)
+    if not margin < limit:
+        raise AssertionError(f"{what}: diverges at token {i} where the reference's top-2 "
+                             f"margin is {margin}, not under {limit}")
+    return {"equal_tokens": i, "first_diff": i, "margin": margin}
+
+
+class CardWeights:
+    """HF-schema weights of `args` made on the card, each when the loader
+    asks for it and handed over as a host float32 numpy array, as a
+    checkpoint's would be: normal x 0.02, norms 1 + that (as
+    `synthetic_weights` draws them), each from its own seeded card
+    generator, so the order of the loader's requests does not matter."""
+
+    def __init__(self, torch, args, seed: int = 0, scale: float = 0.02):
+        self.torch, self.seed, self.scale = torch, seed, scale
+        d, fd, vs = args.dim, args.hidden_dim, args.vocab_size
+        qd, kvd = args.n_heads * args.head_dim, args.kv_heads * args.head_dim
+        self.shapes = {"model.embed_tokens.weight": (vs, d),
+                       "model.norm.weight": (d,), "lm_head.weight": (vs, d)}
+        for i in range(args.n_layers):
+            p = f"model.layers.{i}"
+            self.shapes.update({
+                f"{p}.self_attn.q_proj.weight": (qd, d),
+                f"{p}.self_attn.k_proj.weight": (kvd, d),
+                f"{p}.self_attn.v_proj.weight": (kvd, d),
+                f"{p}.self_attn.o_proj.weight": (d, qd),
+                f"{p}.mlp.gate_proj.weight": (fd, d),
+                f"{p}.mlp.up_proj.weight": (fd, d),
+                f"{p}.mlp.down_proj.weight": (d, fd),
+                f"{p}.input_layernorm.weight": (d,),
+                f"{p}.post_attention_layernorm.weight": (d,)})
+
+    def keys(self):
+        return self.shapes.keys()
+
+    def __getitem__(self, key):
+        import zlib
+
+        torch = self.torch
+        g = torch.Generator("cuda").manual_seed(self.seed * 1_000_003 + zlib.crc32(key.encode()))
+        w = torch.randn(self.shapes[key], generator=g, device="cuda") * self.scale
+        if key.endswith("norm.weight"):
+            w += 1.0
+        return w.cpu().numpy()
+
+
+# llama3-8b: the kernel path against the plain path, both bf16 with other
+# rounding points (the kernels follow the streamed TPU layout's, the plain
+# path the XLA layer scan's), whose differences compound over 32 layers:
+# the repo's bf16 envelope, tests/test_dtype.py's 0.15 x max(1, max
+# |logits|).
+E8B_ENVELOPE = 0.15
+
+
+def llama3_8b_phases(torch, smoke, card):
+    """llama3-8b at full width in bf16: the engine's own loader over weights
+    made on the card, the four kernels' bf16 modes against their twins at
+    its shapes, greedy generation through them against the plain path (the
+    near-tie rule), and paged serving at quanta 1 and 4 against capacity-1
+    streams (the same rule).  Returns the kernel rows and the launch counts
+    of each path, for the summary."""
+    import resource
+
+    import numpy as np
+
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+
+    args = preset("llama3-8b")
+    nl, bf16 = args.n_layers, torch.bfloat16
+    t0 = time.perf_counter()
+    eng = Llama(CardWeights(torch, args), args, device="cuda")
+    torch.cuda.synchronize()
+    emit({"phase": "load", "model": "llama3-8b", "layers": nl, "dtype": args.dtype,
+          "seconds": time.perf_counter() - t0,
+          "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+          "weights_gb": sum(t.numel() * t.element_size() for t in eng.params["layers"].values()) / 1e9,
+          "device_allocated_gb": torch.cuda.memory_allocated() / 1e9, "card": card})
+
+    rows = {"argmax_head": smoke.argmax_phase("llama3-8b", eng.params["lm_head"])}
+    shape = (args.n_heads, args.kv_heads, args.head_dim)
+    rows["flash_prefill"] = smoke.flash_phase("llama3-8b", 1, 512, *shape, dtype=bf16)
+    smoke.flash_phase("llama3-8b", 1, 500, *shape, dtype=bf16)
+    smoke.decode_phase("llama3-8b", eng.params["layers"], args, 0)
+    rows["decode_layers"] = smoke.decode_phase("llama3-8b", eng.params["layers"], args, 511)
+    smoke.decode_phase("llama3-8b", eng.params["layers"], args, 8191)
+    rows["paged_attention"] = smoke.paged_phase(
+        "llama3-8b", 8, *shape, 16, 512, [0, 15, 16, 255, 500, 1023, 4000, 8191], bf16=True)
+    torch.cuda.empty_cache()
+
+    # Greedy generation: the main path through the four kernels.
+    prompt = np.random.default_rng(0).integers(3, args.vocab_size, size=(1, 500))
+    n_tok = 32
+    reset_counters()
+    toks_k = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    gen_counts = counters()
+    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
+              "argmax_head": n_tok - 1}
+    if gen_counts != expect:
+        raise AssertionError(f"llama3-8b launch counts {gen_counts}, expected {expect}")
+    logits_k = torch.from_numpy(eng(prompt, 0))  # ragged L=500 prefill
+    twin = plain_twin(eng)
+    toks_x = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    logits_x = torch.from_numpy(twin(prompt, 0))
+    if not torch.isfinite(logits_k).all():
+        raise AssertionError("non-finite llama3-8b logits")
+    l_abs = (logits_k - logits_x).abs().max().item()
+    l_scale = max(1.0, logits_x.abs().max().item())
+    if l_abs > E8B_ENVELOPE * l_scale or int(logits_k[0, -1].argmax()) != int(logits_x[0, -1].argmax()):
+        raise AssertionError(f"llama3-8b kernel vs plain logits: max abs err {l_abs} "
+                             f"(envelope {E8B_ENVELOPE * l_scale}) or top-1 differs")
+    limit = 2 * l_abs
+
+    def plain_margin(i):  # the plain path's top-2 margin before token i
+        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
+        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
+        return float(top[0] - top[1])
+
+    gen_rule = near_tie(toks_k, toks_x, plain_margin, limit, "llama3-8b greedy stream")
+    k_stats = timed_generate(eng, prompt, 64)[1]
+    x_stats = timed_generate(twin, prompt, 64)[1]
+    emit({"phase": "e2e", "model": "llama3-8b", "dtype": "bfloat16", "prompt_tokens": 500,
+          "launches": gen_counts, "stream_vs_plain": gen_rule, "near_tie_limit": limit,
+          "logits_max_abs_err": l_abs, "logits_max_abs": l_scale,
+          "logits_envelope": E8B_ENVELOPE * l_scale,
+          "kernels": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
+          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
+          "timed_tokens": 64, "card": card})
+    emit(profile_phase(torch, "llama3-8b", eng, prompt, card))
+    del twin
+    torch.cuda.empty_cache()
+
+    # Serving: bf16 pools at quanta 1 and 4, against capacity-1 streams.
+    workload = serve_workload(args.vocab_size)
+    solo, gaps = solo_serve(eng, workload, None, margins=True)
+    paths = {name: {"generate": n} for name, n in gen_counts.items()}
+    for run, quantum in (("q1", 1), ("q4", 4)):
+        reset_counters()  # the main path: serving through the kernels
+        streams, st = serve(torch, eng, workload, quantum)
+        counts = counters()
+        rules = [near_tie(g, w, lambda i, m=m: m[i], limit,
+                          f"llama3-8b serving {run} request {r}")
+                 for r, (g, w, m) in enumerate(zip(streams, solo, gaps))]
+        expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
+                  "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
+        if counts != expect or st["admissions"] != len(workload):
+            raise AssertionError(f"llama3-8b serving {run} launch counts {counts}, "
+                                 f"expected {expect} ({st['admissions']} admissions)")
+        for name, n in counts.items():
+            paths[name]["serve_" + run] = n
+        emit({"phase": "e2e", "model": "llama3-8b", "path": "serving", "dtype": "bfloat16",
+              "run": run, **st, "launches": counts,
+              "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
+              "near_ties": [dict(request=i, **r) for i, r in enumerate(rules)
+                            if r["first_diff"] is not None],
+              "near_tie_limit": limit, "pages_leaked": 0, "card": card})
+    emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card))
+    del eng
+    torch.cuda.empty_cache()
+    return rows, paths
 
 
 def int8_phases(torch, smoke, args, weights, prompt, workload, card):
@@ -611,8 +925,10 @@ def int8_phases(torch, smoke, args, weights, prompt, workload, card):
         reset_counters()
         toks = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
         counts = counters()
-        if eng.cfg.kernels and counts != gen_counts:
-            raise AssertionError(f"{what} launch counts {counts}, expected {gen_counts}")
+        # An int8 lm_head keeps lm_logits + argmax; a float32 one runs the head.
+        want = {**gen_counts, "argmax_head": 0 if "lm_head_scale" in eng.params else n_tok - 1}
+        if eng.cfg.kernels and counts != want:
+            raise AssertionError(f"{what} launch counts {counts}, expected {want}")
         return toks, counts, torch.from_numpy(eng(prompt, 0))
 
     # (a) grid weights: the int8 kernel stream is the fp32 kernel stream.
@@ -677,7 +993,7 @@ def int8_phases(torch, smoke, args, weights, prompt, workload, card):
                                  f"capacity-1 stream at token "
                                  f"{first_diff(streams[i], solo[i])}; {len(bad)} of 12 differ")
         expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
-                  "paged_attention": nl * st["decode_steps"]}
+                  "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
         if counts != expect or st["admissions"] != len(workload):
             raise AssertionError(f"int8 serving {run} launch counts {counts}, expected "
                                  f"{expect} ({st['admissions']} admissions)")
@@ -773,6 +1089,7 @@ def main() -> int:
         smoke.flash_phase("stories15M", 1, L, s_args.n_heads, s_args.kv_heads, hd)
     for pos in (0, 5, 1023):
         smoke.decode_phase("stories15M", s_eng.params["layers"], s_args, pos)
+    smoke.argmax_phase("stories15M", s_eng.params["lm_head"])
     s_q8 = Llama(s_weights, s_args.replace(quant="int8"), device="cuda")
     for pos in (0, 5, 1023):
         smoke.decode_phase("stories15M", s_q8.params["layers"], s_args, pos)
@@ -794,7 +1111,7 @@ def main() -> int:
         raise AssertionError(f"stories15M greedy stream diverges from NumpyLlama "
                              f"at token {at}: {got[:8]} vs {want[:8]}")
     if s_counts != {"flash_prefill": s_args.n_layers, "decode_layers": n_check - 1,
-                    "paged_attention": 0}:
+                    "paged_attention": 0, "argmax_head": n_check - 1}:
         raise AssertionError(f"stories15M launch counts {s_counts}")
     toks, stats = timed_generate(s_eng, ids, 1000)
     if toks.shape != (1, 1000) or toks.cpu()[0, :n_check].tolist() != want:
@@ -818,6 +1135,7 @@ def main() -> int:
                                   t_args.kv_heads, t_args.head_dim)
     smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 0)
     decode_row = smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 511)
+    smoke.argmax_phase("tinyllama-1.1b", t_eng.params["lm_head"])
 
     prompt = np.random.default_rng(0).integers(3, t_args.vocab_size, size=(1, 500))
     n_tok = 32
@@ -825,7 +1143,7 @@ def main() -> int:
     toks_k = t_eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
     main_counts = counters()
     if main_counts != {"flash_prefill": t_args.n_layers, "decode_layers": n_tok - 1,
-                       "paged_attention": 0}:
+                       "paged_attention": 0, "argmax_head": n_tok - 1}:
         raise AssertionError(f"tinyllama launch counts {main_counts}")
     logits_k = torch.from_numpy(t_eng(prompt, 0))  # ragged L=500 prefill
     k_stats = timed_generate(t_eng, prompt, 64)[1]
@@ -859,16 +1177,17 @@ def main() -> int:
     # ---- the CLI ------------------------------------------------------------
     vocab = synthetic_vocab(os.path.join(REPO, "build", "smoke", "vocab.json"),
                             preset("stories15M").vocab_size)
-    cli = subprocess.run(
-        [sys.executable, "-m", "llama3np_tpu_torch.cli", "--synthetic",
-         "--preset", "stories15M", "--tokenizer", vocab, "I have a dream"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    last = cli.stdout.rstrip().splitlines()[-1] if cli.stdout.strip() else ""
-    if cli.returncode != 0 or not last.startswith("Token count:"):
-        raise AssertionError(f"CLI failed (rc {cli.returncode}):\n"
-                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
-    emit({"phase": "cli", "last_line": last,
-          "stats": cli.stderr.strip().splitlines()[-1]})
+    for dtype in ("float32", "bfloat16"):  # bfloat16: the kernels' bf16 modes
+        cli = subprocess.run(
+            [sys.executable, "-m", "llama3np_tpu_torch.cli", "--synthetic",
+             "--preset", "stories15M", "--dtype", dtype, "--tokenizer", vocab,
+             "I have a dream"], cwd=REPO, capture_output=True, text=True, timeout=600)
+        last = cli.stdout.rstrip().splitlines()[-1] if cli.stdout.strip() else ""
+        if cli.returncode != 0 or not last.startswith("Token count:"):
+            raise AssertionError(f"CLI --dtype {dtype} failed (rc {cli.returncode}):\n"
+                                 f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+        emit({"phase": "cli", "dtype": dtype, "last_line": last,
+              "stats": cli.stderr.strip().splitlines()[-1]})
 
     # ---- serving: tinyllama-1.1b at full width and depth, paged cache -------
     nl = t_args.n_layers
@@ -892,7 +1211,7 @@ def main() -> int:
                                  f"{len(workload[i][0])}) diverges from its solo "
                                  f"stream at token {at}; {len(bad)} of 12 differ")
         expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
-                  "paged_attention": nl * st["decode_steps"]}
+                  "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
         if counts != expect or st["admissions"] != len(workload):
             raise AssertionError(f"serving {run} launch counts {counts}, expected "
                                  f"{expect} ({st['admissions']} admissions)")
@@ -919,6 +1238,12 @@ def main() -> int:
     # ---- tinyllama-1.1b with int8 weights and int8 KV ----------------------
     decode_i8, paged_i8, i8_paths = int8_phases(torch, smoke, t_args, t_weights, prompt,
                                                 workload, card)
+    del t_weights  # host memory for the 8B staging
+    import gc
+    gc.collect()
+
+    # ---- llama3-8b in bf16 at full width and depth -------------------------
+    b_rows, b_paths = llama3_8b_phases(torch, smoke, card)
 
     # ---- summary --------------------------------------------------------------
     sources = {"flash_prefill": ("llama3np_tpu_torch/csrc/flash_prefill.cu",
@@ -926,17 +1251,19 @@ def main() -> int:
                "decode_layers": ("llama3np_tpu_torch/csrc/decode_step.cu",
                                  "llama3np_tpu/ops/kernels/decode_step.py:917"),
                "paged_attention": ("llama3np_tpu_torch/csrc/paged_attention.cu",
-                                   "llama3np_tpu/ops/kernels/paged_attention.py:257")}
+                                   "llama3np_tpu/ops/kernels/paged_attention.py:257"),
+               "argmax_head": ("llama3np_tpu_torch/csrc/greedy_head.cu",
+                               "llama3np_tpu/ops/kernels/greedy_head.py:70")}
     # Launches: each kernel's count in the main path that carries it (the
     # serving run at quantum 1 for flash_prefill and paged_attention, greedy
-    # generation for decode_layers; the int8 modes' own int8 runs), and the
-    # count in each path.
+    # generation for decode_layers and argmax_head; the int8 and bf16 modes'
+    # own runs), and the count in each path.
     by_path = {name: {"generate": main_counts[name],
                       "serve_q1": served["q1"]["launches"][name],
                       "serve_q4": served["q4"]["launches"][name]}
                for name in sources}
     main_path = {"flash_prefill": "serve_q1", "decode_layers": "generate",
-                 "paged_attention": "serve_q1"}
+                 "paged_attention": "serve_q1", "argmax_head": "generate"}
 
     def stacked(row):  # the paged kernel's stacked mode stands for the row
         return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
@@ -946,12 +1273,15 @@ def main() -> int:
                        (decode_row, by_path["decode_layers"]),
                        (stacked(paged_row), by_path["paged_attention"]),
                        (decode_i8, i8_paths["decode_layers"]),
-                       (stacked(paged_i8), i8_paths["paged_attention"])):
+                       (stacked(paged_i8), i8_paths["paged_attention"]),
+                       (b_rows["flash_prefill"], b_paths["flash_prefill"]),
+                       (b_rows["decode_layers"], b_paths["decode_layers"]),
+                       (stacked(b_rows["paged_attention"]), b_paths["paged_attention"]),
+                       (b_rows["argmax_head"], b_paths["argmax_head"])):
         name = row["kernel"]
         src, replaces = sources[name]
-        if row.get("mode") == "int8":
-            replaces = {"decode_layers": "llama3np_tpu/ops/kernels/decode_step.py:793",
-                        "paged_attention": replaces}[name]
+        if name == "decode_layers" and row["mode"] in ("int8", "bf16"):
+            replaces = "llama3np_tpu/ops/kernels/decode_step.py:793"  # the streamed layout
         kernels.append({
             "name": name, "mode": row.get("mode", "fp32"), "route": "cuda",
             "source": src, "replaces": replaces,

@@ -82,12 +82,22 @@ def build_param_tree(weights, args: ModelArgs) -> Dict:
     def get(key):
         return np.asarray(weights[key], dtype=np.float32)
 
-    def stack(fmt):
-        return np.stack([get(fmt.format(i=i)) for i in range(args.n_layers)])
+    def stack(fmt, transpose=False):
+        # Layer by layer into one preallocated array: the staging holds the
+        # stack and one layer, not every layer twice (an 8B model stages
+        # 32 GB of float32 here).
+        out = None
+        for i in range(args.n_layers):
+            a = get(fmt.format(i=i))
+            a = a.T if transpose else a
+            if out is None:
+                out = np.empty((args.n_layers, *a.shape), np.float32)
+            out[i] = a
+        return out
 
     def stack_t(fmt):
         # [out, in] -> [in, out], stacked over layers.
-        return np.stack([get(fmt.format(i=i)).T for i in range(args.n_layers)])
+        return stack(fmt, transpose=True)
 
     layers = _parallel_items([
         ("wq", partial(stack_t, "model.layers.{i}.self_attn.q_proj.weight")),

@@ -3,8 +3,10 @@
 Mirrors `llama3np_tpu.cli`: the same streamed text and the same final
 `Token count: N, elapsed: S, T tokens/s` line (quirks Q3/Q6), with the
 prefill/decode split on stderr.  It runs on the card unless `--device cpu`
-is given.  `--quant int8` runs int8 weights (int4 exits with the ROADMAP
-message).  Trace, debug and sampling flags wait for later slices.
+is given; `--dtype bfloat16` runs the kernels' bf16 modes there.  `--quant
+int8` runs int8 weights (int4, and int8 under bfloat16 on the card, exit
+with the ROADMAP message).  Trace, debug and sampling flags wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -61,14 +63,13 @@ def main(argv=None) -> int:
         overrides["quant"] = args_ns.quant
     try:
         margs = preset(args_ns.preset, **overrides)
+        tokenizer = Tokenizer(args_ns.tokenizer, fix_decode=args_ns.fixed_decode)
+        source = (synthetic_weights(margs, seed=0) if args_ns.synthetic
+                  else args_ns.model)
+        model = Llama(source, margs, device=args_ns.device)
     except NotImplementedError as e:
         print(f"llama3np_tpu_torch: {e}", file=sys.stderr)
         return 2
-
-    tokenizer = Tokenizer(args_ns.tokenizer, fix_decode=args_ns.fixed_decode)
-    source = (synthetic_weights(margs, seed=0) if args_ns.synthetic
-              else args_ns.model)
-    model = Llama(source, margs, device=args_ns.device)
 
     ids = np.array([tokenizer.encode(args_ns.prompt)])
     n_new = args_ns.max_new_tokens

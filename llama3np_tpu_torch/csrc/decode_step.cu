@@ -1,11 +1,14 @@
 // Fused batch-1 decode step for Hopper (sm_90a): all layers of one token,
-// with float32 weights or int8 weights and per-output-column f32 scales.
+// with float32 weights, int8 weights and per-output-column f32 scales, or
+// bf16 weights, activations and caches.
 //
 // Replaces: llama3np_tpu/ops/kernels/decode_step.py, `decode_layers` (:917)
 // in its whole-layer form (`make_decode_kernel` :266, pallas_call at :992),
 // and so the math its FFN-blocked / KV-head-grouped / streamed TPU layouts
 // (:417, :563, :793) share; the int8 mode is the streamed layout's
 // (`_streamed_decode_layers` :793 with its scale blocks, pallas_call :899):
+// the bf16 mode follows the streamed layout's rounding points
+// (`make_streamed_kernel` :629, its body :659-788):
 // per layer RMSNorm -> fused QKV -> split-halves
 // RoPE -> attention over the cache masked to kv_idx < pos with the current
 // token appended as an explicit column -> o-proj + residual -> RMSNorm ->
@@ -13,11 +16,12 @@
 //
 // What bounds it on the H100: bytes.  Each token reads every layer weight
 // once (fp32: 23.9 MB for stories15M, 3.88 GB for tinyllama-1.1b; int8 a
-// quarter of that plus 4 bytes of scale per output column), plus
-// 2*KVH*HD*4 bytes of cache per layer and position, at 1 FLOP per 2 bytes
-// (fp32) or 2 FLOPs per byte (int8): far below the card's ratio of compute
-// to bandwidth.  The floor is bytes / 3.35 TB/s (~1.16 ms a token at
-// tinyllama widths in fp32, ~0.29 ms in int8).
+// quarter of that plus 4 bytes of scale per output column; bf16: 13.96 GB
+// for llama3-8b), plus 2*KVH*HD cache elements per layer and position, at
+// 1 FLOP per 2 bytes (fp32), 1 per byte (bf16) or 2 per byte (int8): far
+// below the card's ratio of compute to bandwidth.  The floor is bytes /
+// 3.35 TB/s (~1.16 ms a token at tinyllama widths in fp32, ~0.29 ms in
+// int8, ~4.17 ms at llama3-8b in bf16).
 //
 // Design.  The TPU kernel walks the layers as one sequential grid with all
 // of a layer resident in VMEM.  A GPU needs the weight stream spread across
@@ -56,19 +60,35 @@
 // residual+RMSNorm, the attention prologue, the SwiGLU prologue) read
 // scaled partials and stay as they are, and the gate/up scale is in place
 // before SiLU.
+// bf16 mode: a lane reads 8 bf16 weights as one 16-byte vector (a bf16 is
+// the high half of its float, so widening is a shift), 32 row splits as in
+// int8 (a warp covers 256 columns).  The rounding points are the streamed
+// TPU layout's: x enters in bf16 and is widened; RMSNorm, the QKV sums, RoPE
+// and attention are f32 (cache rows widened, f32 scores and softmax, the
+// current token appended as its f32 k_rot/v_new column); every GEMV rounds
+// its activation to bf16 in its prologue (`_wdot` :248: the normed x, the
+// attention output, silu(gate)*up) and sums in f32; the new K/V rows are
+// stored as bf16 (:713-714); the o-projection and the FFN accumulate over
+// the layer's f32 residual, which is rounded to bf16 once, at the end of
+// the layer (`x_out_ref` :788): the next layer's residual+RMSNorm rounds
+// what it stores, and the last one writes x_out in bf16.  Activations in
+// shared memory and the partial sums stay f32.
 // The cache is updated in place: chunk 0 of each KV head writes k_rot and
 // v_new into row `pos`, and attention never reads row `pos` (it masks
 // kv_idx < pos), so the write cannot race a read; pos = 0 attends only the
 // appended column; pos = M-1 writes the last row.
-// Numerics follow the TPU kernel: f32 throughout, the RMS scale multiplied
-// in before the weight (_rms_scale :235), SiLU as g/(1+exp(-g)) (:261),
-// residuals summed in f32.  CUDA graphs, wgmma and bf16 weights are later
-// work; the launch count per token (7 or 8 a layer, plus one) is this
-// design's cost at small widths.
+// Numerics follow the TPU kernel: f32 throughout (bf16 at the points
+// above), the RMS scale multiplied in before the weight (_rms_scale :235),
+// SiLU as g/(1+exp(-g)) (:261), residuals summed in f32.  CUDA graphs and
+// wgmma are later work; the launch count per token (7 or 8 a layer, plus
+// one) is this design's cost at small widths.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
 
 namespace {
 
@@ -77,9 +97,34 @@ constexpr int kMaxSplitI8 = 32;  // int8: 4x the columns a block, more splits
 constexpr int kGemvThreads = 256;
 constexpr int kGemvRowGroups = kGemvThreads / 32;
 
-// Weights a lane reads as one 16-byte vector: 4 floats or 16 int8.
+// Weights a lane reads as one 16-byte vector: 4 floats, 8 bf16 or 16 int8.
 template <typename W>
 constexpr int kVec = 16 / (int)sizeof(W);
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// A GEMV's activation as its product sees it: rounded to bf16 before a bf16
+// weight (the TPU kernel's x.astype(w.dtype)), f32 otherwise.
+template <typename W>
+__device__ __forceinline__ float act_in(float v) {
+  return sizeof(W) == 2 ? round_bf16(v) : v;
+}
+
+// Four consecutive elements of a cache row, widened (8-byte aligned in bf16).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
 
 __device__ __forceinline__ void load_w(const float* p, float (&w)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -106,6 +151,17 @@ __device__ __forceinline__ void load_w(const int8_t* p, float (&w)[16]) {
   i8x4_to_f32(v.z, w + 8);
   i8x4_to_f32(v.w, w + 12);
 }
+
+// Eight bf16 weights -> floats: a bf16 is the high half of its float.
+__device__ __forceinline__ void load_w(const bf16* p, float (&w)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w[2 * i] = __uint_as_float(u[i] << 16);
+    w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
 constexpr int kAttnThreads = 256;
 constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kNormThreads = 1024;
@@ -127,24 +183,29 @@ __device__ float block_sum(float v, float* red) {
   return red[0];
 }
 
-// store = base + sum_s part[s]; if w: xn = store * rsqrt(mean(store^2)+eps) * w.
+// store = base + sum_s part[s] (rounded to bf16 when round_store: the end
+// of a bf16 layer); if w: xn = store * rsqrt(mean(store^2)+eps) * w.
+// TB/TN/TS: the types of base, the norm weight and store (float or bf16).
+template <typename TB, typename TN, typename TS>
 __global__ void __launch_bounds__(kNormThreads)
-residual_rmsnorm_kernel(const float* __restrict__ base,
+residual_rmsnorm_kernel(const TB* __restrict__ base,
                         const float* __restrict__ part, int ks, int D,
-                        const float* __restrict__ w, float eps,
-                        float* __restrict__ store, float* __restrict__ xn) {
+                        const TN* __restrict__ w, float eps, int round_store,
+                        TS* __restrict__ store, float* __restrict__ xn) {
   __shared__ float red[32];
   float ss = 0.f;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
     float o = 0.f;
     for (int s = 0; s < ks; ++s) o += part[(size_t)s * D + i];
-    const float x = base[i] + o;
-    store[i] = x;
+    float x = to_f(base[i]) + o;
+    if (round_store) x = round_bf16(x);
+    store_f(store + i, x);
     ss += x * x;
   }
   if (w == nullptr) return;
   const float rs = rsqrtf(block_sum(ss, red) / D + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x) xn[i] = store[i] * rs * w[i];
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    xn[i] = to_f(store[i]) * rs * to_f(w[i]);
 }
 
 enum { kPlain = 0, kSwiglu = 1 };
@@ -152,7 +213,8 @@ enum { kPlain = 0, kSwiglu = 1 };
 // out_part[blockIdx.y, c] = (sum over rows r of split blockIdx.y of
 // in[r] * W[r, c]) * wscale[c] (no scale for float weights).
 // kPlain: in = vec[K].  kSwiglu: vec holds ks_in partial rows of [gate | up]
-// ([ks_in][2K]) and in = silu(gate) * up.
+// ([ks_in][2K]) and in = silu(gate) * up.  Before bf16 weights, in is
+// rounded to bf16 (act_in).
 template <int MODE, typename W>
 __global__ void __launch_bounds__(kGemvThreads)
 gemv_kernel(const W* __restrict__ Wt, const float* __restrict__ wscale, int K,
@@ -168,14 +230,14 @@ gemv_kernel(const W* __restrict__ Wt, const float* __restrict__ wscale, int K,
   const int nk = min(rows_per_split, K - k0);
   for (int i = threadIdx.x; i < nk; i += kGemvThreads) {
     if (MODE == kPlain) {
-      xs[i] = vec[k0 + i];
+      xs[i] = act_in<W>(vec[k0 + i]);
     } else {
       float g = 0.f, u = 0.f;
       for (int s = 0; s < ks_in; ++s) {
         g += vec[(size_t)s * 2 * K + k0 + i];
         u += vec[(size_t)s * 2 * K + K + k0 + i];
       }
-      xs[i] = g * (1.f / (1.f + expf(-g))) * u;
+      xs[i] = act_in<W>(g * (1.f / (1.f + expf(-g))) * u);
     }
   }
   __syncthreads();
@@ -216,13 +278,15 @@ gemv_kernel(const W* __restrict__ Wt, const float* __restrict__ wscale, int K,
 // (s+1)*chunk)); split 0 also takes the appended column (this token's own
 // k_rot, v_new) and writes them into row pos.  With S == 1 it writes the
 // normalized output; otherwise its (max, sum, unnormalized P.V) partials,
-// which attn_combine_kernel merges.  kc/vc: this layer's cache [KVH][M][HD].
+// which attn_combine_kernel merges.  kc/vc: this layer's cache [KVH][M][HD]
+// of T (float, or bf16 widened as it is read and rounded as it is written).
+template <typename T>
 __global__ void __launch_bounds__(kAttnThreads)
 attn_split_kernel(const float* __restrict__ qkv_part, int ks, int qkvd,
                   int NH, int KVH, int HD,
                   const float* __restrict__ cos_row,
                   const float* __restrict__ sin_row,
-                  float* kc, float* vc, int M, int pos, int chunk, float scale,
+                  T* kc, T* vc, int M, int pos, int chunk, float scale,
                   float* __restrict__ attn_out, float* __restrict__ part_ml,
                   float* __restrict__ part_acc) {
   extern __shared__ float smem[];
@@ -262,12 +326,12 @@ attn_split_kernel(const float* __restrict__ qkv_part, int ks, int qkvd,
   for (int d = tid; d < HD; d += kAttnThreads) vv[d] = colsum(qd + kvd + kh * HD + d);
   __syncthreads();
 
-  float* krow = kc + (size_t)kh * M * HD;
-  float* vrow = vc + (size_t)kh * M * HD;
+  T* krow = kc + (size_t)kh * M * HD;
+  T* vrow = vc + (size_t)kh * M * HD;
   if (s == 0) {  // one writer per KV head; no block reads row pos
     for (int d = tid; d < HD; d += kAttnThreads) {
-      krow[(size_t)pos * HD + d] = kv[d];
-      vrow[(size_t)pos * HD + d] = vv[d];
+      store_f(krow + (size_t)pos * HD + d, kv[d]);
+      store_f(vrow + (size_t)pos * HD + d, vv[d]);
     }
   }
 
@@ -278,11 +342,11 @@ attn_split_kernel(const float* __restrict__ qkv_part, int ks, int qkvd,
   // is fetched once and broadcast.
   for (int e = tid; e < G * n; e += kAttnThreads) {
     const int g = e % G, r = e / G;
-    const float4* kr = reinterpret_cast<const float4*>(krow + (size_t)(j0 + r) * HD);
+    const T* kr = krow + (size_t)(j0 + r) * HD;
     const float* q = qv + g * qs;
     float acc = 0.f;
     for (int i = 0; i < HD / 4; ++i) {
-      const float4 kk = kr[i];
+      const float4 kk = load4(kr + 4 * i);
       acc = fmaf(q[4 * i], kk.x, acc);
       acc = fmaf(q[4 * i + 1], kk.y, acc);
       acc = fmaf(q[4 * i + 2], kk.z, acc);
@@ -325,7 +389,7 @@ attn_split_kernel(const float* __restrict__ qkv_part, int ks, int qkvd,
     const int g = o / HD, d = o - g * HD;
     const float* p = sc + g * cw;
     float acc = 0.f;
-    for (int r = 0; r < n; ++r) acc = fmaf(p[r], vrow[(size_t)(j0 + r) * HD + d], acc);
+    for (int r = 0; r < n; ++r) acc = fmaf(p[r], to_f(vrow[(size_t)(j0 + r) * HD + d]), acc);
     if (s == 0) acc = fmaf(p[n], vv[d], acc);
     if (S == 1) {
       attn_out[(kh * G + g) * HD + d] = acc / red_l[g];
@@ -382,7 +446,7 @@ cudaError_t launch_gemv(const W* Wt, const float* wscale, int K, int N,
                         const float* vec, int ks_in, float* out_part,
                         int* ks_out, int sms, cudaStream_t st) {
   constexpr int kCols = 32 * kVec<W>;
-  constexpr int kSplits = sizeof(W) == 1 ? kMaxSplitI8 : kMaxSplit;
+  constexpr int kSplits = sizeof(W) == 4 ? kMaxSplit : kMaxSplitI8;
   const int nb = (N + kCols - 1) / kCols;
   int ks = (2 * sms + nb - 1) / nb;
   ks = max(1, min(ks, min(kSplits, K / 32)));
@@ -402,13 +466,14 @@ cudaError_t launch_gemv(const W* Wt, const float* wscale, int K, int N,
 }
 
 // Every layer of one token; W = float, or int8_t with the per-column scales
-// s_* ([NL][N] each; null for float weights).
-template <typename W>
+// s_* ([NL][N] each; null otherwise), or bf16.  T: the type of the norms,
+// x_in/x_out and the caches (float, or bf16 with bf16 weights).
+template <typename W, typename T>
 int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
                   const float* s_qkv, const float* s_o, const float* s_gu,
-                  const float* s_dn, const float* attn_norm,
-                  const float* ffn_norm, const float* x_in, float* x_out,
-                  float* k_cache, float* v_cache, const float* cos_row,
+                  const float* s_dn, const T* attn_norm,
+                  const T* ffn_norm, const T* x_in, T* x_out,
+                  T* k_cache, T* v_cache, const float* cos_row,
                   const float* sin_row, float* scratch, int nl, int d, int nh,
                   int kvh, int hd, int fd, int m, int pos, float eps,
                   int device, void* stream) {
@@ -419,8 +484,10 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   if (hd % 4 != 0 || hd > 128 || kvh < 1 || nh % kvh != 0 || d % 4 != 0 ||
       fd % 2 != 0 || pos < 0 || pos >= m)
     return (int)cudaErrorInvalidValue;
-  if (kVec<W> == 16 && (qkvd % 16 != 0 || d % 16 != 0 || (2 * fd) % 16 != 0))
-    return (int)cudaErrorInvalidValue;  // int8: whole, aligned 16-byte vectors
+  constexpr int V = kVec<W>;  // whole, aligned 16-byte vectors
+  if (qkvd % V != 0 || d % V != 0 || (2 * fd) % V != 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int kRound = sizeof(T) == 2;  // bf16: the layer's end rounds
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sms = num_sms(device);
 
@@ -445,7 +512,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   const size_t attn_smem =
       (size_t)(G * (hd + 1) + 2 * hd + 2 * G + G * (chunk + 1)) * sizeof(float);
   if (attn_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attn_split_kernel,
+    err = cudaFuncSetAttribute(attn_split_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attn_smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -453,18 +520,24 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
     return s == nullptr ? nullptr : s + (size_t)l * n;
   };
 
-  const float* base = x_in;  // residual stream entering the layer
   int ks_dn = 0, ks_qkv = 0, ks_o = 0, ks_gu = 0;
   for (int l = 0; l < nl; ++l) {
     const W* Wqkv = wqkv + (size_t)l * d * qkvd;
     const W* Wo = wo + (size_t)l * qd * d;
     const W* Wgu = wgu + (size_t)l * d * 2 * fd;
     const W* Wdn = wdown + (size_t)l * fd * d;
-    float* kc = k_cache + (size_t)l * kvh * m * hd;
-    float* vc = v_cache + (size_t)l * kvh * m * hd;
+    T* kc = k_cache + (size_t)l * kvh * m * hd;
+    T* vc = v_cache + (size_t)l * kvh * m * hd;
 
-    residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
-        base, dn_p, ks_dn, d, attn_norm + (size_t)l * d, eps, x_store, xn);
+    // The residual stream entering the layer: x_in, then the previous
+    // layer's (rounded to bf16 in bf16 mode, as the TPU kernel's x_out).
+    if (l == 0) {
+      residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
+          x_in, dn_p, 0, d, attn_norm, eps, kRound, x_store, xn);
+    } else {
+      residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
+          h_buf, dn_p, ks_dn, d, attn_norm + (size_t)l * d, eps, kRound, x_store, xn);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if ((err = launch_gemv<kPlain>(Wqkv, layer_scale(s_qkv, l, qkvd), d, qkvd, xn,
                                    0, qkv_p, &ks_qkv, sms, st)) != cudaSuccess)
@@ -481,7 +554,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
                                    &ks_o, sms, st)) != cudaSuccess)
       return (int)err;
     residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
-        x_store, o_p, ks_o, d, ffn_norm + (size_t)l * d, eps, h_buf, xn);
+        x_store, o_p, ks_o, d, ffn_norm + (size_t)l * d, eps, 0, h_buf, xn);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     if ((err = launch_gemv<kPlain>(Wgu, layer_scale(s_gu, l, 2 * fd), d, 2 * fd, xn,
                                    0, gu_p, &ks_gu, sms, st)) != cudaSuccess)
@@ -489,10 +562,9 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
     if ((err = launch_gemv<kSwiglu>(Wdn, layer_scale(s_dn, l, d), fd, d, gu_p, ks_gu,
                                     dn_p, &ks_dn, sms, st)) != cudaSuccess)
       return (int)err;
-    base = h_buf;
   }
-  residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(base, dn_p, ks_dn, d, nullptr,
-                                                       eps, x_out, nullptr);
+  residual_rmsnorm_kernel<<<1, kNormThreads, 0, st>>>(
+      h_buf, dn_p, ks_dn, d, static_cast<const T*>(nullptr), eps, kRound, x_out, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -511,7 +583,7 @@ extern "C" int l3t_decode_layers_f32(
     float* x_out, float* k_cache, float* v_cache, const float* cos_row,
     const float* sin_row, float* scratch, int nl, int d, int nh, int kvh,
     int hd, int fd, int m, int pos, float eps, int device, void* stream) {
-  return decode_layers<float>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,
+  return decode_layers<float, float>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,
                               nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache,
                               v_cache, cos_row, sin_row, scratch, nl, d, nh, kvh,
                               hd, fd, m, pos, eps, device, stream);
@@ -527,8 +599,22 @@ extern "C" int l3t_decode_layers_i8(
     float* v_cache, const float* cos_row, const float* sin_row,
     float* scratch, int nl, int d, int nh, int kvh, int hd, int fd, int m,
     int pos, float eps, int device, void* stream) {
-  return decode_layers<int8_t>(wqkv, wo, wgu, wdown, s_qkv, s_o, s_gu, s_dn,
+  return decode_layers<int8_t, float>(wqkv, wo, wgu, wdown, s_qkv, s_o, s_gu, s_dn,
                                attn_norm, ffn_norm, x_in, x_out, k_cache, v_cache,
                                cos_row, sin_row, scratch, nl, d, nh, kvh, hd, fd,
                                m, pos, eps, device, stream);
+}
+
+// bf16 weights ([in, out] row-major), norms, x_in/x_out and caches; cos/sin
+// rows and scratch f32.  Otherwise as l3t_decode_layers_f32.
+extern "C" int l3t_decode_layers_bf16(
+    const bf16* wqkv, const bf16* wo, const bf16* wgu, const bf16* wdown,
+    const bf16* attn_norm, const bf16* ffn_norm, const bf16* x_in, bf16* x_out,
+    bf16* k_cache, bf16* v_cache, const float* cos_row, const float* sin_row,
+    float* scratch, int nl, int d, int nh, int kvh, int hd, int fd, int m, int pos,
+    float eps, int device, void* stream) {
+  return decode_layers<bf16, bf16>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,
+                                   nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache,
+                                   v_cache, cos_row, sin_row, scratch, nl, d, nh, kvh,
+                                   hd, fd, m, pos, eps, device, stream);
 }

@@ -1,14 +1,18 @@
-// Flash prefill attention for Hopper (sm_90a), float32.
+// Flash prefill attention for Hopper (sm_90a), float32 or bf16.
 //
 // Replaces: llama3np_tpu/ops/kernels/flash_prefill.py, `flash_prefill` (body
 // `_kernel`, pallas_call at :102).  Causal GQA self-attention for the
 // start_pos == 0 prefill: q [B,L,NH,HD], k/v [B,L,KVH,HD] -> o [B,L,NH,HD],
 // online softmax in f32, key tiles above the diagonal never touched.
 //
-// What bounds it on the H100: operations.  The work is 4*NH*HD*L(L+1)/2
-// FLOPs against ~(2*NH + 2*KVH)*L*HD*4 bytes; at L=512 (tinyllama widths)
-// that is ~1.08 GFLOP a layer, ~16 us at the 67 TFLOP/s fp32 CUDA-core peak
-// (TF32 stays off on the fp32 path), against ~0.7 MB of traffic (~0.2 us).
+// What bounds it on the H100: operations in float32, bytes in bf16.  The
+// work is 4*NH*HD*L(L+1)/2 FLOPs against (2*NH + 2*KVH)*L*HD elements of
+// traffic; at L=512 (tinyllama widths, f32) that is ~1.08 GFLOP a layer,
+// ~16 us at the 67 TFLOP/s fp32 CUDA-core peak (TF32 stays off on the fp32
+// path), against ~0.7 MB (~0.2 us).  In bf16 at llama3-8b widths it is
+// 2.15 GFLOP (2.2 us at the 989 TFLOP/s bf16 tensor-core peak) against
+// 10.5 MB (3.1 us): the bytes bound the published peaks, though this kernel
+// computes on CUDA cores.
 //
 // Design.  The TPU kernel walks a sequential (q-block, kv-block) grid with
 // VMEM scratch carrying (m, l, acc) across kv steps.  Here one block of 256
@@ -30,8 +34,15 @@
 //    are never stored; the padded prompt tail (>= true_len) is computed like
 //    any row and never read by the caller.
 // The GQA map is h / (NH / KVH), as in the TPU kernel's index map (:109).
-// wgmma/TMA and tensor cores are later work: TF32 would break fp32 parity.
+// bf16 mode is the TPU kernel's own semantics (:46-48, :73): q, k and v
+// tiles are widened to f32 as they are staged, every product, the softmax
+// and the sums stay f32 (the probabilities are never narrowed), and the
+// output is rounded to bf16 once, when it is stored.  Shared memory holds
+// f32 tiles either way (120 KB at HD=128, one block an SM).  wgmma/TMA and
+// tensor cores are later work: TF32 would break fp32 parity, and bf16
+// tensor-core products would round where the TPU kernel does not.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,10 +53,15 @@ constexpr int kTile = 64;      // query rows and keys per tile
 constexpr int kPad = kTile + 4;  // transposed row stride (keeps float4 alignment)
 constexpr float kNegInf = -1e30f;
 
-template <int DT>  // head dims per thread: HD <= 16 * DT
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <int DT, typename T>  // head dims per thread: HD <= 16 * DT
 __global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
+flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
                      int L, int NH, int KVH, int HD, float scale) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);  // [HD][kPad] queries, transposed
@@ -57,13 +73,13 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kTile;
   const int kvh = h / (NH / KVH);
   const size_t q_stride = (size_t)NH * HD, kv_stride = (size_t)KVH * HD;
-  const float* qb = q + (size_t)b * L * q_stride + (size_t)h * HD;
-  const float* kb = k + (size_t)b * L * kv_stride + (size_t)kvh * HD;
-  const float* vb = v + (size_t)b * L * kv_stride + (size_t)kvh * HD;
+  const T* qb = q + (size_t)b * L * q_stride + (size_t)h * HD;
+  const T* kb = k + (size_t)b * L * kv_stride + (size_t)kvh * HD;
+  const T* vb = v + (size_t)b * L * kv_stride + (size_t)kvh * HD;
 
   for (int e = tid; e < kTile * HD; e += kThreads) {
     const int r = e / HD, d = e - r * HD;
-    Qt[d * kPad + r] = q0 + r < L ? qb[(size_t)(q0 + r) * q_stride + d] : 0.f;
+    Qt[d * kPad + r] = q0 + r < L ? to_f(qb[(size_t)(q0 + r) * q_stride + d]) : 0.f;
   }
 
   float m[4], l[4], acc[4][DT];
@@ -81,8 +97,8 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int e = tid; e < kTile * HD; e += kThreads) {
       const int r = e / HD, d = e - r * HD;
       const bool ok = t0 + r < L;
-      Kt[d * kPad + r] = ok ? kb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
-      Vs[r * HD + d] = ok ? vb[(size_t)(t0 + r) * kv_stride + d] : 0.f;
+      Kt[d * kPad + r] = ok ? to_f(kb[(size_t)(t0 + r) * kv_stride + d]) : 0.f;
+      Vs[r * HD + d] = ok ? to_f(vb[(size_t)(t0 + r) * kv_stride + d]) : 0.f;
     }
     __syncthreads();
 
@@ -157,38 +173,35 @@ flash_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + 4 * ty + i;
     if (row >= L) continue;
-    float* op = o + ((size_t)b * L + row) * q_stride + (size_t)h * HD;
+    T* op = o + ((size_t)b * L + row) * q_stride + (size_t)h * HD;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       const int d = tx + 16 * j;
-      if (d < HD) op[d] = acc[i][j] / den;
+      if (d < HD) store_f(op + d, acc[i][j] / den);
     }
   }
 }
 
-template <int DT>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int L, int NH, int KVH, int HD, cudaStream_t st) {
+template <int DT, typename T>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int L,
+                   int NH, int KVH, int HD, cudaStream_t st) {
   const size_t smem = ((size_t)2 * HD * kPad + (size_t)kTile * HD +
                        (size_t)kTile * kPad) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_kernel<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_prefill_kernel<DT, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const float scale = (float)(1.0 / sqrt((double)HD));
   dim3 grid((L + kTile - 1) / kTile, NH, B);
-  flash_prefill_kernel<DT><<<grid, kThreads, smem, st>>>(q, k, v, o, L, NH, KVH, HD, scale);
+  flash_prefill_kernel<DT, T><<<grid, kThreads, smem, st>>>(q, k, v, o, L, NH, KVH, HD, scale);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int l3t_flash_prefill_f32(const float* q, const float* k,
-                                     const float* v, float* o, int B, int L,
-                                     int NH, int KVH, int HD, int device,
-                                     void* stream) {
+template <typename T>
+int run(const T* q, const T* k, const T* v, T* o, int B, int L, int NH, int KVH,
+        int HD, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear any stale error of this runtime
@@ -205,4 +218,21 @@ extern "C" int l3t_flash_prefill_f32(const float* q, const float* k,
     case 7: return (int)launch<7>(q, k, v, o, B, L, NH, KVH, HD, st);
     default: return (int)launch<8>(q, k, v, o, B, L, NH, KVH, HD, st);
   }
+}
+
+}  // namespace
+
+extern "C" int l3t_flash_prefill_f32(const float* q, const float* k,
+                                     const float* v, float* o, int B, int L,
+                                     int NH, int KVH, int HD, int device,
+                                     void* stream) {
+  return run<float>(q, k, v, o, B, L, NH, KVH, HD, device, stream);
+}
+
+// As l3t_flash_prefill_f32, with bf16 q, k, v and o (f32 math inside).
+extern "C" int l3t_flash_prefill_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                      const __nv_bfloat16* v, __nv_bfloat16* o,
+                                      int B, int L, int NH, int KVH, int HD,
+                                      int device, void* stream) {
+  return run<__nv_bfloat16>(q, k, v, o, B, L, NH, KVH, HD, device, stream);
 }

@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a): float32 pools, or int8 pools
-// with per-(token, KV head) f32 scales.
+// Paged decode attention for Hopper (sm_90a): float32 pools, int8 pools
+// with per-(token, KV head) f32 scales, or bf16 pools with bf16 q and out.
 //
 // Replaces: llama3np_tpu/ops/kernels/paged_attention.py, `paged_attention`
 // (:257; kernel body `_kernel` :66, pallas_call at :375).  One decode token
@@ -19,11 +19,11 @@
 //
 // What bounds it on the H100: bytes.  Each visible token's K and V rows are
 // read once for all G = NH/KVH query heads of their KV head (2*KVH*HD*4
-// bytes a token in fp32, 2*KVH*(HD+4) in int8), at 4*G flops per 8 bytes
-// read: far below the card's ratio of compute to bandwidth.  The floor is
-// the visible K/V (plus q and out) over 3.35 TB/s: ~11 MB, ~3.3 us, for 8
-// rows at positions up to 2047 of tinyllama-1.1b (KVH=4, HD=64); ~3 MB,
-// ~0.9 us, in int8.
+// bytes a token in fp32, 2*KVH*HD*2 in bf16, 2*KVH*(HD+4) in int8), at
+// 4*G flops per 8 bytes read in fp32: far below the card's ratio of compute
+// to bandwidth.  The floor is the visible K/V (plus q and out) over
+// 3.35 TB/s: ~11 MB, ~3.3 us, for 8 rows at positions up to 2047 of
+// tinyllama-1.1b (KVH=4, HD=64); ~3 MB, ~0.9 us, in int8.
 //
 // Design.  The TPU kernel runs one program per row and walks the row's pages
 // in 2-deep DMA chunks.  On the GPU one row's walk in one block would use
@@ -62,8 +62,21 @@
 // and widens one 4-byte word of a V row per token.  The scales of masked
 // slots (stale tails, the null page, unwritten window columns) may be
 // non-finite: the visible-prefix rule keeps them out as it keeps out the
-// values.  cp.async double buffering and bf16 pools are later work.
+// values.
+// bf16 mode: the tiles stay bf16 in shared memory (half the fp32 bytes: a
+// 128-token tile at HD=128 is 32 KB of K and 32 KB of V), staged with
+// 16-byte loads when HD % 8 == 0 and 4-byte loads otherwise (HD even); a
+// row is padded to an odd number of 4-byte words, so the score loop's
+// neighbouring tokens fall in different banks.  q (the activation dtype)
+// is widened to f32 as it is staged; the score loop widens one word (two
+// bf16) of a K row at a time, the P.V loop one element of a V row, and
+// everything else (scores, softmax, sums, the split merge) is the f32
+// mode's, so the TPU kernel's semantics hold (pools upcast to f32 and
+// accumulated in f32, :167-170, :239, :251; the output in q's dtype,
+// :254).  cur_k/cur_v and the window rows come in the pool dtype, as the
+// serving loop makes them.  cp.async double buffering is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -79,9 +92,20 @@ constexpr int kMaxOut = 8;        // (head, dim) outputs a thread owns
 constexpr int kLoadUnroll = 4;    // page loads in flight per thread
 constexpr int kMaxSmem = 227 * 1024;
 
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
+
+// The type of q and out for pools of T: bf16 with bf16 pools, else float.
+template <typename T>
+using QType = typename std::conditional<std::is_same<T, bf16>::value, bf16, float>::type;
+
 struct Args {
-  const float* q;       // [B, NH, HD]
-  const void* kp;       // pool of the layer: [P, KVH, page, HD], float or int8
+  const void* q;        // [B, NH, HD], float (float/int8 pools) or bf16
+  const void* kp;       // pool of the layer: [P, KVH, page, HD], float, int8 or bf16
   const void* vp;
   const float* ksp;     // int8: scale pools of the layer [P, KVH, page]
   const float* vsp;
@@ -95,7 +119,7 @@ struct Args {
   const void* win_v;
   const float* win_ks;  // int8: [B, KVH, win_q]
   const float* win_vs;
-  float* out;           // [B, NH, HD]
+  void* out;            // [B, NH, HD], q's type
   float* part_ml;       // [B, KVH, S, G, 2]
   float* part_acc;      // [B, KVH, S, G, HD]
   int NH, KVH, HD, P, page, maxp;
@@ -104,11 +128,13 @@ struct Args {
   float scale;
 };
 
-// A staged row's stride: float rows pad to HD+1 floats; int8 rows to an
-// odd number of 4-byte words.
+// A staged row's stride: float rows pad to HD+1 floats; int8 and bf16 rows
+// to an odd number of 4-byte words.
 template <typename T>
 __host__ __device__ constexpr int row_stride(int HD) {
-  return std::is_same<T, int8_t>::value ? 4 * ((HD / 4) | 1) : HD + 1;
+  return std::is_same<T, int8_t>::value ? 4 * ((HD / 4) | 1)
+         : std::is_same<T, bf16>::value ? 2 * ((HD / 2) | 1)
+                                        : HD + 1;
 }
 
 // The query's row stride in shared memory: int8 mode reads q as float4.
@@ -138,7 +164,8 @@ __device__ __forceinline__ void i8x4_to_f32(int v, float* f) {
 }
 
 // One vector of VEC elements from global memory into registers, and from
-// registers into a staged row.  float: VEC 4 or 2; int8: VEC 16 or 4 bytes.
+// registers into a staged row.  float: VEC 4 or 2; int8: VEC 16 or 4 bytes;
+// bf16: VEC 8 or 2.
 template <typename T, int VEC>
 struct Vec {
   static constexpr int kWords = VEC * (int)sizeof(T) / 4;
@@ -164,6 +191,8 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const Args a) {
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  using TQ = QType<T>;
   extern __shared__ __align__(16) float smem[];
   const int s = blockIdx.x, S = gridDim.x, kh = blockIdx.y, b = blockIdx.z;
   const int HD = a.HD, G = a.NH / a.KVH;
@@ -197,7 +226,7 @@ paged_attn_kernel(const Args a) {
 
   for (int e = tid; e < G * HD; e += kThreads) {
     const int g = e / HD, d = e - g * HD;
-    qs[g * qp + d] = a.q[((size_t)b * a.NH + kh * G + g) * HD + d];
+    qs[g * qp + d] = to_f(static_cast<const TQ*>(a.q)[((size_t)b * a.NH + kh * G + g) * HD + d]);
   }
   for (int g = tid; g < G; g += kThreads) {
     m_run[g] = -INFINITY;
@@ -249,7 +278,7 @@ paged_attn_kernel(const Args a) {
 #pragma unroll
         for (int u = 0; u < kLoadUnroll; ++u) {
           if (dst[u] >= 0) {
-            if constexpr (kI8) {
+            if constexpr (!kF32) {  // rows padded to whole words: word stores
               kr[u].store(kt + dst[u]);
               vr[u].store(vt + dst[u]);
             } else {  // padded float rows: element stores
@@ -280,7 +309,7 @@ paged_attn_kernel(const Args a) {
         Vec<T, VEC> kr, vr;
         kr.load(static_cast<const T*>(win ? a.win_k : a.cur_k) + row + d);
         vr.load(static_cast<const T*>(win ? a.win_v : a.cur_v) + row + d);
-        if constexpr (kI8) {
+        if constexpr (!kF32) {
           kr.store(kt + c * rs + d);
           vr.store(vt + c * rs + d);
         } else {
@@ -319,6 +348,15 @@ paged_attn_kernel(const Args a) {
           dot = fmaf(q4.w, k4[3], dot);
         }
         sc[g * T_tok + t] = dot * ksc[t] * a.scale;
+      } else if constexpr (!kF32) {  // bf16: two elements a word
+        const uint32_t* kr = reinterpret_cast<const uint32_t*>(kt + t * rs);
+#pragma unroll 4
+        for (int w = 0; w < HD / 2; ++w) {
+          const uint32_t u = kr[w];
+          dot = fmaf(qr[2 * w], __uint_as_float(u << 16), dot);
+          dot = fmaf(qr[2 * w + 1], __uint_as_float(u & 0xffff0000u), dot);
+        }
+        sc[g * T_tok + t] = dot * a.scale;
       } else {
         const float* kr = kt + t * rs;
 #pragma unroll 8
@@ -386,7 +424,7 @@ paged_attn_kernel(const Args a) {
         } else {
           float v = acc[i] * al;
 #pragma unroll 4
-          for (int t = 0; t < tvis; ++t) v = fmaf(pr[t], vt[t * rs + d], v);
+          for (int t = 0; t < tvis; ++t) v = fmaf(pr[t], to_f(vt[t * rs + d]), v);
           acc[i] = v;
         }
       }
@@ -404,8 +442,8 @@ paged_attn_kernel(const Args a) {
       for (int j = 0; j < kPerOut; ++j) {
         const int od = o * kPerOut + j;  // g * HD + dim
         if (S == 1) {
-          a.out[((size_t)b * a.NH + kh * G) * HD + od] =
-              acc[i * kPerOut + j] / fmaxf(l_run[g], 1e-30f);
+          store_f(static_cast<TQ*>(a.out) + ((size_t)b * a.NH + kh * G) * HD + od,
+                  acc[i * kPerOut + j] / fmaxf(l_run[g], 1e-30f));
         } else {
           a.part_acc[split * G * HD + od] = acc[i * kPerOut + j];
         }
@@ -422,10 +460,12 @@ paged_attn_kernel(const Args a) {
 
 // Merge the S splits of each (row, query head): rescale each split's sum
 // and P.V to the common max.  An empty split has max -inf and weighs 0.
+// TQ: the output's type (q's).
+template <typename TQ>
 __global__ void __launch_bounds__(128)
 paged_attn_merge_kernel(const float* __restrict__ part_ml,
                         const float* __restrict__ part_acc, int NH, int KVH,
-                        int HD, int S, float* __restrict__ out) {
+                        int HD, int S, TQ* __restrict__ out) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int G = NH / KVH, kh = h / G, g = h - kh * G;
   const size_t base = ((size_t)b * KVH + kh) * S;
@@ -440,7 +480,7 @@ paged_attn_merge_kernel(const float* __restrict__ part_ml,
       l = fmaf(part_ml[i * 2 + 1], w, l);
       acc = fmaf(part_acc[i * HD + d], w, acc);
     }
-    out[((size_t)b * NH + h) * HD + d] = acc / fmaxf(l, 1e-30f);
+    store_f(out + ((size_t)b * NH + h) * HD + d, acc / fmaxf(l, 1e-30f));
   }
 }
 
@@ -489,23 +529,26 @@ int run(Args a, int B, int layer, int splits, int device, void* stream) {
   if constexpr (kI8) {
     err = HD % 16 == 0 ? launch<T, 16>(a, B, splits, smem, st)
                        : launch<T, 4>(a, B, splits, smem, st);
+  } else if constexpr (std::is_same<T, bf16>::value) {
+    err = HD % 8 == 0 ? launch<T, 8>(a, B, splits, smem, st)
+                      : launch<T, 2>(a, B, splits, smem, st);
   } else {
     err = HD % 4 == 0 ? launch<T, 4>(a, B, splits, smem, st)
                       : launch<T, 2>(a, B, splits, smem, st);
   }
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
-    paged_attn_merge_kernel<<<dim3(NH, B), 128, 0, st>>>(a.part_ml, a.part_acc, NH, KVH,
-                                                         HD, splits, a.out);
+    paged_attn_merge_kernel<<<dim3(NH, B), 128, 0, st>>>(
+        a.part_ml, a.part_acc, NH, KVH, HD, splits, static_cast<QType<T>*>(a.out));
     err = cudaGetLastError();
   }
   return (int)err;
 }
 
-Args make_args(const float* q, const void* k_pools, const void* v_pools,
+Args make_args(const void* q, const void* k_pools, const void* v_pools,
                const int* block_table, const int* pos, const void* cur_k,
                const void* cur_v, const void* win_k, const void* win_v,
-               float* out, float* part_ml, float* part_acc, int NH, int KVH,
+               void* out, float* part_ml, float* part_acc, int NH, int KVH,
                int HD, int P, int page, int maxp, int stacked, int win_q,
                int win_count) {
   Args a = {};
@@ -579,4 +622,19 @@ extern "C" int l3t_paged_attention_i8(
   a.win_ks = win_ks;
   a.win_vs = win_vs;
   return run<int8_t>(a, B, layer, splits, device, stream);
+}
+
+// bf16 q, pools, cur_k/cur_v, window rows and out (f32 math inside).
+// Otherwise as l3t_paged_attention_f32.
+extern "C" int l3t_paged_attention_bf16(
+    const bf16* q, const bf16* k_pools, const bf16* v_pools,
+    const int* block_table, const int* pos, const bf16* cur_k, const bf16* cur_v,
+    const bf16* win_k, const bf16* win_v, bf16* out, float* part_ml,
+    float* part_acc, int B, int NH, int KVH, int HD, int P, int page, int maxp,
+    int layer, int stacked, int win_q, int win_count, int splits, int device,
+    void* stream) {
+  const Args a = make_args(q, k_pools, v_pools, block_table, pos, cur_k, cur_v,
+                           win_k, win_v, out, part_ml, part_acc, NH, KVH, HD, P,
+                           page, maxp, stacked, win_q, win_count);
+  return run<bf16>(a, B, layer, splits, device, stream);
 }

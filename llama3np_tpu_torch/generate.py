@@ -6,8 +6,8 @@ loop as one `lax.scan`; here it is a Python loop whose position `pos` is a
 host integer and whose token never leaves the device, so the loop has no
 host sync per token: the tokens come back in one transfer at the end, as
 the scan's did.  On the card, batch-1 greedy decode runs the fused decode
-kernel (`kernel_decode_steps`); elsewhere the plain forward
-(`decode_steps`).
+kernel and the greedy head (`kernel_decode_steps`); elsewhere the plain
+forward (`decode_steps`).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from .models.llama import (StaticConfig, embed_tokens, forward,
                            forward_hidden, lm_logits)
 from .ops import core as ops
 from .ops.kernels.decode_step import decode_layers
+from .ops.kernels.greedy_head import argmax_head
 
 
 def _last_logits(params, h, true_len: int, cfg: StaticConfig):
@@ -69,9 +70,12 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
     """`decode_steps` with every layer of a token in the fused decode kernel
     (`ops.kernels.decode_step.decode_layers`); the counterpart of the JAX
     package's `pallas_decode_steps`.  Batch 1 only; params in the fused,
-    rope-split layout, float32 or int8 (the layer tree's `*_scale` leaves
-    select the kernel's int8 mode).  The lm_head product stays a plain
-    matmul, as it stayed on XLA there; the caches are updated in place."""
+    rope-split layout, float32, bf16 or int8 (the layer tree's `*_scale`
+    leaves select the kernel's int8 mode).  A float32 or bf16 lm_head gives
+    the token through the greedy head (`ops.kernels.greedy_head.
+    argmax_head`: the same argmax of the f32 product, no logits tensor); an
+    int8 head keeps the post-scaled `lm_logits` and argmax, since the TPU
+    kernel has no int8 mode.  The caches are updated in place."""
     kc = cache["k"][:, 0]  # [NL, KVH, M, HD] views of the B == 1 cache
     vc = cache["v"][:, 0]
     toks = []
@@ -83,7 +87,10 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
             n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
             head_dim=cfg.head_dim, norm_eps=cfg.norm_eps)
         h = ops.rms_norm(x, params["norm"], cfg.norm_eps)
-        tok = torch.argmax(lm_logits(params, h), dim=-1)  # [1]
+        if "lm_head_scale" in params:
+            tok = torch.argmax(lm_logits(params, h), dim=-1)  # [1]
+        else:
+            tok = argmax_head(h, params["lm_head"])  # [1]
         toks.append(tok)
     return torch.stack(toks, dim=1), cache
 
@@ -119,8 +126,9 @@ class Generator:
 
     def use_kernels(self, batch: int) -> bool:
         """The fused decode kernel runs batch-1 greedy decode on the card,
-        float32 or int8 weights alike (attn_impl "auto"/"pallas"; the
-        engine refuses "pallas" elsewhere)."""
+        float32, bf16 or int8 weights alike (attn_impl "auto"/"pallas"; the
+        engine refuses "pallas" elsewhere, and refuses on the card what no
+        kernel takes)."""
         return self.cfg.kernels and self.cfg.rope_split and batch == 1
 
     def decode_fn(self, num_steps: int, batch: int = 1):

@@ -16,7 +16,8 @@ the paged-attention kernel once per layer.
 int8 weights (`quant="int8"`) ride the same tree with `*_scale` leaves
 beside the int8 payloads: every consumer post-scales its product.  int8 KV
 caches carry "k_s"/"v_s" scales; new rows quantize once, when they are
-made.
+made.  A bf16 model (every Llama-3 preset) holds bf16 weights, activations
+and caches, and on the card runs the bf16 modes of the same kernels.
 """
 
 from __future__ import annotations
@@ -384,17 +385,38 @@ def resolve_device(device) -> torch.device:
 # Engine
 # ---------------------------------------------------------------------------
 
+def _refuse_unported_kernel_modes(args: ModelArgs):
+    """The kernels run float32 or bf16 models (int8 weights under float32
+    activations) with the KV cache in the activation dtype; raise for what
+    none of them takes yet."""
+    if args.dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"{args.dtype} kernel modes are still to port "
+                                  "(ROADMAP B5); pass attn_impl='xla'")
+    if args.quant == "int8" and args.dtype != "float32":
+        raise NotImplementedError("int8 weights with bf16 activations are still "
+                                  "to port (ROADMAP A8); pass attn_impl='xla'")
+    if args.kv_dtype != args.dtype:
+        raise NotImplementedError(f"a {args.kv_dtype} KV cache under {args.dtype} "
+                                  "activations is still to port (ROADMAP A8); "
+                                  "pass attn_impl='xla'")
+
+
 class Llama:
     """Stateful engine over the functional core (reference-compatible API).
 
     Runs on `device` ("cuda" by default; it raises if there is no card),
-    single-device, on the fused whole-layer layout.  quant="int8" holds
-    int8 weights with per-output-channel scales (built, permuted, fused,
-    then quantized, as the JAX engine's whole-layer tree); activations
-    stay float32, and on the card batch-1 decode runs the decode kernel's
-    int8 mode.  kv_quant="int8" is read by `serving.BatchEngine`.  A bf16
-    model runs on the card only with attn_impl="xla" (the kernels take
-    float32 activations)."""
+    single-device, on the fused whole-layer layout.  dtype "float32" or
+    "bfloat16" (the Llama-3 presets' default): on the card prefill runs the
+    flash kernel, batch-1 greedy decode the fused decode kernel and the
+    greedy head, and paged serving the paged-attention kernel, each in the
+    model's dtype.  quant="int8" holds int8 weights with per-output-channel
+    scales (built, permuted, fused, then quantized, as the JAX engine's
+    whole-layer tree); activations stay float32, and on the card batch-1
+    decode runs the decode kernel's int8 mode.  kv_quant="int8" is read by
+    `serving.BatchEngine`.  On the card's kernel path, combinations that
+    no kernel takes yet raise NotImplementedError naming their ROADMAP
+    item: int8 weights under bf16 activations, a KV dtype other than the
+    activations', float16; attn_impl="xla" runs any of them plainly."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
                  device="cuda"):
@@ -404,10 +426,8 @@ class Llama:
             raise NotImplementedError("the port runs the fused layout only "
                                       "(fuse_matmuls=True)")
         self.cfg = StaticConfig.from_args(args, self.device)
-        if self.cfg.kernels and args.dtype != "float32":
-            raise NotImplementedError(
-                f"the CUDA kernels take float32; {args.dtype} kernels are still "
-                "to port (ROADMAP.md); pass attn_impl='xla' for a bf16 model")
+        if self.cfg.kernels:
+            _refuse_unported_kernel_modes(args)
         if self.device.type == "cuda" and args.dtype == "float32":
             # fp32 parity: the JAX path accumulates in full f32, and TF32
             # keeps only ~3 decimal digits, so both switches go off.

@@ -37,17 +37,31 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> (restype, argtypes).  Every pointer and the stream
 # travel as c_void_p; ints as c_int.
+_FLASH = (ctypes.c_int, [_P, _P, _P, _P,              # q, k, v, o
+                         _I, _I, _I, _I, _I, _I, _P])  # B, L, NH, KVH, HD, device, stream
+_DECODE = (ctypes.c_int, [
+    _P, _P, _P, _P, _P, _P,            # wqkv, wo, wgu, w_down, norms
+    _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
+    _P, _P, _P,                        # cos_row, sin_row, scratch
+    _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
+    ctypes.c_float, _I, _P,            # eps, device, stream
+])
+_PAGED = (ctypes.c_int, [
+    _P, _P, _P, _P, _P,                # q, k_pools, v_pools, table, pos
+    _P, _P, _P, _P,                    # cur_k, cur_v, win_k, win_v
+    _P, _P, _P,                        # out, part_ml, part_acc
+    _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
+    _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
+    _I, _P,                            # device, stream
+])
+_ARGMAX = (ctypes.c_int, [_P, _P, _P, _P, _P,  # x, w, out, part_m, part_i
+                          _I, _I, _I, _P])     # D, VS, device, stream
 SIGNATURES = {
-    "l3t_flash_prefill_f32": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _I, _P]),
+    "l3t_flash_prefill_f32": _FLASH,
+    "l3t_flash_prefill_bf16": _FLASH,
     "l3t_decode_scratch_floats": (ctypes.c_long, [_I, _I, _I, _I, _I]),
-    "l3t_decode_layers_f32": (ctypes.c_int, [
-        _P, _P, _P, _P, _P, _P,            # wqkv, wo, wgu, w_down, norms
-        _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
-        _P, _P, _P,                        # cos_row, sin_row, scratch
-        _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
-        ctypes.c_float, _I, _P,            # eps, device, stream
-    ]),
+    "l3t_decode_layers_f32": _DECODE,
+    "l3t_decode_layers_bf16": _DECODE,
     "l3t_decode_layers_i8": (ctypes.c_int, [
         _P, _P, _P, _P,                    # wqkv, wo, wgu, w_down (int8)
         _P, _P, _P, _P,                    # their per-column scales
@@ -67,14 +81,10 @@ SIGNATURES = {
         _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
         _I, _P,                            # device, stream
     ]),
-    "l3t_paged_attention_f32": (ctypes.c_int, [
-        _P, _P, _P, _P, _P,                # q, k_pools, v_pools, table, pos
-        _P, _P, _P, _P,                    # cur_k, cur_v, win_k, win_v
-        _P, _P, _P,                        # out, part_ml, part_acc
-        _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
-        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
-        _I, _P,                            # device, stream
-    ]),
+    "l3t_paged_attention_f32": _PAGED,
+    "l3t_paged_attention_bf16": _PAGED,
+    "l3t_argmax_head_f32": _ARGMAX,
+    "l3t_argmax_head_bf16": _ARGMAX,
 }
 
 

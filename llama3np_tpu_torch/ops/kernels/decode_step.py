@@ -12,12 +12,18 @@ softmax; because of that mask the new rows are written into the caches at
 `pos` in place (the JAX kernel emitted them and scattered afterwards), and
 the caches passed in are the ones returned.
 
-Two modes, chosen by the tree: float32 weights, and int8 weights with
+Three modes, chosen by the tree: float32 weights; int8 weights with
 per-output-column f32 scales ("wqkv_scale" [NL, 1, QD+2KVD] and so on,
 `checkpoint.quantize_param_tree`), the counterpart of the TPU's streamed
-layout with its scale blocks (`_streamed_decode_layers`).  int8 products
-are (x . w8) * s with x in f32 and the scale applied to the finished sum;
-activations, caches, norms and RoPE stay float32.
+layout with its scale blocks (`_streamed_decode_layers`), where products
+are (x . w8) * s with x in f32 and the scale applied to the finished sum,
+and activations, caches, norms and RoPE stay float32; and bf16 weights,
+norms, x and caches (the llama3-8b preset), with the streamed layout's
+rounding points: the activation is rounded to bf16 before each weight
+product (`_wdot`), sums, RMSNorm, RoPE and attention are f32 (bf16 cache
+rows widened), the new K/V rows are stored in bf16, and the residual is
+rounded to bf16 once, at the end of each layer.  Other combinations
+(int8 weights with bf16 activations, float16) raise NotImplementedError.
 
 `decode_layers` launches the kernels for CUDA tensors and runs
 `decode_layers_plain` for CPU tensors; there is no fallback from one to the
@@ -43,6 +49,12 @@ def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w.float()
 
 
+def _weight_input(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The activation a weight product sees: rounded to a bf16 weight's
+    dtype (the TPU kernel's `_wdot` cast), f32 otherwise."""
+    return a.to(torch.bfloat16).float() if w.dtype == torch.bfloat16 else a
+
+
 def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
                         k_cache: torch.Tensor, v_cache: torch.Tensor,
                         cos_row: torch.Tensor, sin_row: torch.Tensor,
@@ -51,8 +63,10 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch, with the appended-column math of
     the TPU kernel's `_attend_head` written out (int8 weights post-scale
-    each product).  Updates the caches at `pos` in place and returns
-    (x_out, k_cache, v_cache)."""
+    each product; bf16 rounds where the kernel does: each product's
+    activation, the stored rows, the residual at each layer's end).
+    Updates the caches at `pos` in place and returns (x_out, k_cache,
+    v_cache)."""
     nh, kvh, hd = n_heads, kv_heads, head_dim
     g, half = nh // kvh, hd // 2
     qd, kvd = nh * hd, kvh * hd
@@ -64,9 +78,8 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], dim=-1)
 
     def proj(a, name, layer):  # a @ w of `layer`, int8 post-scaled
-        s = layers.get(name + "_scale")
-        return _scaled_dot(a, layers[name][layer],
-                           None if s is None else s[layer])
+        s, w = layers.get(name + "_scale"), layers[name][layer]
+        return _scaled_dot(_weight_input(a, w), w, None if s is None else s[layer])
 
     m = k_cache.shape[2]
     visible = torch.arange(m, device=x.device) < pos  # never row pos
@@ -95,7 +108,7 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         fd = layers["w_down"].shape[1]
         gate = gu[:, :fd]
         ff = gate * (1.0 / (1.0 + torch.exp(-gate))) * gu[:, fd:]
-        h = h + proj(ff, "w_down", layer)
+        h = (h + proj(ff, "w_down", layer)).to(x.dtype).float()  # bf16: the layer's end
     return h.to(x.dtype), k_cache, v_cache
 
 
@@ -149,8 +162,11 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     [NL,D,QD+2KVD], "wo" [NL,QD,D], "wgu" [NL,D,2FD], "w_down" [NL,FD,D],
     "attn_norm"/"ffn_norm" [NL,1,D]); for int8 weights also "wqkv_scale"
     [NL,1,QD+2KVD], "wo_scale", "wgu_scale", "w_down_scale".  x: [1, D]
-    embedded token.  pos: host int, the token's position.  k_cache/v_cache: [NL, KVH, M, HD] (one batch
-    row), read at rows < pos and written at row pos in place.
+    embedded token.  pos: host int, the token's position.
+    k_cache/v_cache: [NL, KVH, M, HD] (one batch row), read at rows < pos
+    and written at row pos in place.  On the card: float32 weights, norms,
+    x and caches; int8 weights with f32 scales and float32 the rest; or
+    bf16 weights, norms, x and caches; cos/sin rows float32.
     cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
 
     Returns (x_out [1, D], k_cache, v_cache).
@@ -168,16 +184,23 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     quant = "wqkv_scale" in layers
     weights = [layers[n] for n in _WEIGHTS]
     scales = [layers[n + "_scale"] for n in _WEIGHTS] if quant else []
-    floats = [layers["attn_norm"], layers["ffn_norm"], x, k_cache, v_cache,
-              cos_row, sin_row] + scales
-    tensors = weights + floats
-    w_dtype = torch.int8 if quant else torch.float32
-    if any(t.dtype != w_dtype for t in weights) or any(t.dtype != torch.float32
-                                                       for t in floats):
+    acts = [layers["attn_norm"], layers["ffn_norm"], x, k_cache, v_cache]
+    f32 = [cos_row, sin_row] + scales
+    tensors = weights + acts + f32
+    w_dtype = weights[0].dtype
+    a_dtype = torch.bfloat16 if w_dtype == torch.bfloat16 else torch.float32
+    if w_dtype not in (torch.float32, torch.bfloat16, torch.int8) \
+            or (w_dtype == torch.int8) != quant \
+            or any(t.dtype != w_dtype for t in weights) \
+            or any(t.dtype != a_dtype for t in acts) \
+            or any(t.dtype != torch.float32 for t in f32):
         raise NotImplementedError(
-            "the decode_layers kernel takes float32 or int8 (+ f32 scales) "
-            "weights and float32 caches and rows; bf16 kernels are still to "
-            "port (ROADMAP.md); use attn_impl='xla'")
+            "the decode_layers kernel takes float32 weights, norms, x and "
+            "caches; int8 weights with f32 scales and float32 the rest; or "
+            "bf16 weights, norms, x and caches (cos/sin rows float32); got "
+            f"{w_dtype} weights and {x.dtype} x, {k_cache.dtype} caches.  "
+            "int8 weights with bf16 activations are still to port (ROADMAP "
+            "A8), float16 too (ROADMAP B5)")
     if any(t.device != x.device for t in tensors):
         raise ValueError("decode_layers: every tensor must lie on x's device")
     if not all(t.is_contiguous() for t in tensors):
@@ -187,11 +210,14 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     if head_dim % 4 or head_dim > 128 or d % 4 or fd % 2:
         raise ValueError(f"decode_layers kernel takes head_dim % 4 == 0 and <= 128, "
                          f"dim % 4 == 0, even hidden_dim; got {head_dim}, {d}, {fd}")
-    if quant and (qkvd % 16 or d % 16 or (2 * fd) % 16):
-        # One lane reads 16 int8 weights as a 16-byte vector: each output
-        # width must be a multiple of 16 for whole, aligned vectors.
-        raise ValueError(f"the int8 decode_layers kernel takes output widths "
-                         f"that are multiples of 16; got {qkvd}, {d}, {2 * fd}")
+    vec = 16 // w_dtype.itemsize
+    if vec > 4 and (qkvd % vec or d % vec or (2 * fd) % vec):
+        # One lane reads 16 int8 or 8 bf16 weights as a 16-byte vector:
+        # each output width must be a multiple of that for whole, aligned
+        # vectors.
+        raise ValueError(f"the {w_dtype} decode_layers kernel takes output "
+                         f"widths that are multiples of {vec}; got {qkvd}, "
+                         f"{d}, {2 * fd}")
     lib = _build.KernelLibrary.get()
     scratch = torch.empty(
         lib.l3t_decode_scratch_floats(d, n_heads, kv_heads, head_dim, fd),
@@ -206,6 +232,8 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     if quant:
         rc = lib.l3t_decode_layers_i8(*(t.data_ptr() for t in weights + scales),
                                       *rest)
+    elif w_dtype == torch.bfloat16:
+        rc = lib.l3t_decode_layers_bf16(*(t.data_ptr() for t in weights), *rest)
     else:
         rc = lib.l3t_decode_layers_f32(*(t.data_ptr() for t in weights), *rest)
     _build.check(rc, "decode_layers")

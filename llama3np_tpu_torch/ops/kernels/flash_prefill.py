@@ -5,7 +5,9 @@ plain PyTorch version.
 Counterpart of `llama3np_tpu.ops.kernels.flash_prefill.flash_prefill`.  The
 kernel masks a ragged L itself, so every first-chunk prefill on the card
 goes through it; the JAX `supports(L)` gate was a TPU tiling rule and has no
-counterpart.  `flash_prefill` launches the kernel for CUDA tensors and runs
+counterpart.  float32 and bf16: in bf16 the kernel widens q, k and v to
+f32, computes in f32 and rounds the output once, as the TPU kernel does.
+`flash_prefill` launches the kernel for CUDA tensors and runs
 `flash_prefill_plain` for CPU tensors; there is no fallback from one to the
 other.  `flash_prefill.launches` counts kernel launches.
 """
@@ -17,13 +19,17 @@ import torch
 from ..core import causal_attention
 from . import _build
 
+_ENTRIES = {torch.float32: "l3t_flash_prefill_f32",
+            torch.bfloat16: "l3t_flash_prefill_bf16"}
+
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """The same function in plain PyTorch: dense causal attention
-    (`ops.core.causal_attention`).  q: [B, L, NH, HD]; k, v: [B, L, KVH,
-    HD].  Returns [B, L, NH, HD]."""
-    return causal_attention(q, k, v)
+    (`ops.core.causal_attention`) on f32 copies of q, k and v, the output in
+    q's dtype (for float32 inputs, causal_attention itself).  q: [B, L, NH,
+    HD]; k, v: [B, L, KVH, HD].  Returns [B, L, NH, HD]."""
+    return causal_attention(q.float(), k.float(), v.float()).to(q.dtype)
 
 
 def _check_args(q, k, v):
@@ -44,17 +50,19 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     """Causal self-attention over one block at start_pos == 0.
 
     q: [B, L, NH, HD]; k, v: [B, L, KVH, HD], any L >= 1, HD <= 128.
-    Returns [B, L, NH, HD].  CUDA tensors must be float32 and contiguous.
+    Returns [B, L, NH, HD].  CUDA tensors must be contiguous and all
+    float32 or all bf16.
     """
     _check_args(q, k, v)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill runs on CUDA or CPU tensors, not {q.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+    if q.dtype not in _ENTRIES or not q.dtype == k.dtype == v.dtype:
         raise NotImplementedError(
-            f"the flash_prefill kernel takes float32 (got {q.dtype}); bf16 "
-            "kernels are still to port (ROADMAP.md); use attn_impl='xla'")
+            f"the flash_prefill kernel takes q, k, v all float32 or all bf16 "
+            f"(got {q.dtype}, {k.dtype}, {v.dtype}); float16 is still to "
+            "port (ROADMAP B5)")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill takes contiguous q, k, v")
     B, L, NH, HD = q.shape
@@ -63,9 +71,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     lib = _build.KernelLibrary.get()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.l3t_flash_prefill_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   o.data_ptr(), B, L, NH, k.shape[2], HD,
-                                   q.device.index, stream)
+    rc = getattr(lib, _ENTRIES[q.dtype])(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         o.data_ptr(), B, L, NH, k.shape[2], HD,
+                                         q.device.index, stream)
     _build.check(rc, "flash_prefill")
     flash_prefill.launches += 1
     return o

@@ -3,7 +3,7 @@ pool, following each row's block table, as a hand-written CUDA kernel
 (`csrc/paged_attention.cu`) beside its plain PyTorch version.
 
 Counterpart of `llama3np_tpu.ops.kernels.paged_attention.paged_attention`,
-with the same three modes, over float32 pools or int8 pools:
+with the same three modes, over float32, bf16 or int8 pools:
 
 * plain: pools [P, KVH, page, HD], row b attends kv_idx <= pos[b];
 * stacked (`layer` given): the whole-model pools [NL, P, KVH, page, HD]
@@ -20,13 +20,18 @@ The kernel reads the scale pools through the block table, as it reads the
 values; the JAX package's per-row scale gather fed a TPU VMEM block and is
 not taken over (the plain version gathers, as the XLA path did).
 
-The kernel takes any even HD <= 128 in float32 and HD % 4 == 0 in int8;
-the JAX `supports()` gate (HD % 128 == 0) was a TPU DMA rule and has no
-counterpart, so every paged decode on the card goes through the kernel.
-bf16 pools are still to port.  `paged_attention` launches the kernel for
-CUDA tensors and runs `paged_attention_plain` for CPU tensors; there is no
-fallback from one to the other.  `paged_attention.launches` counts launches
-(one per call).
+bf16 pools take bf16 q, cur_k/cur_v and window rows (the activation and
+pool dtypes of a bf16 model) and return bf16; the kernel widens everything
+to f32 and accumulates in f32, as the TPU kernel does, and the plain
+version computes on f32 copies.  int8 pools under a bf16 q, and float16,
+are still to port.
+
+The kernel takes any even HD <= 128 in float32 and bf16 and HD % 4 == 0
+in int8; the JAX `supports()` gate (HD % 128 == 0) was a TPU DMA rule and
+has no counterpart, so every paged decode on the card goes through the
+kernel.  `paged_attention` launches the kernel for CUDA tensors and runs
+`paged_attention_plain` for CPU tensors; there is no fallback from one to
+the other.  `paged_attention.launches` counts launches (one per call).
 """
 
 from __future__ import annotations
@@ -39,6 +44,10 @@ import torch
 from .. import core
 from . import _build
 
+_ENTRIES = {torch.float32: "l3t_paged_attention_f32",
+            torch.int8: "l3t_paged_attention_i8",
+            torch.bfloat16: "l3t_paged_attention_bf16"}
+
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           v_pages: torch.Tensor, block_table: torch.Tensor,
@@ -49,7 +58,16 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           win_count: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch: the gather oracle
     (`ops.core.paged_attention`, or `paged_attention_stacked` when `layer`
-    is given)."""
+    is given).  bf16 pools run it on f32 copies of q, the rows and the pool
+    of the layer read, and return q's dtype (the kernel's f32 math)."""
+    if k_pages.dtype == torch.bfloat16:
+        if layer is not None:
+            k_pages, v_pages, layer = k_pages[layer : layer + 1], v_pages[layer : layer + 1], 0
+        up = [None if t is None else t.float()
+              for t in (q, k_pages, v_pages, cur_k, cur_v, win_k, win_v)]
+        return paged_attention_plain(
+            *up[:3], block_table, pos, k_scale, v_scale, layer, *up[3:5],
+            cur_ks, cur_vs, *up[5:], win_ks, win_vs, win_count).to(q.dtype)
     if layer is None:
         return core.paged_attention(q, k_pages, v_pages, block_table, pos,
                                     k_scale=k_scale, v_scale=v_scale)
@@ -139,12 +157,13 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Decode attention over the paged cache, following the block tables.
 
     q: [B, 1, NH, HD]; pools [P, KVH, page, HD] (or [NL, P, KVH, page, HD]
-    with `layer`), float32 or int8 with their scale pools; block_table [B,
+    with `layer`), float32, bf16, or int8 with their scale pools; block_table [B,
     maxp] (unused entries -> null page 0); pos [B].  Modes and scales as
     the module docstring sets out.  A row whose pos ran past its table
     attends the table's pages and stays in bounds.  Returns [B, 1, NH,
-    HD].  CUDA tensors must be contiguous, float32 (q, scales, float pools
-    and rows) or int8 (int8 pools and rows), and int32 (block_table, pos).
+    HD].  CUDA tensors must be contiguous: float32 q, pools and rows;
+    float32 q and scales with int8 pools and rows; or bf16 q, pools and
+    rows; block_table and pos int32.
     """
     scales = dict(k_scale=k_scale, v_scale=v_scale, cur_ks=cur_ks,
                   cur_vs=cur_vs, win_ks=win_ks, win_vs=win_vs)
@@ -159,19 +178,27 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_attention runs on CUDA or CPU tensors, not {q.device}")
     quant = k_pages.dtype == torch.int8
     rows = [t for t in (k_pages, v_pages, cur_k, cur_v, win_k, win_v) if t is not None]
-    floats = [q] + [t for t in scales.values() if t is not None]
-    if k_pages.dtype not in (torch.float32, torch.int8) \
+    floats = [t for t in scales.values() if t is not None]
+    q_dtype = torch.bfloat16 if k_pages.dtype == torch.bfloat16 else torch.float32
+    if k_pages.dtype not in _ENTRIES or q.dtype != q_dtype \
             or any(t.dtype != k_pages.dtype for t in rows) \
             or any(t.dtype != torch.float32 for t in floats):
         raise NotImplementedError(
-            f"the paged_attention kernel takes float32 or int8 pools and rows "
-            f"with float32 q and scales (got {k_pages.dtype} pools); bf16 "
-            "pools are still to port (ROADMAP A8); use attn_impl='xla'")
+            f"the paged_attention kernel takes float32 pools and rows with "
+            f"float32 q, int8 ones with float32 q and scales, or bf16 ones "
+            f"with bf16 q (got {k_pages.dtype} pools, {q.dtype} q); int8 "
+            "pools under a bf16 q are still to port (ROADMAP A8), float16 "
+            "too (ROADMAP B5)")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention takes int32 block_table and pos on the card")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention takes contiguous tensors")
     B, _, NH, HD = q.shape
+    elem = k_pages.element_size()  # the kernel reads rows in vectors of:
+    vec_bytes = 16 if HD * elem % 16 == 0 else (8 if elem == 4 else 4)
+    if any(t.data_ptr() % vec_bytes for t in rows):
+        raise ValueError(f"paged_attention reads pools and rows in {vec_bytes}-byte "
+                         "vectors: they must be aligned to that")
     KVH, page = k_pages.shape[-3], k_pages.shape[-2]
     P, maxp = k_pages.shape[-4], block_table.shape[1]
     G = NH // KVH
@@ -203,7 +230,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             ptr(win_k), ptr(win_v), ptr(win_ks), ptr(win_vs), o.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), *ints)
     else:
-        rc = lib.l3t_paged_attention_f32(
+        rc = getattr(lib, _ENTRIES[k_pages.dtype])(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), ptr(cur_k), ptr(cur_v),
             ptr(win_k), ptr(win_v), o.data_ptr(), part_ml.data_ptr(),

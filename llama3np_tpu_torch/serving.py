@@ -22,10 +22,13 @@ the next admission.
     cache holds int8 rows with per-(token, KV head) scales.  Admission
     prefills into a row cache of the activation dtype, and its rows
     quantize once, when they are copied into the slot or the pages.
+  * A bf16 model serves from bf16 pools (the cache follows `kv_dtype`);
+    on the card its paged steps run the paged kernel's bf16 mode.
 
 Still to port, each raising NotImplementedError: sampling (`temperature >
 0`, ROADMAP A5), the prefix cache (`prefix_cache`, with `gather_pool_row`,
-A9), multi-LoRA (`adapters`, A12) and tensor-parallel serving (A14).
+A9), multi-LoRA (`adapters`, A12), tensor-parallel serving (A14), and on
+the card int8 KV under bf16 activations (A8).
 """
 
 from __future__ import annotations
@@ -177,6 +180,10 @@ class BatchEngine:
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         self.kv_quant = kv_quant
+        if kv_quant and self.cfg.kernels and self.args.dtype != "float32":
+            raise NotImplementedError("the paged kernel's int8 mode takes float32 "
+                                      "q: int8 KV under bf16 activations is still "
+                                      "to port (ROADMAP A8)")
         # int8 caches: admission prefills in the activation dtype and its
         # rows quantize once, at the copy into the cache.
         self._row_dt = torch_dtype(self.args.dtype) if kv_quant else None

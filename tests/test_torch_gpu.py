@@ -17,6 +17,8 @@ from llama3np_tpu_torch.ops.kernels.decode_step import (decode_layers,
                                                         decode_layers_plain)
 from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
                                                           flash_prefill_plain)
+from llama3np_tpu_torch.ops.kernels.greedy_head import (argmax_head,
+                                                        argmax_head_plain)
 from llama3np_tpu_torch.ops.kernels.paged_attention import (
     paged_attention, paged_attention_plain)
 from llama3np_tpu_torch.serving import BatchEngine
@@ -48,15 +50,41 @@ def test_flash_prefill_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
     torch.testing.assert_close(got, flash_prefill_plain(q, k, v), rtol=1e-4, atol=1e-5)
 
 
-def test_flash_prefill_kernel_refuses_bf16(cuda):
-    q = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.bfloat16)
+# bf16 kernels against their plain twins (f32 math on the same bf16
+# inputs): the outputs are rounded to bf16 once, so they agree to about two
+# bf16 ulps (2^-8 relative each); the decode step rounds at many points
+# over its layers.
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("B,L,NH,KVH,HD", [
+    (2, 32, 4, 2, 16), (1, 100, 6, 6, 48), (1, 70, 8, 2, 128), (1, 1, 4, 4, 64),
+])
+def test_flash_prefill_bf16_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
+    g = torch.Generator().manual_seed(L + 1)
+    q, k, v = (torch.randn(B, L, h, HD, generator=g).to(cuda, torch.bfloat16)
+               for h in (NH, KVH, KVH))
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), flash_prefill_plain(q, k, v).float(),
+                               **BF16_TOL)
+
+
+def test_flash_prefill_kernel_refuses_unported_dtypes(cuda):
+    """float16 and mixed dtypes are still to port."""
+    q = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flash_prefill(q, q, q)
+    b = q.to(torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_prefill(b, b.float(), b.float())
 
 
-def _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8):
-    """A fused whole-layer tree of random weights: float32, or int8 with
-    positive per-column scales."""
+def _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8, dtype=torch.float32):
+    """A fused whole-layer tree of random weights: float32 (or `dtype`,
+    norms too), or int8 with positive per-column scales."""
     hd = d // nh
 
     def rnd(*s, scale=1.0):
@@ -74,7 +102,83 @@ def _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8):
                 nl, 1, n, generator=g)).to(cuda)
         else:
             layers[name] = rnd(nl, k, n, scale=0.05)
+    if dtype != torch.float32:
+        layers = {k: v.to(dtype) for k, v in layers.items()}
     return layers
+
+
+@pytest.mark.parametrize("pos", [0, 5, 63])
+@pytest.mark.parametrize("d,nh,kvh,fd", [(64, 4, 2, 128), (256, 2, 1, 512), (48, 3, 3, 96)])
+def test_decode_layers_bf16_kernel_matches_plain(cuda, pos, d, nh, kvh, fd):
+    """bf16 weights, norms, x and caches; HD = 32, 128 and 16."""
+    nl, M = 2, 64
+    hd = d // nh
+    g = torch.Generator().manual_seed(pos + d)
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, False, torch.bfloat16)
+    kc, vc = (torch.randn(nl, kvh, M, hd, generator=g).to(cuda, torch.bfloat16)
+              for _ in range(2))
+    x = torch.randn(1, d, generator=g).to(cuda, torch.bfloat16)
+    ang = torch.rand(1, hd // 2, generator=g).to(cuda) * pos
+    kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = decode_layers.launches
+    got, _, _ = decode_layers(layers, x, pos, k1, v1, ang.cos(), ang.sin(), **kw)
+    torch.cuda.synchronize()
+    assert decode_layers.launches == before + 1 and got.dtype == torch.bfloat16
+    want, _, _ = decode_layers_plain(layers, x, pos, k2, v2, ang.cos(), ang.sin(), **kw)
+    tol = dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(k1.float(), k2.float(), **tol)
+    torch.testing.assert_close(v1.float(), v2.float(), **tol)
+    others = torch.arange(M, device=cuda) != pos
+    assert torch.equal(k1[:, :, others], kc[:, :, others])
+
+
+def test_decode_layers_kernel_refuses_unported_modes(cuda):
+    """int8 weights under bf16 activations, and widths that are not whole
+    8-weight bf16 vectors."""
+    g = torch.Generator().manual_seed(3)
+    nl, d, nh, kvh, fd, M = 1, 64, 4, 2, 128, 8
+    hd = d // nh
+    row = torch.zeros(1, hd // 2, device=cuda)
+    kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
+    q8 = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8=True)
+    q8.update(attn_norm=q8["attn_norm"].bfloat16(), ffn_norm=q8["ffn_norm"].bfloat16())
+    kc = torch.zeros(nl, kvh, M, hd, device=cuda, dtype=torch.bfloat16)
+    x = torch.zeros(1, d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        decode_layers(q8, x, 1, kc, kc.clone(), row, row, **kw)
+    d, nh, kvh, fd = 36, 3, 3, 84  # HD=12: QKV width 108, not a multiple of 8
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, False, torch.bfloat16)
+    kc = torch.zeros(nl, kvh, M, d // nh, device=cuda, dtype=torch.bfloat16)
+    row = torch.zeros(1, d // nh // 2, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decode_layers(layers, torch.zeros(1, d, device=cuda, dtype=torch.bfloat16), 1,
+                      kc, kc.clone(), row, row, n_heads=nh, kv_heads=kvh,
+                      head_dim=d // nh, norm_eps=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,VS", [(288, 32000), (2048, 32000), (4096, 128256), (64, 1000)])
+def test_argmax_head_kernel_matches_plain(cuda, dtype, D, VS):
+    """Exact tokens on random rows, a tie planted across a block boundary
+    (256 bf16 or 128 f32 columns a block: the lower column wins), and a
+    vocab that leaves a partial last block."""
+    g = torch.Generator(cuda).manual_seed(D)  # made on the card: 0.5 G weights
+    w = (torch.randn(D, VS, generator=g, device=cuda) * 0.02).to(dtype)
+    before = argmax_head.launches
+    for _ in range(4):
+        x = torch.randn(1, D, generator=g, device=cuda).to(dtype)
+        got = argmax_head(x, w)
+        assert got.dtype == torch.int64 and int(got[0]) == int(argmax_head_plain(x, w)[0])
+    assert argmax_head.launches == before + 4
+    cols = 32 * 16 // w.element_size()
+    tied = w.clone()
+    for c in (cols - 1, cols):  # the last column of block 0, the first of block 1
+        tied[:, c] = 0
+        tied[0, c] = 8.0
+    x[0, 0] = 4.0  # both tied columns sum to exactly 32
+    assert int(argmax_head(x, tied)[0]) == cols - 1 == int(argmax_head_plain(x, tied)[0])
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -296,13 +400,43 @@ def test_paged_attention_int8_kernel_ignores_masked_scales(cuda):
     torch.testing.assert_close(got, clean, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window0", "window1", "window3"])
+@pytest.mark.parametrize("NH,KVH,HD", [(6, 6, 48), (8, 2, 64), (32, 8, 128), (4, 2, 20)])
+def test_paged_attention_bf16_kernel_matches_plain(cuda, mode, NH, KVH, HD):
+    """bf16 q, pools and rows in the three modes, with an overrun row;
+    HD=20 takes the 4-byte loads, the others 16-byte loads."""
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in
+         _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD + 2).items()}
+    if mode == "plain":
+        args = (a["q"], a["kp"][1].contiguous(), a["vp"][1].contiguous(), a["bt"], a["pos"])
+        kw = {}
+    else:
+        args = (a["q"], a["kp"], a["vp"], a["bt"], a["pos"])
+        kw = dict(layer=1, cur_k=a["ck"], cur_v=a["cv"])
+        if mode.startswith("window"):
+            kw.update(win_k=a["wk"], win_v=a["wv"], win_count=int(mode[-1]))
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1 and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(),
+                               **BF16_TOL)
+
+
 def test_paged_attention_kernel_refuses_unported_pools(cuda):
-    q = torch.zeros(1, 1, 4, 16, device=cuda)
-    pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.bfloat16)
+    """int8 pools under a bf16 q, and float16 pools, are still to port."""
     bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 1, 4, 16, device=cuda, dtype=torch.bfloat16)
+    pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.int8)
+    scale = torch.ones(3, 2, 8, device=cuda)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        paged_attention(q, pool, pool, bt, pos)
+        paged_attention(q, pool, pool, bt, pos, k_scale=scale, v_scale=scale)
+    half = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+        paged_attention(q.half(), half, half, bt, pos)
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
@@ -331,3 +465,48 @@ def test_card_batch_engine_matches_cpu_engine(cuda, quantum, kv_quant):
     got, steps = serve(cuda)
     assert paged_attention.launches == before + args.n_layers * steps
     assert got == serve("cpu")[0]
+
+
+@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-mha"])
+def test_card_bf16_engine_runs_the_kernels(cuda, name):
+    """A bf16 model on the card: greedy generation through the bf16 flash,
+    decode and greedy-head kernels, its last-prompt logits within the bf16
+    envelope of the plain path's on the card (2e-2 x max(1, max |logits|),
+    top-1 equal); paged serving through the bf16 paged kernel, every page
+    back."""
+    args = preset(name, dtype="bfloat16")
+    w = synthetic_weights(args, seed=7)
+    ids = [[1, 7, 30, 41, 5]]
+    eng = Llama(w, args, device=cuda)
+    before = (flash_prefill.launches, decode_layers.launches, argmax_head.launches)
+    toks = eng.generate_tokens(ids, 12).cpu()
+    assert toks.shape == (1, 12)
+    assert (flash_prefill.launches - before[0], decode_layers.launches - before[1],
+            argmax_head.launches - before[2]) == (args.n_layers, 11, 11)
+    got = eng(ids, 0)
+    want = Llama(w, args.replace(attn_impl="xla"), device=cuda)(ids, 0)
+    assert np.abs(got - want).max() <= 2e-2 * max(1.0, np.abs(want).max())
+    assert got[0, -1].argmax() == want[0, -1].argmax()
+    be = BatchEngine(eng, capacity=2, paged=True, page_size=8)
+    assert be.cache["k"].dtype == torch.bfloat16
+    before = paged_attention.launches
+    reqs = [be.submit([1, 7, 30, 41, 5], 9, stop_ids=()),
+            be.submit([3, 9, 11], 6, stop_ids=())]
+    steps = 0
+    while be.num_active:
+        be.step()
+        steps += 1
+    assert paged_attention.launches == before + args.n_layers * steps
+    assert [len(r.generated) for r in reqs] == [9, 6]
+    assert be.allocator.available == be.allocator.num_pages - 1
+
+
+def test_card_engine_refuses_unported_modes(cuda):
+    w = synthetic_weights(preset("test-tiny"), seed=1)
+    for kw in (dict(dtype="bfloat16", quant="int8"), dict(dtype="float16"),
+               dict(dtype="float32", kv_dtype="bfloat16")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Llama(w, preset("test-tiny", **kw), device=cuda)
+    eng = Llama(w, preset("test-tiny", dtype="bfloat16"), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant="int8")
