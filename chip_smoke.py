@@ -36,8 +36,9 @@ Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 
 Times are CUDA-event times on the card, after warm-up, averaged over many
-launches (the paged kernel and the greedy head queued behind a spin
-kernel, so the host's enqueue of each call does not bound them);
+launches (flash prefill, the paged kernel, the greedy head and their
+library yardsticks queued behind a spin kernel, so the host's enqueue of
+each call does not bound them);
 bounds use the H100 SXM's published 3.35 TB/s, 67 TFLOP/s fp32 (TF32 stays
 off) and 989 TFLOP/s bf16.
 """
@@ -153,7 +154,10 @@ class Smoke:
     def flash_phase(self, model: str, B, L, NH, KVH, HD, dtype=None):
         """The flash kernel against its twin; bf16 outputs are compared in
         f32 within two bf16 ulps (1e-2: the one rounding of an f32 result
-        whose sums ran in another order may land the other way)."""
+        whose sums ran in another order may land the other way).  `ms` and
+        `library_ms` (SDPA) are device times per call (`queued_ms`: the bf16
+        kernel is shorter than the host's enqueue); `event_ms` the
+        CUDA-event time of back-to-back calls."""
         torch = self.torch
         import torch.nn.functional as F
         from llama3np_tpu_torch.ops.kernels.flash_prefill import (
@@ -172,14 +176,15 @@ class Smoke:
         max_abs, max_rel = compare(torch, got, want, rtol, atol,
                                    f"flash_prefill {model} L={L}")
         reps = 200 if L <= 128 else 50
-        ms = time_ms(torch, lambda: flash_prefill(q, k, v), reps)
+        ms = queued_ms(torch, lambda: flash_prefill(q, k, v), reps)
+        event_ms = time_ms(torch, lambda: flash_prefill(q, k, v), reps)
         plain_ms = time_ms(torch, lambda: flash_prefill_plain(q, k, v), reps)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
         compare(torch, lib_out.transpose(1, 2), want, *((2e-2, 2e-2) if bf16 else (1e-3, 1e-4)),
                 "scaled_dot_product_attention yardstick")
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        library_ms = queued_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps)
         flash_prefill.launches = launches  # comparison launches do not count
         flops = 4.0 * B * NH * HD * L * (L + 1) / 2
@@ -189,10 +194,10 @@ class Smoke:
                "mode": "bf16" if bf16 else "fp32", "model": model,
                "shape": {"B": B, "L": L, "NH": NH, "KVH": KVH, "HD": HD},
                "max_abs_err": max_abs, "max_rel_err": max_rel,
-               "tol": {"rtol": rtol, "atol": atol}, "ms": ms,
+               "tol": {"rtol": rtol, "atol": atol}, "ms": ms, "event_ms": event_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": library_ms,
-               "card": self.card}
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "library_ms": library_ms, "card": self.card}
         emit(row)
         return row
 
@@ -294,7 +299,7 @@ class Smoke:
 
     def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
                     Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3,
-                    quant: bool = False, bf16: bool = False):
+                    quant: bool = False, bf16: bool = False, case: str = "skewed"):
         """The paged-attention kernel against its plain twin in its three
         modes (plain, stacked with the current column, window at win_count
         0, 1 and Q), on shuffled block tables with null-page padding, and
@@ -307,7 +312,10 @@ class Smoke:
         decode step's layers find their pools cold.  `ms` is the device
         time per call (the attention kernel and the merge, `queued_ms`);
         `event_ms` the CUDA-event time of back-to-back wrapper calls, which
-        the host's enqueue bounds."""
+        the host's enqueue bounds; `bound_share` bound_ms over ms;
+        `profiled_us_per_call` the traced device time of the chunk walk and
+        of the merge in stacked mode.  `case` names the row lengths (skewed,
+        or equal: imbalance apart from staging)."""
         torch = self.torch
         from llama3np_tpu_torch.ops.core import quantize_kv_rows
         from llama3np_tpu_torch.ops.kernels.paged_attention import (
@@ -374,13 +382,19 @@ class Smoke:
             per_token = 2 * KVH * (HD + 4) if quant else 2 * KVH * HD * kp.element_size()
             nbytes = per_token * cols + q.element_size() * 2 * B * NH * HD + 4.0 * (pages + B)
             bound_ms, bound_by = bound(nbytes, 4.0 * NH * HD * cols)
+            ms = queued_ms(torch, rotate(paged_attention, mode), 50)
             modes[mode] = {
-                "max_abs_err": max_abs, "max_rel_err": max_rel,
-                "ms": queued_ms(torch, rotate(paged_attention, mode), 50),
+                "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms,
                 "event_ms": time_ms(torch, rotate(paged_attention, mode), 50),
                 "plain_ms": time_ms(torch, rotate(paged_attention_plain, mode), 5, warmup=1),
-                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
                 "visible_kv_mb": per_token * cols / 1e6}
+        # Device time a call of the chunk walk and of the merge (stacked mode,
+        # torch.profiler over 24 calls rotating over the layers, as timed).
+        split_us, run = {}, rotate(paged_attention, "stacked")
+        for k, ms, n in trace(torch, lambda: [run() for _ in range(24)], top=8)[2]:
+            if "paged_attn" in k:
+                split_us["merge" if "merge" in k else "walk"] = ms * 1e3 / 24
         # An overrun row (pos past its table) stays in bounds and finite,
         # and leaves the other rows' outputs bit for bit as they were.
         over = pos.clone()
@@ -420,9 +434,11 @@ class Smoke:
         paged_attention.launches = launches  # comparison launches do not count
         row = {"phase": "kernel", "kernel": "paged_attention",
                "mode": "int8" if quant else "bf16" if bf16 else "fp32", "model": model,
+               "case": case,
                "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
                          "maxp": maxp, "P": P, "pos": pos_list, "Q": Q, "NL": NL},
                "tol": {"rtol": rtol, "atol": atol}, "modes": modes,
+               "profiled_us_per_call": split_us,
                "overrun_row_ok": True, "masked_scales_ignored": quant or None,
                "library_ms": None, "card": self.card}
         emit(row)
@@ -472,7 +488,8 @@ class Smoke:
                "model": model, "shape": {"D": D, "VS": VS}, "rows_equal": n_x,
                "tie_across_blocks_ok": True, "max_abs_err": 0.0, "tol": "exact token",
                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "library_ms": library_ms, "vs_library": ms / library_ms,
                "weights_mb": w.numel() * w.element_size() / 1e6, "card": self.card}
         emit(row)
         return row
@@ -833,6 +850,7 @@ def llama3_8b_phases(torch, smoke, card):
     smoke.decode_phase("llama3-8b", eng.params["layers"], args, 8191)
     rows["paged_attention"] = smoke.paged_phase(
         "llama3-8b", 8, *shape, 16, 512, [0, 15, 16, 255, 500, 1023, 4000, 8191], bf16=True)
+    smoke.paged_phase("llama3-8b", 8, *shape, 16, 512, [4096] * 8, bf16=True, case="equal")
     torch.cuda.empty_cache()
 
     # Greedy generation: the main path through the four kernels.
@@ -1264,6 +1282,12 @@ def main() -> int:
                for name in sources}
     main_path = {"flash_prefill": "serve_q1", "decode_layers": "generate",
                  "paged_attention": "serve_q1", "argmax_head": "generate"}
+    # The PR of each kernel mode's current design.
+    design = {("flash_prefill", "fp32"): "pr1", ("flash_prefill", "bf16"): "pr5",
+              ("decode_layers", "fp32"): "pr1", ("decode_layers", "int8"): "pr3",
+              ("decode_layers", "bf16"): "pr4", ("paged_attention", "fp32"): "pr5",
+              ("paged_attention", "int8"): "pr5", ("paged_attention", "bf16"): "pr5",
+              ("argmax_head", "bf16"): "pr4"}
 
     def stacked(row):  # the paged kernel's stacked mode stands for the row
         return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
@@ -1283,8 +1307,8 @@ def main() -> int:
         if name == "decode_layers" and row["mode"] in ("int8", "bf16"):
             replaces = "llama3np_tpu/ops/kernels/decode_step.py:793"  # the streamed layout
         kernels.append({
-            "name": name, "mode": row.get("mode", "fp32"), "route": "cuda",
-            "source": src, "replaces": replaces,
+            "name": name, "mode": row["mode"], "route": "cuda",
+            "design": design[name, row["mode"]], "source": src, "replaces": replaces,
             "launches": paths[main_path[name]], "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -51,7 +51,7 @@ _PAGED = (ctypes.c_int, [
     _P, _P, _P, _P,                    # cur_k, cur_v, win_k, win_v
     _P, _P, _P,                        # out, part_ml, part_acc
     _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
-    _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
+    _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
     _I, _P,                            # device, stream
 ])
 _ARGMAX = (ctypes.c_int, [_P, _P, _P, _P, _P,  # x, w, out, part_m, part_i
@@ -78,7 +78,7 @@ SIGNATURES = {
         _P, _P, _P, _P,                    # win_k, win_v, win_ks, win_vs
         _P, _P, _P,                        # out, part_ml, part_acc
         _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
-        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, splits
+        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
         _I, _P,                            # device, stream
     ]),
     "l3t_paged_attention_f32": _PAGED,

@@ -5,8 +5,10 @@ plain PyTorch version.
 Counterpart of `llama3np_tpu.ops.kernels.flash_prefill.flash_prefill`.  The
 kernel masks a ragged L itself, so every first-chunk prefill on the card
 goes through it; the JAX `supports(L)` gate was a TPU tiling rule and has no
-counterpart.  float32 and bf16: in bf16 the kernel widens q, k and v to
-f32, computes in f32 and rounds the output once, as the TPU kernel does.
+counterpart.  float32 runs on CUDA cores; bf16 on tensor cores, with the
+TPU kernel's f32 semantics: bf16 products are exact in f32, the f32
+probabilities enter P.V as a hi + lo pair of bf16 values (P within 2^-16),
+the sums are f32 and the output is rounded once.
 `flash_prefill` launches the kernel for CUDA tensors and runs
 `flash_prefill_plain` for CPU tensors; there is no fallback from one to the
 other.  `flash_prefill.launches` counts kernel launches.
@@ -49,9 +51,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> torch.Tensor:
     """Causal self-attention over one block at start_pos == 0.
 
-    q: [B, L, NH, HD]; k, v: [B, L, KVH, HD], any L >= 1, HD <= 128.
-    Returns [B, L, NH, HD].  CUDA tensors must be contiguous and all
-    float32 or all bf16.
+    q: [B, L, NH, HD]; k, v: [B, L, KVH, HD], any L >= 1, HD <= 128 (even
+    in bf16).  Returns [B, L, NH, HD].  CUDA tensors must be contiguous and
+    all float32 or all bf16.
     """
     _check_args(q, k, v)
     if q.device.type == "cpu":
@@ -68,6 +70,13 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     B, L, NH, HD = q.shape
     if HD > 128:
         raise ValueError(f"flash_prefill takes head_dim <= 128, got {HD}")
+    if q.dtype == torch.bfloat16:  # tiles are copied in pieces of 16 or 4 bytes
+        if HD % 2:
+            raise ValueError(f"the bf16 flash_prefill kernel takes an even head_dim, got {HD}")
+        piece = 16 if HD % 8 == 0 else 4
+        if any(t.data_ptr() % piece for t in (q, k, v)):
+            raise ValueError(f"the bf16 flash_prefill kernel copies q, k and v in "
+                             f"{piece}-byte pieces: they must be aligned to that")
     lib = _build.KernelLibrary.get()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

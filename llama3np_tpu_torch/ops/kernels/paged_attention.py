@@ -26,12 +26,14 @@ to f32 and accumulates in f32, as the TPU kernel does, and the plain
 version computes on f32 copies.  int8 pools under a bf16 q, and float16,
 are still to port.
 
-The kernel takes any even HD <= 128 in float32 and bf16 and HD % 4 == 0
-in int8; the JAX `supports()` gate (HD % 128 == 0) was a TPU DMA rule and
-has no counterpart, so every paged decode on the card goes through the
-kernel.  `paged_attention` launches the kernel for CUDA tensors and runs
-`paged_attention_plain` for CPU tensors; there is no fallback from one to
-the other.  `paged_attention.launches` counts launches (one per call).
+The kernel cuts each row's visible tokens into chunks of C pages, one
+block a chunk (`chunk_pages` picks C from static shapes only), and merges
+the chunks of the rows that used more than one.  It takes any even HD <=
+128 in float32 and bf16 and HD % 4 == 0 in int8; the JAX `supports()` gate
+(HD % 128 == 0) was a TPU DMA rule and has no counterpart, so every paged
+decode on the card goes through the kernel.  `paged_attention` launches
+the kernel for CUDA tensors and runs `paged_attention_plain` for CPU
+tensors; there is no fallback from one to the other.  `paged_attention.launches` counts launches (one per call).
 """
 
 from __future__ import annotations
@@ -140,11 +142,32 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(B: int, KVH: int, maxp: int, device) -> int:
-    """Blocks a row's page list is split over: about four blocks per SM for
-    the whole batch (three fit by shared memory, and the blocks of short
-    rows end at once), never more than the table has pages."""
-    return max(1, min(-(-4 * _sm_count(device.index) // (B * KVH)), maxp))
+def chunk_pages(B: int, KVH: int, page: int, maxp: int, sm_count: int) -> int:
+    """C, the pages one block of the kernel walks: each row's visible tokens
+    are cut into chunks of C pages, one block a chunk, and a row that fits
+    one chunk needs no merge.  A pure function of static shapes (never of
+    `pos`, so no host sync): about four blocks an SM were every row full,
+    kept to 128-256 tokens a block (the kernel streams 64-token tiles
+    through a ring of 2 or 3 stages), at least one page and at most the
+    table."""
+    lo = max(1, 128 // page)
+    hi = max(lo, 256 // page)
+    want = B * KVH * maxp // (4 * sm_count)
+    return max(1, min(max(lo, min(want, hi)), maxp))
+
+
+def schedule(q: torch.Tensor, k_pages: torch.Tensor, block_table: torch.Tensor,
+             pos: torch.Tensor, sm_count: int) -> tuple:
+    """(C, S) of a call: the chunk size (`chunk_pages`) and the grid's
+    chunks a row, S = ceil(maxp / C), from the shapes of the call's tensors
+    alone.  pos's values are never read (they lie on the card: reading them
+    would make the host wait); the kernel finds each row's chunks from them
+    itself."""
+    B, maxp = block_table.shape
+    if tuple(pos.shape) != (B,) or q.shape[0] != B:
+        raise ValueError("schedule takes q [B, ...], block_table [B, maxp] and pos [B]")
+    C = chunk_pages(B, k_pages.shape[-3], k_pages.shape[-2], maxp, sm_count)
+    return C, -(-maxp // C)
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -194,22 +217,22 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention takes contiguous tensors")
     B, _, NH, HD = q.shape
-    elem = k_pages.element_size()  # the kernel reads rows in vectors of:
-    vec_bytes = 16 if HD * elem % 16 == 0 else (8 if elem == 4 else 4)
+    elem = k_pages.element_size()  # the kernel copies rows in pieces of:
+    vec_bytes = 16 if HD * elem % 16 == 0 else 4
     if any(t.data_ptr() % vec_bytes for t in rows):
-        raise ValueError(f"paged_attention reads pools and rows in {vec_bytes}-byte "
-                         "vectors: they must be aligned to that")
+        raise ValueError(f"paged_attention copies pools and rows in {vec_bytes}-byte "
+                         "pieces: they must be aligned to that")
     KVH, page = k_pages.shape[-3], k_pages.shape[-2]
     P, maxp = k_pages.shape[-4], block_table.shape[1]
     G = NH // KVH
-    if HD % (4 if quant else 2) or HD > 128 or G * HD > 2048 or page > 128:
+    if HD % (4 if quant else 2) or HD > 128 or G * HD > 2048:
         raise ValueError(f"the paged_attention kernel takes head_dim <= 128 "
-                         f"(a multiple of {4 if quant else 2}), G*HD <= 2048 and "
-                         f"page <= 128; got HD={HD}, G={G}, page={page}")
+                         f"(a multiple of {4 if quant else 2}) and G*HD <= 2048; "
+                         f"got HD={HD}, G={G}")
     win_q = 0 if win_k is None else win_k.shape[2]
     win_count = 0 if win_k is None else int(win_count)
     lib = _build.KernelLibrary.get()
-    S = _splits(B, KVH, maxp, q.device)
+    C, S = schedule(q, k_pages, block_table, pos, _sm_count(q.device.index))
     o = torch.empty_like(q)
     scratch = torch.empty(B * KVH * S * G * (HD + 2) if S > 1 else 1,
                           dtype=torch.float32, device=q.device)
@@ -220,7 +243,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     ints = (B, NH, KVH, HD, P, page, maxp, 0 if layer is None else int(layer),
-            int(layer is not None), win_q, win_count, S, q.device.index,
+            int(layer is not None), win_q, win_count, C, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
         rc = lib.l3t_paged_attention_i8(

@@ -20,7 +20,7 @@ from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
 from llama3np_tpu_torch.ops.kernels.greedy_head import (argmax_head,
                                                         argmax_head_plain)
 from llama3np_tpu_torch.ops.kernels.paged_attention import (
-    paged_attention, paged_attention_plain)
+    chunk_pages, paged_attention, paged_attention_plain)
 from llama3np_tpu_torch.serving import BatchEngine
 
 pytestmark = pytest.mark.gpu
@@ -59,6 +59,10 @@ BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
 @pytest.mark.parametrize("B,L,NH,KVH,HD", [
     (2, 32, 4, 2, 16), (1, 100, 6, 6, 48), (1, 70, 8, 2, 128), (1, 1, 4, 4, 64),
+    # llama3-8b heads: one row, a ragged tile, a ragged and a full prompt
+    (1, 1, 32, 8, 128), (1, 65, 32, 8, 128), (1, 500, 32, 8, 128), (1, 512, 32, 8, 128),
+    # head dims padded in shared memory: 8 -> 16 (16-byte copies), 20 -> 32 (4-byte)
+    (2, 33, 4, 2, 8), (1, 77, 4, 1, 20),
 ])
 def test_flash_prefill_bf16_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
     g = torch.Generator().manual_seed(L + 1)
@@ -330,6 +334,33 @@ def test_paged_attention_kernel_ignores_masked_garbage(cuda):
     torch.testing.assert_close(got, clean, rtol=0, atol=0)
 
 
+def test_paged_attention_bf16_kernel_ignores_masked_garbage(cuda):
+    """bf16 pools: non-finite values behind the mask (the tails of the rows'
+    last pages, the null page, unwritten window columns) must not reach the
+    output; the tensor-core form multiplies whole 16-token steps, so the
+    slots past a tile's visible prefix must count as zeros."""
+    B, NH, KVH, HD, page, maxp = 3, 8, 2, 64, 16, 4
+    a = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in
+         _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, 2, 4, seed=3).items()}
+    pos = torch.tensor([5, 17, 40], dtype=torch.int32, device=cuda)
+    bt = torch.arange(1, 1 + B * maxp, dtype=torch.int32, device=cuda).reshape(B, maxp)
+    bt[:, 3:] = 0
+    kw = dict(layer=0, cur_k=a["ck"], cur_v=a["cv"], win_count=2)
+    clean = paged_attention(a["q"], a["kp"], a["vp"], bt, pos, win_k=a["wk"],
+                            win_v=a["wv"], **kw)
+    kp, vp, wk, wv = a["kp"].clone(), a["vp"].clone(), a["wk"].clone(), a["wv"].clone()
+    kp[:, 0], vp[:, 0] = float("nan"), float("inf")
+    for b, p in enumerate(pos.tolist()):  # slots >= pos of the row's pages
+        for t in range(p, 3 * page):
+            pid = int(bt[b, t // page])
+            kp[0, pid, :, t % page] = float("nan")
+            vp[0, pid, :, t % page] = float("nan")
+    wk[:, :, 2:], wv[:, :, 2:] = float("nan"), float("inf")
+    got = paged_attention(a["q"], kp, vp, bt, pos, win_k=wk, win_v=wv, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
 def _int8_pools(a, layer=None):
     """The fp32 inputs of `_paged_inputs` quantized per (token, KV head):
     (args, kwargs) of a stacked (or, with layer None, plain) int8 call."""
@@ -423,6 +454,67 @@ def test_paged_attention_bf16_kernel_matches_plain(cuda, mode, NH, KVH, HD):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(),
                                **BF16_TOL)
+
+
+def _boundary_call(cuda, dtype, mode, seed):
+    """A paged call whose rows hold the chunk schedule's boundary lengths:
+    0, 1, page-1, page, C*page, C*page+1 and maxp*page tokens, and one row
+    past its table; (args, kwargs) in `dtype` (int8: quantized pools, rows
+    and scales)."""
+    B, NH, KVH, HD, page, NL, Q = 8, 8, 2, 64, 16, 2, 3
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    C = chunk_pages(B, KVH, page, 64, sms)
+    maxp = 2 * C + 3  # three chunks, the last one partial
+    assert chunk_pages(B, KVH, page, maxp, sms) == C
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=seed)
+    held = [0, 1, page - 1, page, C * page, C * page + 1, maxp * page, maxp * page + 40]
+    stacked = mode != "plain"
+    pos = [max(h - (0 if stacked else 1), 0) for h in held]
+    bt = a["bt"].clone()
+    for b, h in enumerate(held[:-1]):  # unused entries -> null page 0
+        bt[b, -(-h // page):] = 0
+    a["bt"], a["pos"] = bt, torch.tensor(pos, dtype=torch.int32, device=cuda)
+    if dtype == torch.int8:
+        args, kw = _int8_pools(a, 1 if stacked else None)
+        if mode == "stacked":
+            for name in ("win_k", "win_v", "win_ks", "win_vs"):
+                kw.pop(name)
+        elif stacked:
+            kw["win_count"] = 2
+        return args, kw
+    a = {k: v.to(dtype) if v.is_floating_point() else v for k, v in a.items()}
+    if not stacked:
+        return (a["q"], a["kp"][1].contiguous(), a["vp"][1].contiguous(), a["bt"],
+                a["pos"]), {}
+    kw = dict(layer=1, cur_k=a["ck"], cur_v=a["cv"])
+    if mode == "window2":
+        kw.update(win_k=a["wk"], win_v=a["wv"], win_count=2)
+    return (a["q"], a["kp"], a["vp"], a["bt"], a["pos"]), kw
+
+
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16])
+def test_paged_attention_kernel_chunk_boundaries(cuda, dtype, mode):
+    """Rows at the chunk schedule's boundary lengths (one chunk, one token
+    into the next, the full table, past it) in every pool dtype and mode."""
+    args, kw = _boundary_call(cuda, dtype, mode, seed=5)
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    tol = BF16_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(), **tol)
+
+
+def test_kernels_are_deterministic(cuda):
+    """Two calls on the same inputs give the same bits: bf16 flash prefill at
+    the llama3-8b head shape, and bf16 paged attention with rows spanning
+    several chunks (the merge)."""
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(1, 500, h, 128, generator=g).to(cuda, torch.bfloat16)
+               for h in (32, 8, 8))
+    assert torch.equal(flash_prefill(q, k, v), flash_prefill(q, k, v))
+    args, kw = _boundary_call(cuda, torch.bfloat16, "window2", seed=6)
+    assert torch.equal(paged_attention(*args, **kw), paged_attention(*args, **kw))
 
 
 def test_paged_attention_kernel_refuses_unported_pools(cuda):
