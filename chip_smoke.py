@@ -29,11 +29,23 @@ weights made on the card, the bf16 kernels at its shapes, greedy
 generation through flash prefill, the decode step and the greedy head
 against the plain path, and paged serving at quanta 1 and 4 against
 capacity-1 streams (bf16 streams may part at a near-tie: the first
-differing token must be one), each traced.  It prints one JSON line per
-phase, then the `kernels` line.  Any failure raises and exits non-zero; the last line,
+differing token must be one), each traced; then llama3-8b with int8
+weights under bf16 activations at full width and depth (the decode
+kernel's int8/bf16 mode against its twin, greedy generation against the
+plain path by the same rules, a trace with the plain int8 head's share).
+The greedy head is also re-timed against torch.matmul + torch.argmax in
+alternation at tinyllama-1.1b.  It prints one JSON line per phase, then
+the `kernels` line.  Any failure raises and exits non-zero; the last line,
 `{"ok": true, "device": {...}}`, is printed only when every phase passed.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
+
+    python3 chip_smoke.py --decode-ab PARENT_DIR [MODEL:MODE[@POS,...] ...]
+
+runs only an A/B of the decode kernel: the one of the checkout unpacked at
+PARENT_DIR (e.g. `git archive` of the parent commit) against this one's,
+in one process, parent, change, change, parent at every shape of the
+decode phases, with each one's step breakdown from torch.profiler.
 
 Times are CUDA-event times on the card, after warm-up, averaged over many
 launches (flash prefill, the paged kernel, the greedy head and their
@@ -117,6 +129,23 @@ def queued_ms(torch, fn, reps: int, warmup: int = 3) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 2
     raise AssertionError("the card drained the queue before every call was enqueued")
+
+
+def decode_mode(layers) -> str:
+    """The decode kernel's mode for a layer tree: fp32, int8 (under f32
+    activations), bf16, or int8-bf16 (int8 weights under bf16 ones)."""
+    bf16 = str(layers["attn_norm"].dtype) == "torch.bfloat16"
+    if "wqkv_scale" in layers:
+        return "int8-bf16" if bf16 else "int8"
+    return "bf16" if bf16 else "fp32"
+
+
+def queue_reps(reps: int, launches_per_call: int, queue: int = 900) -> int:
+    """Calls `queued_ms` may queue behind its spin kernel: the card holds a
+    bounded number of pending launches (thousands), and the host blocks in
+    a launch while the queue is full, so a call of many launches takes
+    fewer repetitions."""
+    return max(2, min(reps, queue // launches_per_call))
 
 
 def compare(torch, got, want, rtol, atol, what):
@@ -203,13 +232,18 @@ class Smoke:
 
     def decode_phase(self, model: str, layers, args, pos: int):
         """The decode kernel against its plain twin; `layers` holds float32
-        weights, or int8 weights with their scales (the int8 mode)."""
+        or bf16 weights, or int8 weights with their scales (the int8 mode
+        under float32 norms, the int8/bf16 mode under bf16 norms).  `ms` is
+        the device time per call queued behind a spin kernel
+        (`queued_ms`: where the host's enqueue of a call's launches takes
+        longer than the card, back-to-back events time the host);
+        `event_ms` the CUDA-event time of back-to-back calls."""
         torch = self.torch
         from llama3np_tpu_torch.ops.kernels.decode_step import (
             decode_layers, decode_layers_plain)
 
         nl, kvh, M, hd = args.n_layers, args.kv_heads, args.max_seq_len, args.head_dim
-        bf16 = layers["wqkv"].dtype == torch.bfloat16
+        bf16 = layers["attn_norm"].dtype == torch.bfloat16  # bf16 activations
         dt = torch.bfloat16 if bf16 else torch.float32
         kc = self.randn(nl, kvh, M, hd, dtype=dt)
         vc = self.randn(nl, kvh, M, hd, dtype=dt)
@@ -230,7 +264,8 @@ class Smoke:
             # kernel-vs-twin error over the first 1 and 8 layers).  So bf16
             # is held normwise: kernel vs twin within 5e-2, and the kernel
             # no farther (within 25 %) from the f32 function of the same
-            # weights and inputs (no bf16 rounding inside) than the twin.
+            # weights and inputs (no bf16 rounding inside; int8 weights
+            # dequantized by their scales) than the twin.
             rtol, atol = None, None
             tol = {"normwise": 5e-2, "vs_f32_ratio": 1.25}
             ref = decode_layers_plain({n: t.float() for n, t in layers.items()},
@@ -275,11 +310,16 @@ class Smoke:
                 and torch.equal(v1[:, :, others], vc[:, :, others])):
             raise AssertionError("decode_layers changed cache rows other than pos")
         reps = 200 if nl * args.dim < 10000 else 20
-        ms = time_ms(torch, lambda: decode_layers(layers, x, pos, k1, v1, cos, sin, **kw), reps)
+
+        def call():
+            return decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)
+
+        ms = queued_ms(torch, call, queue_reps(reps, 5 * nl + 1))  # 5 launches a layer
+        event_ms = time_ms(torch, call, reps)
         plain_ms = time_ms(torch, lambda: decode_layers_plain(
-            layers, x, pos, k2, v2, cos, sin, **kw), reps)
+            layers, x, pos, k2, v2, cos, sin, **kw), min(reps, 20))
         decode_layers.launches = launches  # comparison launches do not count
-        mode = "int8" if "wqkv_scale" in layers else "bf16" if bf16 else "fp32"
+        mode = decode_mode(layers)
         w_elems = sum(layers[n].numel() for n in ("wqkv", "wo", "wgu", "w_down"))
         nbytes = (sum(t.numel() * t.element_size() for t in layers.values())
                   + kc.element_size() * (2 * args.dim + 2 * nl * kvh * hd * (pos + 1))
@@ -291,9 +331,10 @@ class Smoke:
                          "KVH": kvh, "HD": hd, "FD": args.hidden_dim, "M": M,
                          "pos": pos},
                "max_abs_err": max_abs, "max_rel_err": max_rel, "normwise_err": norm_err,
-               "tol": tol, "ms": ms,
+               "tol": tol, "ms": ms, "event_ms": event_ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None, "card": self.card}
+               "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "library_ms": None, "card": self.card}
         emit(row)
         return row
 
@@ -534,7 +575,7 @@ def kind(name: str) -> str:
     if "flash_prefill" in n:
         return "flash_prefill"
     if any(k in n for k in ("residual_rmsnorm", "gemv_kernel", "attn_split",
-                            "attn_combine")):  # the fused decode step's kernels
+                            "attn_combine", "decode_attn")):  # the fused decode step's kernels
         return "decode_layers"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
         return "gemm"
@@ -1037,6 +1078,307 @@ def int8_phases(torch, smoke, args, weights, prompt, workload, card):
                             "serve_q4": served["q4"]["launches"]["paged_attention"]}}
 
 
+def decode_steps_of(names):
+    """Step labels for one decode token's device kernels in launch order:
+    the GEMVs of a layer come as QKV, wo, gate/up, down; a residual+norm
+    kernel (the first design's) after a down GEMV (or first) normalizes
+    the attention input, after a wo GEMV the FFN input, and the last one
+    of the token writes x_out."""
+    labels, gemv = [], 0
+    for i, n in enumerate(names):
+        low = n.lower()
+        if "memset" in low:
+            labels.append("memset")
+        elif "attn_combine" in low:
+            labels.append("merge")
+        elif "attn" in low:
+            labels.append("attention")
+        elif "gemv" in low:
+            labels.append(("qkv", "wo", "gate_up", "down")[gemv % 4])
+            gemv += 1
+        elif "rmsnorm" in low:
+            labels.append("x_out" if i == len(names) - 1 else
+                          "residual_norm_ffn" if gemv % 4 == 2 else "residual_norm_attn")
+        else:
+            labels.append("other")
+    return labels
+
+
+def decode_breakdown(torch, fn, calls: int = 8):
+    """One decode_layers call broken down by step: `calls` calls under
+    torch.profiler, each device kernel labelled by its place in the
+    token (`decode_steps_of`), device µs per call by step and by kernel
+    name, and the launches per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    if not evs:
+        return {"device_us_per_call": "not measured"}
+    per_call = len(evs) // calls
+    by_step, by_name, path, span = {}, {}, {}, 0.0
+    for c in range(calls):
+        chunk = evs[c * per_call : (c + 1) * per_call]
+        prev_end = chunk[0].time_range.start
+        span += (chunk[-1].time_range.end - prev_end) / calls
+        for e, lab in zip(chunk, decode_steps_of([e.name for e in chunk])):
+            us = e.time_range.elapsed_us()
+            by_step[lab] = by_step.get(lab, 0.0) + us / calls
+            key = e.name.split("(")[0][-60:]
+            by_name[key] = by_name.get(key, 0.0) + us / calls
+            # The critical path: a kernel launched early (programmatically)
+            # waits on its predecessor inside its own duration, so each
+            # step is charged from the previous kernel's end to its own.
+            path[lab] = path.get(lab, 0.0) + (e.time_range.end - prev_end) / calls
+            prev_end = max(prev_end, e.time_range.end)
+    return {"calls": calls, "launches_per_call": per_call,
+            "device_us_per_call": sum(by_step.values()), "span_us_per_call": span,
+            "device_us_by_step": by_step, "critical_path_us_by_step": path,
+            "device_us_by_kernel": by_name}
+
+
+def card_layers(torch, args, mode: str, seed: int = 0, scale: float = 0.02):
+    """A fused whole-layer decode tree of `args` made on the card from a
+    seeded card generator, layer by layer: weights normal x scale, norms
+    1 + that; fp32 or bf16 weights, or int8 ones quantized per output
+    column (scale = max |w| / 127) under f32 or bf16 norms."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    nl, d, fd = args.n_layers, args.dim, args.hidden_dim
+    qd, kvd = args.n_heads * args.head_dim, args.kv_heads * args.head_dim
+    act = torch.bfloat16 if mode in ("bf16", "int8-bf16") else torch.float32
+    int8 = mode.startswith("int8")
+    out = {n: (1 + scale * torch.randn(nl, 1, d, generator=g, device="cuda")).to(act)
+           for n in ("attn_norm", "ffn_norm")}
+    for name, (k, n) in {"wqkv": (d, qd + 2 * kvd), "wo": (qd, d), "wgu": (d, 2 * fd),
+                         "w_down": (fd, d)}.items():
+        w = torch.empty(nl, k, n, dtype=torch.int8 if int8 else act, device="cuda")
+        if int8:
+            sc = torch.empty(nl, 1, n, device="cuda")
+        for layer in range(nl):
+            wl = torch.randn(k, n, generator=g, device="cuda") * scale
+            if int8:
+                sc[layer] = wl.abs().amax(dim=0, keepdim=True) / 127.0
+                w[layer] = torch.clamp(torch.round(wl / sc[layer]), -127, 127).to(torch.int8)
+            else:
+                w[layer] = wl.to(act)
+            del wl
+        out[name] = w
+        if int8:
+            out[name + "_scale"] = sc
+    return out
+
+
+def load_parent(parent_dir: str):
+    """The decode wrapper of another checkout of the port (its own kernel
+    sources and build directory), imported as the package `l3t_parent`."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(parent_dir), "llama3np_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "l3t_parent", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["l3t_parent"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("l3t_parent.ops.kernels.decode_step")
+
+
+def decode_ab(torch, parent_dir: str, card: str, only=()):
+    """The decode kernel of the checkout at `parent_dir` against this one's,
+    in one process on one card: at each shape of the main path's modes
+    (or those named in `only`, as "model:mode" or "model:mode@pos,pos"),
+    the same inputs, device time per call queued behind a spin kernel
+    (`queued_ms`) in the order parent, change, change, parent, and each
+    one's step breakdown (`decode_breakdown`).  A mode the other checkout
+    lacks (the int8/bf16 mode before this design) is timed alone.  Returns
+    the rows."""
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.ops.kernels import decode_step as new
+
+    old = load_parent(parent_dir)
+    t0 = time.perf_counter()
+    old._build.KernelLibrary.get()
+    new._build.KernelLibrary.get()
+    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+          "parent": os.path.relpath(old._build.KernelLibrary.path, REPO),
+          "change": os.path.relpath(new._build.KernelLibrary.path, REPO)})
+    cases = [("stories15M", preset("stories15M", max_seq_len=1024), "fp32", (0, 5, 1023)),
+             ("stories15M", preset("stories15M", max_seq_len=1024), "int8", (0, 5, 1023)),
+             ("tinyllama-1.1b", preset("tinyllama-1.1b"), "fp32", (0, 511)),
+             ("tinyllama-1.1b", preset("tinyllama-1.1b"), "int8", (0, 511)),
+             ("llama3-8b", preset("llama3-8b"), "bf16", (0, 511, 8191)),
+             ("llama3-8b", preset("llama3-8b"), "int8-bf16", (0, 511, 8191))]
+    if only:
+        picked = []
+        for spec in only:
+            name, _, at = spec.partition("@")
+            for model, args, mode, positions in cases:
+                if name == f"{model}:{mode}":
+                    picked.append((model, args, mode, tuple(int(p) for p in at.split(","))
+                                   if at else positions))
+        cases = picked
+    rows = []
+    for model, args, mode, positions in cases:
+        layers = card_layers(torch, args, mode)
+        dt = layers["attn_norm"].dtype
+        nl, kvh, M, hd = args.n_layers, args.kv_heads, args.max_seq_len, args.head_dim
+        g = torch.Generator("cuda").manual_seed(1)
+        kc = torch.randn(nl, kvh, M, hd, generator=g, device="cuda").to(dt)
+        vc = torch.randn(nl, kvh, M, hd, generator=g, device="cuda").to(dt)
+        x = (0.5 * torch.randn(1, args.dim, generator=g, device="cuda")).to(dt)
+        kw = dict(n_heads=args.n_heads, kv_heads=kvh, head_dim=hd, norm_eps=args.norm_eps)
+        reps = queue_reps(200, 8 * nl + 1)  # the parent's 7-8 launches a layer, + 1
+        for pos in positions:
+            ang = torch.rand(1, hd // 2, generator=g, device="cuda") * pos
+            cos, sin = ang.cos(), ang.sin()
+            fns = {"change": lambda: new.decode_layers(layers, x, pos, kc, vc, cos, sin, **kw)}
+            if mode != "int8-bf16" or "l3t_decode_layers_i8_bf16" in old._build.SIGNATURES:
+                fns["parent"] = lambda: old.decode_layers(layers, x, pos, kc, vc, cos, sin,
+                                                          **kw)
+            outs = {k: f()[0] for k, f in fns.items()}
+            torch.cuda.synchronize()
+            order = ("parent", "change", "change", "parent") if "parent" in fns else ("change",)
+            series = {k: [] for k in fns}
+            for who in order:
+                series[who].append(queued_ms(torch, fns[who], reps))
+            row = {"phase": "decode_ab", "model": model, "mode": mode, "pos": pos,
+                   "ms": series, "order": list(order),
+                   "breakdown": {k: decode_breakdown(torch, f) for k, f in fns.items()},
+                   "card": card}
+            if "parent" in outs:
+                row["change_vs_parent_max_abs"] = (outs["change"].float()
+                                                   - outs["parent"].float()).abs().max().item()
+            emit(row)
+            rows.append(row)
+        del layers, kc, vc
+        torch.cuda.empty_cache()
+    new.decode_layers.launches = 0
+    return rows
+
+
+def head_alternation(torch, smoke, w, rounds: int = 6):
+    """The greedy head against one torch.matmul + torch.argmax on the same
+    lm_head and row, alternated `rounds` times (kernel, library, library,
+    kernel, ...), each a `queued_ms` of 50 calls: both series and their
+    spreads ((max - min) / min)."""
+    from llama3np_tpu_torch.ops.kernels.greedy_head import argmax_head
+
+    launches = argmax_head.launches
+    x = smoke.randn(1, w.shape[0], dtype=torch.bfloat16).to(w.dtype)
+    fns = {"kernel": lambda: argmax_head(x, w),
+           "library": lambda: torch.argmax(torch.matmul(x, w), dim=-1)}
+    series = {"kernel": [], "library": []}
+    for r in range(rounds):
+        for who in (("kernel", "library") if r % 2 == 0 else ("library", "kernel")):
+            series[who].append(queued_ms(torch, fns[who], 50))
+    argmax_head.launches = launches  # comparison launches do not count
+    spread = {k: (max(v) - min(v)) / min(v) for k, v in series.items()}
+    return {"phase": "head_alternation", "shape": {"D": w.shape[0], "VS": w.shape[1]},
+            "dtype": str(w.dtype).replace("torch.", ""), "ms": series, "spread": spread,
+            "kernel_mean_ms": sum(series["kernel"]) / rounds,
+            "library_mean_ms": sum(series["library"]) / rounds,
+            "kernel_slower_beyond_spread": min(series["kernel"]) > max(series["library"]),
+            "card": smoke.card}
+
+
+def llama3_8b_int8_phases(torch, smoke, card):
+    """llama3-8b with int8 weights under bf16 activations (quant="int8",
+    dtype bfloat16) at full width and depth: the engine's own loader over
+    weights made on the card, the decode kernel's int8/bf16 mode against
+    its twin at pos 0 / 511 / 8191, greedy generation through flash
+    prefill and that mode (the int8 lm_head stays plain: lm_logits and
+    argmax) against the plain path (attn_impl="xla"): logits within the
+    bf16 envelope with top-1 equal, the stream equal or parted at a
+    near-tie; prefill ms and decode tok/s of both, and a trace that shows
+    the plain head's share.  Returns the kernel row and the launch
+    counts."""
+    import resource
+
+    import numpy as np
+
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+
+    args = preset("llama3-8b", quant="int8")
+    nl = args.n_layers
+    t0 = time.perf_counter()
+    eng = Llama(CardWeights(torch, args), args, device="cuda")
+    torch.cuda.synchronize()
+    import gc
+    gc.collect()
+    emit({"phase": "load", "model": "llama3-8b", "quant": "int8", "layers": nl,
+          "dtype": args.dtype, "seconds": time.perf_counter() - t0,
+          "peak_rss_gb": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6,
+          "weights_gb": sum(t.numel() * t.element_size()
+                            for t in eng.params["layers"].values()) / 1e9,
+          "device_allocated_gb": torch.cuda.memory_allocated() / 1e9, "card": card})
+    layers = eng.params["layers"]
+    smoke.decode_phase("llama3-8b", layers, args, 0)
+    row = smoke.decode_phase("llama3-8b", layers, args, 511)
+    smoke.decode_phase("llama3-8b", layers, args, 8191)
+    torch.cuda.empty_cache()
+
+    prompt = np.random.default_rng(0).integers(3, args.vocab_size, size=(1, 500))
+    n_tok = 32
+    reset_counters()  # the main path: int8 greedy generation through the kernels
+    toks_k = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    counts = counters()
+    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
+              "argmax_head": 0}
+    if counts != expect:
+        raise AssertionError(f"llama3-8b int8 launch counts {counts}, expected {expect}")
+    logits_k = torch.from_numpy(eng(prompt, 0))
+    twin = plain_twin(eng)
+    toks_x = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    logits_x = torch.from_numpy(twin(prompt, 0))
+    if not torch.isfinite(logits_k).all():
+        raise AssertionError("non-finite llama3-8b int8 logits")
+    l_abs = (logits_k - logits_x).abs().max().item()
+    l_scale = max(1.0, logits_x.abs().max().item())
+    if l_abs > E8B_ENVELOPE * l_scale or \
+            int(logits_k[0, -1].argmax()) != int(logits_x[0, -1].argmax()):
+        raise AssertionError(f"llama3-8b int8 kernel vs plain logits: max abs err {l_abs} "
+                             f"(envelope {E8B_ENVELOPE * l_scale}) or top-1 differs")
+    limit = 2 * l_abs
+
+    def plain_margin(i):  # the plain path's top-2 margin before token i
+        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
+        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
+        return float(top[0] - top[1])
+
+    rule = near_tie(toks_k, toks_x, plain_margin, limit, "llama3-8b int8 greedy stream")
+    k_stats = timed_generate(eng, prompt, 64)[1]
+    x_stats = timed_generate(twin, prompt, 64)[1]
+    emit({"phase": "e2e", "model": "llama3-8b", "quant": "int8", "dtype": "bfloat16",
+          "prompt_tokens": 500, "launches": counts, "stream_vs_plain": rule,
+          "near_tie_limit": limit, "logits_max_abs_err": l_abs, "logits_max_abs": l_scale,
+          "logits_envelope": E8B_ENVELOPE * l_scale,
+          "kernels": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
+          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
+          "timed_tokens": 64, "card": card})
+    del twin
+    torch.cuda.empty_cache()
+    prof = profile_phase(torch, "llama3-8b-int8", eng, prompt, card)
+    dec = prof["decode"]["device_ms_by_kind"]
+    total = sum(dec.values()) or 1.0
+    # The plain int8 head: its f32 product (gemm) and the widening of the
+    # 525 M-weight lm_head (copy_cast); nothing else of a decode token
+    # runs a GEMM or a cast.
+    prof["decode"]["plain_head_share"] = (dec.get("gemm", 0.0) + dec.get("copy_cast", 0.0)) / total
+    emit(prof)
+    del eng
+    torch.cuda.empty_cache()
+    return row, {"decode_layers": {"generate": counts["decode_layers"]}}
+
+
 def synthetic_vocab(path: str, size: int, seed: int = 0):
     """A tokenizer model of `size` entries made from a seed: the markers,
     printable ASCII, then random merges of letters and spaces."""
@@ -1085,6 +1427,11 @@ def main() -> int:
 
     card = card_line()
     print(card, flush=True)
+    if len(sys.argv) >= 3 and sys.argv[1] == "--decode-ab":
+        # The decode kernel of another checkout (a `git archive` of the
+        # parent commit) against this one's, then nothing else.
+        decode_ab(torch, sys.argv[2], card, sys.argv[3:])
+        return 0
     t0 = time.perf_counter()
     _build.KernelLibrary.get()
     build_s = time.perf_counter() - t0
@@ -1154,6 +1501,7 @@ def main() -> int:
     smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 0)
     decode_row = smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 511)
     smoke.argmax_phase("tinyllama-1.1b", t_eng.params["lm_head"])
+    emit(head_alternation(torch, smoke, t_eng.params["lm_head"]))
 
     prompt = np.random.default_rng(0).integers(3, t_args.vocab_size, size=(1, 500))
     n_tok = 32
@@ -1262,6 +1610,10 @@ def main() -> int:
 
     # ---- llama3-8b in bf16 at full width and depth -------------------------
     b_rows, b_paths = llama3_8b_phases(torch, smoke, card)
+    gc.collect()
+
+    # ---- llama3-8b with int8 weights under bf16 activations ----------------
+    q8_row, q8_paths = llama3_8b_int8_phases(torch, smoke, card)
 
     # ---- summary --------------------------------------------------------------
     sources = {"flash_prefill": ("llama3np_tpu_torch/csrc/flash_prefill.cu",
@@ -1284,8 +1636,9 @@ def main() -> int:
                  "paged_attention": "serve_q1", "argmax_head": "generate"}
     # The PR of each kernel mode's current design.
     design = {("flash_prefill", "fp32"): "pr1", ("flash_prefill", "bf16"): "pr5",
-              ("decode_layers", "fp32"): "pr1", ("decode_layers", "int8"): "pr3",
-              ("decode_layers", "bf16"): "pr4", ("paged_attention", "fp32"): "pr5",
+              ("decode_layers", "fp32"): "pr6", ("decode_layers", "int8"): "pr6",
+              ("decode_layers", "bf16"): "pr6", ("decode_layers", "int8-bf16"): "pr6",
+              ("paged_attention", "fp32"): "pr5",
               ("paged_attention", "int8"): "pr5", ("paged_attention", "bf16"): "pr5",
               ("argmax_head", "bf16"): "pr4"}
 
@@ -1301,10 +1654,11 @@ def main() -> int:
                        (b_rows["flash_prefill"], b_paths["flash_prefill"]),
                        (b_rows["decode_layers"], b_paths["decode_layers"]),
                        (stacked(b_rows["paged_attention"]), b_paths["paged_attention"]),
-                       (b_rows["argmax_head"], b_paths["argmax_head"])):
+                       (b_rows["argmax_head"], b_paths["argmax_head"]),
+                       (q8_row, q8_paths["decode_layers"])):
         name = row["kernel"]
         src, replaces = sources[name]
-        if name == "decode_layers" and row["mode"] in ("int8", "bf16"):
+        if name == "decode_layers" and row["mode"] != "fp32":
             replaces = "llama3np_tpu/ops/kernels/decode_step.py:793"  # the streamed layout
         kernels.append({
             "name": name, "mode": row["mode"], "route": "cuda",

@@ -173,7 +173,7 @@ def quantize_param_tree(params: Dict, bits: int = 8) -> Dict:
     if bits != 8:
         raise NotImplementedError("int4 and mixed-bit trees run the "
                                   "split-weight layout, still to port "
-                                  "(ROADMAP A8)")
+                                  "(ROADMAP A5)")
 
     def q(w, axis):
         w = np.asarray(w, np.float32)

@@ -116,7 +116,7 @@ class ModelArgs:
             raise ValueError(f"kv_heads ({self.kv_heads}) must divide n_heads ({self.n_heads}) (GQA)")
         if self.quant == "int4":
             raise NotImplementedError("quant='int4' runs the split-weight layout, "
-                                      "which is still to port (ROADMAP A8)")
+                                      "which is still to port (ROADMAP A5)")
         if self.quant not in (None, "int8"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         if self.kv_quant not in (None, "int8"):

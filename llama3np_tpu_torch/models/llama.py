@@ -386,18 +386,15 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _refuse_unported_kernel_modes(args: ModelArgs):
-    """The kernels run float32 or bf16 models (int8 weights under float32
-    activations) with the KV cache in the activation dtype; raise for what
-    none of them takes yet."""
+    """The kernels run float32 or bf16 models (float or int8 weights) with
+    the KV cache in the activation dtype; raise for what none of them takes
+    yet."""
     if args.dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(f"{args.dtype} kernel modes are still to port "
                                   "(ROADMAP B5); pass attn_impl='xla'")
-    if args.quant == "int8" and args.dtype != "float32":
-        raise NotImplementedError("int8 weights with bf16 activations are still "
-                                  "to port (ROADMAP A8); pass attn_impl='xla'")
     if args.kv_dtype != args.dtype:
         raise NotImplementedError(f"a {args.kv_dtype} KV cache under {args.dtype} "
-                                  "activations is still to port (ROADMAP A8); "
+                                  "activations is still to port (ROADMAP B4); "
                                   "pass attn_impl='xla'")
 
 
@@ -411,12 +408,12 @@ class Llama:
     greedy head, and paged serving the paged-attention kernel, each in the
     model's dtype.  quant="int8" holds int8 weights with per-output-channel
     scales (built, permuted, fused, then quantized, as the JAX engine's
-    whole-layer tree); activations stay float32, and on the card batch-1
-    decode runs the decode kernel's int8 mode.  kv_quant="int8" is read by
-    `serving.BatchEngine`.  On the card's kernel path, combinations that
-    no kernel takes yet raise NotImplementedError naming their ROADMAP
-    item: int8 weights under bf16 activations, a KV dtype other than the
-    activations', float16; attn_impl="xla" runs any of them plainly."""
+    whole-layer tree) under float32 or bf16 activations, and on the card
+    batch-1 decode runs the decode kernel's int8 mode for that activation
+    dtype.  kv_quant="int8" is read by `serving.BatchEngine`.  On the
+    card's kernel path, combinations that no kernel takes yet raise
+    NotImplementedError naming their ROADMAP item: a KV dtype other than
+    the activations', float16; attn_impl="xla" runs any of them plainly."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
                  device="cuda"):

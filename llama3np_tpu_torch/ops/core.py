@@ -457,7 +457,9 @@ def ragged_cache_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p_cur = probs[..., M + nwin :] if append else None  # [B, KVH, G, 1]
     probs = probs[..., :M]
     if v_scale is not None:
-        probs = probs * v_scale[:, :, None, :]
+        # Rounded to q's dtype before P.V, as the window part below and the
+        # JAX op (a no-op in fp32).
+        probs = (probs * v_scale[:, :, None, :]).to(q.dtype).float()
     else:
         probs = probs.to(v_cache.dtype).float()
     out = torch.einsum("bkgm,bkmd->bkgd", probs, v_cache.float())

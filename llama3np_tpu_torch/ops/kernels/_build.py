@@ -42,7 +42,16 @@ _FLASH = (ctypes.c_int, [_P, _P, _P, _P,              # q, k, v, o
 _DECODE = (ctypes.c_int, [
     _P, _P, _P, _P, _P, _P,            # wqkv, wo, wgu, w_down, norms
     _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
-    _P, _P, _P,                        # cos_row, sin_row, scratch
+    _P, _P, _P, _P,                    # cos_row, sin_row, scratch, counters
+    _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
+    ctypes.c_float, _I, _P,            # eps, device, stream
+])
+_DECODE_I8 = (ctypes.c_int, [
+    _P, _P, _P, _P,                    # wqkv, wo, wgu, w_down (int8)
+    _P, _P, _P, _P,                    # their per-column scales
+    _P, _P,                            # attn_norm, ffn_norm
+    _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
+    _P, _P, _P, _P,                    # cos_row, sin_row, scratch, counters
     _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
     ctypes.c_float, _I, _P,            # eps, device, stream
 ])
@@ -60,17 +69,11 @@ SIGNATURES = {
     "l3t_flash_prefill_f32": _FLASH,
     "l3t_flash_prefill_bf16": _FLASH,
     "l3t_decode_scratch_floats": (ctypes.c_long, [_I, _I, _I, _I, _I]),
+    "l3t_decode_counters": (ctypes.c_long, [_I, _I, _I, _I, _I]),
     "l3t_decode_layers_f32": _DECODE,
     "l3t_decode_layers_bf16": _DECODE,
-    "l3t_decode_layers_i8": (ctypes.c_int, [
-        _P, _P, _P, _P,                    # wqkv, wo, wgu, w_down (int8)
-        _P, _P, _P, _P,                    # their per-column scales
-        _P, _P,                            # attn_norm, ffn_norm
-        _P, _P, _P, _P,                    # x_in, x_out, k_cache, v_cache
-        _P, _P, _P,                        # cos_row, sin_row, scratch
-        _I, _I, _I, _I, _I, _I, _I, _I,    # nl, d, nh, kvh, hd, fd, m, pos
-        ctypes.c_float, _I, _P,            # eps, device, stream
-    ]),
+    "l3t_decode_layers_i8": _DECODE_I8,
+    "l3t_decode_layers_i8_bf16": _DECODE_I8,
     "l3t_paged_attention_i8": (ctypes.c_int, [
         _P, _P, _P, _P, _P,                # q, k_pools, v_pools, k/v scale pools
         _P, _P,                            # table, pos

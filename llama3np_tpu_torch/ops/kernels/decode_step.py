@@ -12,18 +12,21 @@ softmax; because of that mask the new rows are written into the caches at
 `pos` in place (the JAX kernel emitted them and scattered afterwards), and
 the caches passed in are the ones returned.
 
-Three modes, chosen by the tree: float32 weights; int8 weights with
+Four modes, chosen by the tree and x: float32 weights; int8 weights with
 per-output-column f32 scales ("wqkv_scale" [NL, 1, QD+2KVD] and so on,
-`checkpoint.quantize_param_tree`), the counterpart of the TPU's streamed
-layout with its scale blocks (`_streamed_decode_layers`), where products
-are (x . w8) * s with x in f32 and the scale applied to the finished sum,
-and activations, caches, norms and RoPE stay float32; and bf16 weights,
-norms, x and caches (the llama3-8b preset), with the streamed layout's
-rounding points: the activation is rounded to bf16 before each weight
-product (`_wdot`), sums, RMSNorm, RoPE and attention are f32 (bf16 cache
-rows widened), the new K/V rows are stored in bf16, and the residual is
-rounded to bf16 once, at the end of each layer.  Other combinations
-(int8 weights with bf16 activations, float16) raise NotImplementedError.
+`checkpoint.quantize_param_tree`) under float32 activations, the
+counterpart of the TPU's streamed layout with its scale blocks
+(`_streamed_decode_layers`), where products are (x . w8) * s with x in f32
+and the scale applied to the finished sum; bf16 weights, norms, x and
+caches (the llama3-8b preset), with the streamed layout's rounding points:
+the activation is rounded to bf16 before each weight product (`_wdot`),
+sums, RMSNorm, RoPE and attention are f32 (bf16 cache rows widened), the
+new K/V rows are stored in bf16, and the residual is rounded to bf16 once,
+at the end of each layer; and int8 weights with f32 scales under bf16
+norms, x and caches (the JAX engine's llama3-8b `quant="int8"`), with the
+bf16 mode's rounding points and `_wdot`'s int8 products: the bf16-rounded
+activation times the int8 weight, f32 sums, the scale post-multiplied.
+float16 raises NotImplementedError.
 
 `decode_layers` launches the kernels for CUDA tensors and runs
 `decode_layers_plain` for CPU tensors; there is no fallback from one to the
@@ -49,10 +52,13 @@ def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w.float()
 
 
-def _weight_input(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The activation a weight product sees: rounded to a bf16 weight's
-    dtype (the TPU kernel's `_wdot` cast), f32 otherwise."""
-    return a.to(torch.bfloat16).float() if w.dtype == torch.bfloat16 else a
+def _weight_input(a: torch.Tensor, w: torch.Tensor, act_dtype) -> torch.Tensor:
+    """The activation a weight product sees: rounded to bf16 before a bf16
+    weight, and before an int8 weight under bf16 activations (the TPU
+    kernel's `_wdot` casts); f32 otherwise."""
+    if torch.bfloat16 in (w.dtype, act_dtype):
+        return a.to(torch.bfloat16).float()
+    return a
 
 
 def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
@@ -63,8 +69,9 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch, with the appended-column math of
     the TPU kernel's `_attend_head` written out (int8 weights post-scale
-    each product; bf16 rounds where the kernel does: each product's
-    activation, the stored rows, the residual at each layer's end).
+    each product; bf16 activations round where the kernel does: each
+    product's activation, the stored rows, the residual at each layer's
+    end).
     Updates the caches at `pos` in place and returns (x_out, k_cache,
     v_cache)."""
     nh, kvh, hd = n_heads, kv_heads, head_dim
@@ -79,7 +86,7 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
 
     def proj(a, name, layer):  # a @ w of `layer`, int8 post-scaled
         s, w = layers.get(name + "_scale"), layers[name][layer]
-        return _scaled_dot(_weight_input(a, w), w, None if s is None else s[layer])
+        return _scaled_dot(_weight_input(a, w, x.dtype), w, None if s is None else s[layer])
 
     m = k_cache.shape[2]
     visible = torch.arange(m, device=x.device) < pos  # never row pos
@@ -150,6 +157,20 @@ def _check_args(layers, x, pos, k_cache, v_cache, cos_row, sin_row,
                          f"[0, {k_cache.shape[2]})")
 
 
+_COUNTERS: Dict = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's arrival counters for calls on `stream`: zeroed once,
+    and left zero by every call (each finishing block resets its own), so
+    no call pays for clearing them; a larger width gets a new zeroed
+    buffer."""
+    c = _COUNTERS.get((device, stream))
+    if c is None or c.numel() < n:
+        c = _COUNTERS[(device, stream)] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
+
+
 def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                   cos_row: torch.Tensor, sin_row: torch.Tensor,
@@ -165,8 +186,9 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     embedded token.  pos: host int, the token's position.
     k_cache/v_cache: [NL, KVH, M, HD] (one batch row), read at rows < pos
     and written at row pos in place.  On the card: float32 weights, norms,
-    x and caches; int8 weights with f32 scales and float32 the rest; or
-    bf16 weights, norms, x and caches; cos/sin rows float32.
+    x and caches; int8 weights with f32 scales and float32 the rest; bf16
+    weights, norms, x and caches; or int8 weights with f32 scales and bf16
+    norms, x and caches; cos/sin rows float32.
     cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
 
     Returns (x_out [1, D], k_cache, v_cache).
@@ -187,20 +209,20 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     acts = [layers["attn_norm"], layers["ffn_norm"], x, k_cache, v_cache]
     f32 = [cos_row, sin_row] + scales
     tensors = weights + acts + f32
-    w_dtype = weights[0].dtype
-    a_dtype = torch.bfloat16 if w_dtype == torch.bfloat16 else torch.float32
+    w_dtype, a_dtype = weights[0].dtype, x.dtype
     if w_dtype not in (torch.float32, torch.bfloat16, torch.int8) \
+            or a_dtype not in (torch.float32, torch.bfloat16) \
             or (w_dtype == torch.int8) != quant \
+            or (w_dtype != torch.int8 and w_dtype != a_dtype) \
             or any(t.dtype != w_dtype for t in weights) \
             or any(t.dtype != a_dtype for t in acts) \
             or any(t.dtype != torch.float32 for t in f32):
         raise NotImplementedError(
-            "the decode_layers kernel takes float32 weights, norms, x and "
-            "caches; int8 weights with f32 scales and float32 the rest; or "
-            "bf16 weights, norms, x and caches (cos/sin rows float32); got "
-            f"{w_dtype} weights and {x.dtype} x, {k_cache.dtype} caches.  "
-            "int8 weights with bf16 activations are still to port (ROADMAP "
-            "A8), float16 too (ROADMAP B5)")
+            "the decode_layers kernel takes float32 or bf16 weights with "
+            "norms, x and caches of the same dtype, or int8 weights with f32 "
+            "scales under float32 or bf16 norms, x and caches (cos/sin rows "
+            f"float32); got {w_dtype} weights and {x.dtype} x, "
+            f"{k_cache.dtype} caches.  float16 is still to port (ROADMAP B5)")
     if any(t.device != x.device for t in tensors):
         raise ValueError("decode_layers: every tensor must lie on x's device")
     if not all(t.is_contiguous() for t in tensors):
@@ -219,19 +241,22 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
                          f"widths that are multiples of {vec}; got {qkvd}, "
                          f"{d}, {2 * fd}")
     lib = _build.KernelLibrary.get()
-    scratch = torch.empty(
-        lib.l3t_decode_scratch_floats(d, n_heads, kv_heads, head_dim, fd),
-        dtype=torch.float32, device=x.device)
-    x_out = torch.empty_like(x)
+    widths = (d, n_heads, kv_heads, head_dim, fd)
+    scratch = torch.empty(lib.l3t_decode_scratch_floats(*widths),
+                          dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = _counters(x.device, stream, lib.l3t_decode_counters(*widths))
+    x_out = torch.empty_like(x)
     rest = (layers["attn_norm"].data_ptr(), layers["ffn_norm"].data_ptr(),
             x.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
-            scratch.data_ptr(), nl, d, n_heads, kv_heads, head_dim, fd,
-            k_cache.shape[2], pos, float(norm_eps), x.device.index, stream)
+            scratch.data_ptr(), counters.data_ptr(), nl, d, n_heads, kv_heads,
+            head_dim, fd, k_cache.shape[2], pos, float(norm_eps), x.device.index,
+            stream)
     if quant:
-        rc = lib.l3t_decode_layers_i8(*(t.data_ptr() for t in weights + scales),
-                                      *rest)
+        entry = (lib.l3t_decode_layers_i8_bf16 if a_dtype == torch.bfloat16
+                 else lib.l3t_decode_layers_i8)
+        rc = entry(*(t.data_ptr() for t in weights + scales), *rest)
     elif w_dtype == torch.bfloat16:
         rc = lib.l3t_decode_layers_bf16(*(t.data_ptr() for t in weights), *rest)
     else:

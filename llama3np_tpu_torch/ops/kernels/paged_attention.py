@@ -210,7 +210,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"the paged_attention kernel takes float32 pools and rows with "
             f"float32 q, int8 ones with float32 q and scales, or bf16 ones "
             f"with bf16 q (got {k_pages.dtype} pools, {q.dtype} q); int8 "
-            "pools under a bf16 q are still to port (ROADMAP A8), float16 "
+            "pools under a bf16 q are still to port (ROADMAP B4), float16 "
             "too (ROADMAP B5)")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention takes int32 block_table and pos on the card")

@@ -28,7 +28,7 @@ the next admission.
 Still to port, each raising NotImplementedError: sampling (`temperature >
 0`, ROADMAP A5), the prefix cache (`prefix_cache`, with `gather_pool_row`,
 A9), multi-LoRA (`adapters`, A12), tensor-parallel serving (A14), and on
-the card int8 KV under bf16 activations (A8).
+the card int8 KV under bf16 activations (B4).
 """
 
 from __future__ import annotations
@@ -183,7 +183,7 @@ class BatchEngine:
         if kv_quant and self.cfg.kernels and self.args.dtype != "float32":
             raise NotImplementedError("the paged kernel's int8 mode takes float32 "
                                       "q: int8 KV under bf16 activations is still "
-                                      "to port (ROADMAP A8)")
+                                      "to port (ROADMAP B4)")
         # int8 caches: admission prefills in the activation dtype and its
         # rows quantize once, at the copy into the cache.
         self._row_dt = torch_dtype(self.args.dtype) if kv_quant else None

@@ -106,8 +106,9 @@ def _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8, dtype=torch.float32):
                 nl, 1, n, generator=g)).to(cuda)
         else:
             layers[name] = rnd(nl, k, n, scale=0.05)
-    if dtype != torch.float32:
-        layers = {k: v.to(dtype) for k, v in layers.items()}
+    if dtype != torch.float32:  # int8 payloads and their f32 scales stay
+        layers = {k: v if v.dtype == torch.int8 or k.endswith("_scale") else v.to(dtype)
+                  for k, v in layers.items()}
     return layers
 
 
@@ -139,19 +140,22 @@ def test_decode_layers_bf16_kernel_matches_plain(cuda, pos, d, nh, kvh, fd):
 
 
 def test_decode_layers_kernel_refuses_unported_modes(cuda):
-    """int8 weights under bf16 activations, and widths that are not whole
-    8-weight bf16 vectors."""
+    """int8 weights under bf16 activations run (the int8/bf16 mode, against
+    its twin); widths that are not whole 8-weight bf16 vectors are refused."""
     g = torch.Generator().manual_seed(3)
     nl, d, nh, kvh, fd, M = 1, 64, 4, 2, 128, 8
     hd = d // nh
     row = torch.zeros(1, hd // 2, device=cuda)
     kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
-    q8 = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8=True)
-    q8.update(attn_norm=q8["attn_norm"].bfloat16(), ffn_norm=q8["ffn_norm"].bfloat16())
-    kc = torch.zeros(nl, kvh, M, hd, device=cuda, dtype=torch.bfloat16)
-    x = torch.zeros(1, d, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        decode_layers(q8, x, 1, kc, kc.clone(), row, row, **kw)
+    q8 = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, True, torch.bfloat16)
+    kc = torch.randn(nl, kvh, M, hd, generator=g).to(cuda, torch.bfloat16)
+    x = torch.randn(1, d, generator=g).to(cuda, torch.bfloat16)
+    before = decode_layers.launches
+    got = decode_layers(q8, x, 1, kc.clone(), kc.clone(), row, row, **kw)[0]
+    torch.cuda.synchronize()
+    assert decode_layers.launches == before + 1 and got.dtype == torch.bfloat16
+    want = decode_layers_plain(q8, x, 1, kc.clone(), kc.clone(), row, row, **kw)[0]
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2, atol=3e-2)
     d, nh, kvh, fd = 36, 3, 3, 84  # HD=12: QKV width 108, not a multiple of 8
     layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, False, torch.bfloat16)
     kc = torch.zeros(nl, kvh, M, d // nh, device=cuda, dtype=torch.bfloat16)
@@ -160,6 +164,83 @@ def test_decode_layers_kernel_refuses_unported_modes(cuda):
         decode_layers(layers, torch.zeros(1, d, device=cuda, dtype=torch.bfloat16), 1,
                       kc, kc.clone(), row, row, n_heads=nh, kv_heads=kvh,
                       head_dim=d // nh, norm_eps=1e-5)
+
+
+# The four decode modes: (weights int8?, activation dtype).
+DECODE_MODES = {"fp32": (False, torch.float32), "int8": (True, torch.float32),
+                "bf16": (False, torch.bfloat16), "int8-bf16": (True, torch.bfloat16)}
+
+
+def _decode_call(cuda, mode, nl, d, nh, kvh, fd, M, pos, seed):
+    """A decode_layers call of `mode` on seeded inputs: (layers, x, caches,
+    cos, sin, kw)."""
+    int8, dt = DECODE_MODES[mode]
+    g = torch.Generator().manual_seed(seed)
+    hd = d // nh
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8, dt)
+    kc, vc = (torch.randn(nl, kvh, M, hd, generator=g).to(cuda, dt) for _ in range(2))
+    x = torch.randn(1, d, generator=g).to(cuda, dt)
+    ang = torch.rand(1, hd // 2, generator=g).to(cuda) * pos
+    kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
+    return layers, x, kc, vc, ang.cos(), ang.sin(), kw
+
+
+@pytest.mark.parametrize("pos", [0, 40, 127])
+@pytest.mark.parametrize("d,nh,kvh,fd", [(256, 8, 2, 512), (768, 6, 2, 2048), (96, 3, 3, 160)])
+def test_decode_layers_int8_bf16_kernel_matches_plain(cuda, pos, d, nh, kvh, fd):
+    """int8 weights under bf16 activations (tensor cores) against the twin
+    at pos 0 / mid / M-1: output and new rows within the bf16 tolerance
+    (3e-2), other cache rows untouched; widths that leave a partial
+    512-column tile and many row splits."""
+    nl, M = 2, 128
+    layers, x, kc, vc, cos, sin, kw = _decode_call(cuda, "int8-bf16", nl, d, nh, kvh, fd,
+                                                   M, pos, seed=pos + d)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)[0]
+    torch.cuda.synchronize()
+    want = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)[0]
+    assert got.dtype == torch.bfloat16
+    tol = dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(k1[:, :, pos].float(), k2[:, :, pos].float(), **tol)
+    torch.testing.assert_close(v1[:, :, pos].float(), v2[:, :, pos].float(), **tol)
+    others = torch.arange(M, device=cuda) != pos
+    assert torch.equal(k1[:, :, others], kc[:, :, others])
+    assert torch.equal(v1[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("mode", list(DECODE_MODES))
+def test_decode_layers_kernel_is_deterministic(cuda, mode):
+    """Two runs on the same inputs give the same bits in every mode: the
+    split-K tiles and attention's splits are summed in split order by the
+    last block to arrive, whichever block that is (pos 700: 44 position
+    splits)."""
+    layers, x, kc, vc, cos, sin, kw = _decode_call(cuda, mode, 2, 512, 8, 2, 1024, 1024,
+                                                   700, seed=11)
+    outs = []
+    for _ in range(2):
+        k1, v1 = kc.clone(), vc.clone()
+        outs.append((decode_layers(layers, x, 700, k1, v1, cos, sin, **kw)[0], k1, v1))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mode", list(DECODE_MODES))
+def test_decode_layers_kernel_after_other_shapes(cuda, mode):
+    """A call after calls at another pos and other widths (other tiles,
+    splits and position splits) matches its twin: no arrival counter or
+    scratch of an earlier call survives into the next."""
+    tol = (dict(rtol=1e-4, atol=1e-4) if DECODE_MODES[mode][1] == torch.float32
+           else dict(rtol=3e-2, atol=3e-2))
+    for d, nh, kvh, fd, M, pos in ((512, 8, 2, 1024, 512, 300), (256, 4, 4, 768, 64, 63),
+                                   (512, 8, 2, 1024, 512, 17)):
+        layers, x, kc, vc, cos, sin, kw = _decode_call(cuda, mode, 2, d, nh, kvh, fd, M,
+                                                       pos, seed=pos)
+        got = decode_layers(layers, x, pos, kc.clone(), vc.clone(), cos, sin, **kw)[0]
+        torch.cuda.synchronize()
+        want = decode_layers_plain(layers, x, pos, kc.clone(), vc.clone(), cos, sin, **kw)[0]
+        torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -524,7 +605,7 @@ def test_paged_attention_kernel_refuses_unported_pools(cuda):
     q = torch.zeros(1, 1, 4, 16, device=cuda, dtype=torch.bfloat16)
     pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.int8)
     scale = torch.ones(3, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
         paged_attention(q, pool, pool, bt, pos, k_scale=scale, v_scale=scale)
     half = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="ROADMAP B5"):
@@ -593,12 +674,33 @@ def test_card_bf16_engine_runs_the_kernels(cuda, name):
     assert be.allocator.available == be.allocator.num_pages - 1
 
 
+@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-mha"])
+def test_card_int8_bf16_engine_runs_the_kernels(cuda, name):
+    """int8 weights under bf16 activations on the card: greedy generation
+    through the bf16 flash kernel and the decode kernel's int8/bf16 mode
+    (the int8 lm_head stays plain: no greedy-head launch), its last-prompt
+    logits within the bf16 envelope of the plain path's, top-1 equal."""
+    args = preset(name, dtype="bfloat16", quant="int8")
+    w = synthetic_weights(args, seed=7)
+    ids = [[1, 7, 30, 41, 5]]
+    eng = Llama(w, args, device=cuda)
+    assert eng.params["layers"]["wqkv"].dtype == torch.int8
+    before = (flash_prefill.launches, decode_layers.launches, argmax_head.launches)
+    toks = eng.generate_tokens(ids, 12).cpu()
+    assert toks.shape == (1, 12)
+    assert (flash_prefill.launches - before[0], decode_layers.launches - before[1],
+            argmax_head.launches - before[2]) == (args.n_layers, 11, 0)
+    got = eng(ids, 0)
+    want = Llama(w, args.replace(attn_impl="xla"), device=cuda)(ids, 0)
+    assert np.abs(got - want).max() <= 2e-2 * max(1.0, np.abs(want).max())
+    assert got[0, -1].argmax() == want[0, -1].argmax()
+
+
 def test_card_engine_refuses_unported_modes(cuda):
     w = synthetic_weights(preset("test-tiny"), seed=1)
-    for kw in (dict(dtype="bfloat16", quant="int8"), dict(dtype="float16"),
-               dict(dtype="float32", kv_dtype="bfloat16")):
+    for kw in (dict(dtype="float16"), dict(dtype="float32", kv_dtype="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Llama(w, preset("test-tiny", **kw), device=cuda)
     eng = Llama(w, preset("test-tiny", dtype="bfloat16"), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
         BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant="int8")

@@ -110,6 +110,59 @@ def test_ragged_cache_attention_int8_matches_jax(rng, mode):
     assert_allclose(got.numpy(), np.asarray(want), rtol=OPS_RTOL, atol=OPS_ATOL)
 
 
+@pytest.mark.parametrize("mode", ["plain", "append", "win0", "win1", "win3"])
+def test_ragged_cache_attention_int8_bf16_q_matches_jax(rng, mode):
+    """int8 caches under a bf16 q: the probabilities times the value scales
+    are rounded to q's dtype before P.V in the cache part as in the window
+    part, as the JAX op rounds them (ROADMAP C1).  bf16 output: 1e-2, two
+    bf16 ulps."""
+    nh, Q = 4, 3
+    q = normal(rng, B, 1, nh, HD)
+    (k8, ks), (v8, vs) = q8(normal(rng, B, KVH, M, HD)), q8(normal(rng, B, KVH, M, HD))
+    pos = np.array([0, 9, M - 1], np.int32)
+    kw = dict(k_scale=ks, v_scale=vs)
+    if mode != "plain":
+        (ck, cks), (cv, cvs) = q8(normal(rng, B, KVH, HD)), q8(normal(rng, B, KVH, HD))
+        kw.update(cur_k=ck, cur_v=cv, cur_ks=cks, cur_vs=cvs)
+    if mode.startswith("win"):
+        (wk, wks), (wv, wvs) = q8(normal(rng, B, KVH, Q, HD)), q8(normal(rng, B, KVH, Q, HD))
+        kw.update(win_k=wk, win_v=wv, win_ks=wks, win_vs=wvs)
+    jkw, tkw = _jt(kw)
+    count = int(mode[-1]) if mode.startswith("win") else None
+    want = jops.ragged_cache_attention(
+        jnp.asarray(q, jnp.bfloat16), *map(jnp.asarray, (k8, v8, pos)), **jkw,
+        **({"win_count": jnp.int32(count)} if count is not None else {}))
+    got = tops.ragged_cache_attention(t(q).to(torch.bfloat16), *map(t, (k8, v8, pos)),
+                                      **tkw, win_count=count)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_bf16_int8_kv_streams_do_not_depend_on_the_quantum(paged):
+    """bf16 activations, int8 weights and int8 KV (ROADMAP C1's case): the
+    capacity-1 engine's stream and its top log-probabilities at quantum 3
+    equal those at quantum 1, bit for bit, as the JAX engine's do; without
+    the cache part's rounding (the window part had it) they differ at every
+    token and this stream parts from the other."""
+    w = jsynth(jpreset("test-tiny"), seed=23)
+    eng = tllama.Llama(w, tpreset("test-tiny", dtype="bfloat16", quant="int8",
+                                  kv_quant="int8"), device="cpu")
+    prompt = np.random.default_rng(1).integers(3, 512, size=6).tolist()
+
+    def stream(quantum):
+        be = BatchEngine(eng, capacity=1, paged=paged, logprobs=1,
+                         **(dict(page_size=8) if paged else {}))
+        assert be.cache["k"].dtype == torch.int8
+        req = be.submit(prompt, 12, stop_ids=(), logprobs=1)
+        while not req.done:
+            be.step(quantum)
+        return req.generated, [top[0][1] for top in req.top_logprobs]
+
+    got = stream(1)
+    assert len(got[0]) == 12 and stream(3) == got
+
+
 @pytest.mark.parametrize("count", ["plain", None, 0, 2])
 def test_paged_attention_int8_matches_jax(rng, count):
     """The gather forms: `paged_attention` (plain) and
