@@ -8,51 +8,63 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the hand-written CUDA kernels from `llama3np_tpu_torch/csrc/`,
 holds each against its plain PyTorch version on the card at the shapes the
 main path gives it (stories15M, tinyllama-1.1b and llama3-8b widths; the
-decode and paged-attention kernels in their float32, int8 and bf16 modes,
-flash prefill and the greedy head in float32 and bf16), drives greedy
-generation end to end through the port's entry points (stories15M against
-the port's NumPy oracle; tinyllama-1.1b at full width and depth against the
-plain path on the same card), traces each model's prefill and a few
-decode tokens with torch.profiler (device time by kernel, device busy
-share), runs the CLI in float32 and bfloat16, then drives
-continuous-batching serving of tinyllama-1.1b at full width and depth over
-the paged KV cache (12 staggered requests at quanta 1 and 4 and with
-chunked admission, every served stream against its solo stream, exact
-launch counts, no leaked pages; the plain path's rate; a traced window of
-serving steps).  Then tinyllama-1.1b with int8 weights: greedy generation
-through the decode kernel's int8 mode (on grid-snapped weights against the
-fp32 kernel stream, on the synthetic weights against the int8 plain path),
-and serving with int8 weights and int8 KV through the paged kernel's int8
-mode (every stream against its capacity-1 stream), each traced.  Last,
+decode kernel in its float32, int8, bf16, fp16, int8/bf16 and int8/fp16
+modes, the paged-attention kernel over float32, bf16, fp16 and int8 pools,
+int8 under a float32, bf16 or fp16 q, flash prefill and the greedy head in
+float32, bf16 and fp16), drives greedy generation end to end through the
+port's entry points (stories15M against the port's NumPy oracle;
+tinyllama-1.1b at full width and depth against the plain path on the same
+card), traces each model's prefill and a few decode tokens with
+torch.profiler (device time by kernel, device busy share), runs the CLI in
+float32 and bfloat16, then drives continuous-batching serving of
+tinyllama-1.1b at full width and depth over the paged KV cache (12
+staggered requests at quanta 1 and 4 and with chunked admission, every
+served stream against its solo stream, exact launch counts, no leaked
+pages; the plain path's rate; a traced window of serving steps).  Then
+tinyllama-1.1b with int8 weights: greedy generation through the decode
+kernel's int8 mode (on grid-snapped weights against the fp32 kernel
+stream, on the synthetic weights against the int8 plain path), and serving
+with int8 weights and int8 KV through the paged kernel's int8 mode (every
+stream against its capacity-1 stream), each traced.  Then tinyllama-1.1b in
+float16 (generation against the plain path within the fp16 envelope,
+serving over fp16 pools and over int8 pools against capacity-1 streams)
+and with int8 weights under float16 activations (generation).  Then
 llama3-8b in bf16 at full width and depth: the engine's own loader over
-weights made on the card, the bf16 kernels at its shapes, greedy
-generation through flash prefill, the decode step and the greedy head
-against the plain path, and paged serving at quanta 1 and 4 against
-capacity-1 streams (bf16 streams may part at a near-tie: the first
-differing token must be one), each traced; then llama3-8b with int8
-weights under bf16 activations at full width and depth (the decode
+weights made on the card, the bf16 kernels (and the paged kernel's
+int8-under-bf16 mode) at its shapes, greedy generation through flash
+prefill, the decode step and the greedy head against the plain path, and
+paged serving at quanta 1 and 4 against capacity-1 streams, over bf16
+pools and over int8 pools (the pools' bytes a token and the 8,192-token
+rows that fit beside the weights), each traced (16-bit streams may part at
+a near-tie: the first differing token must be one); then llama3-8b with
+int8 weights under bf16 activations at full width and depth (the decode
 kernel's int8/bf16 mode against its twin, greedy generation against the
-plain path by the same rules, a trace with the plain int8 head's share).
-The greedy head is also re-timed against torch.matmul + torch.argmax in
-alternation at tinyllama-1.1b.  It prints one JSON line per phase, then
-the `kernels` line.  Any failure raises and exits non-zero; the last line,
-`{"ok": true, "device": {...}}`, is printed only when every phase passed.
-Without a CUDA device, or without the package beside it, it exits non-zero
-and prints no result.
+plain path by the same rules, a trace with the plain int8 head's share,
+serving with int8 KV); last, the fp16 kernel modes alone at llama3-8b's
+shapes.  The greedy head is also re-timed against torch.matmul +
+torch.argmax in alternation at tinyllama-1.1b.  It prints one JSON line
+per phase (each with `t_s`, the seconds since start), then the `kernels`
+line.  Any failure raises and exits non-zero; the last line, `{"ok": true,
+"device": {...}}`, is printed only when every phase passed.  Without a
+CUDA device, or without the package beside it, it exits non-zero and
+prints no result.
 
     python3 chip_smoke.py --decode-ab PARENT_DIR [MODEL:MODE[@POS,...] ...]
+    python3 chip_smoke.py --paged-ab PARENT_DIR
 
-runs only an A/B of the decode kernel: the one of the checkout unpacked at
-PARENT_DIR (e.g. `git archive` of the parent commit) against this one's,
-in one process, parent, change, change, parent at every shape of the
-decode phases, with each one's step breakdown from torch.profiler.
+run only an A/B of the decode kernel (or of the paged kernel): the one of
+the checkout unpacked at PARENT_DIR (e.g. `git archive` of the parent
+commit) against this one's, in one process, parent, change, change, parent
+at every shape of the decode phases, with each one's step breakdown from
+torch.profiler (the paged kernel: at llama3-8b's paged shapes, int8 pools
+under a bf16 and an fp16 q, and bf16 pools).
 
 Times are CUDA-event times on the card, after warm-up, averaged over many
 launches (flash prefill, the paged kernel, the greedy head and their
 library yardsticks queued behind a spin kernel, so the host's enqueue of
 each call does not bound them);
 bounds use the H100 SXM's published 3.35 TB/s, 67 TFLOP/s fp32 (TF32 stays
-off) and 989 TFLOP/s bf16.
+off) and 989 TFLOP/s bf16 and fp16.
 """
 
 from __future__ import annotations
@@ -67,11 +79,17 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
-BF16_FLOP_S = 989e12
+BF16_FLOP_S = 989e12  # bf16 and fp16 tensor cores alike
 PROMPT = [1, 76, 505, 263, 12561]  # "I have a dream" (reference tokenizer)
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; phase rows carry `t_s`, the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -84,7 +102,8 @@ def card_line() -> str:
 
 def bound(nbytes: float, flops: float, flop_s: float = FP32_FLOP_S):
     """Least time in ms for the work, and what bounds it: float32 work at
-    the 67 TFLOP/s fp32 peak, bf16 work at the 989 TFLOP/s bf16 peak."""
+    the 67 TFLOP/s fp32 peak, bf16 and fp16 work at the 989 TFLOP/s 16-bit
+    tensor-core peak."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -131,13 +150,28 @@ def queued_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     raise AssertionError("the card drained the queue before every call was enqueued")
 
 
+HALF_NAMES = {"torch.bfloat16": "bf16", "torch.float16": "fp16"}
+
+
+def dtype_name(dtype) -> str:
+    """fp32, bf16 or fp16."""
+    return HALF_NAMES.get(str(dtype), "fp32")
+
+
+def half_tol(dtype):
+    """(rtol, atol) of one rounding of an f32 result to `dtype`: two ulps
+    of bf16 (2^-8) or fp16 (2^-11); float32 kernels 1e-4 / 1e-5."""
+    return {"bf16": (1e-2, 1e-2), "fp16": (2e-3, 2e-3)}.get(dtype_name(dtype), (1e-4, 1e-5))
+
+
 def decode_mode(layers) -> str:
     """The decode kernel's mode for a layer tree: fp32, int8 (under f32
-    activations), bf16, or int8-bf16 (int8 weights under bf16 ones)."""
-    bf16 = str(layers["attn_norm"].dtype) == "torch.bfloat16"
+    activations), bf16 or fp16, int8-bf16 or int8-fp16 (int8 weights under
+    16-bit ones)."""
+    act = dtype_name(layers["attn_norm"].dtype)
     if "wqkv_scale" in layers:
-        return "int8-bf16" if bf16 else "int8"
-    return "bf16" if bf16 else "fp32"
+        return "int8" if act == "fp32" else f"int8-{act}"
+    return act
 
 
 def queue_reps(reps: int, launches_per_call: int, queue: int = 900) -> int:
@@ -181,9 +215,10 @@ class Smoke:
     # -- kernel phases ------------------------------------------------------
 
     def flash_phase(self, model: str, B, L, NH, KVH, HD, dtype=None):
-        """The flash kernel against its twin; bf16 outputs are compared in
-        f32 within two bf16 ulps (1e-2: the one rounding of an f32 result
-        whose sums ran in another order may land the other way).  `ms` and
+        """The flash kernel against its twin; bf16 and fp16 outputs are
+        compared in f32 within two ulps (bf16 1e-2, fp16 2e-3: the one
+        rounding of an f32 result whose sums ran in another order may land
+        the other way).  `ms` and
         `library_ms` (SDPA) are device times per call (`queued_ms`: the bf16
         kernel is shorter than the host's enqueue); `event_ms` the
         CUDA-event time of back-to-back calls."""
@@ -193,7 +228,7 @@ class Smoke:
             flash_prefill, flash_prefill_plain)
 
         dtype = dtype or torch.float32
-        bf16 = dtype == torch.bfloat16
+        half = dtype != torch.float32
         q = self.randn(B, L, NH, HD, dtype=dtype)
         k = self.randn(B, L, KVH, HD, dtype=dtype)
         v = self.randn(B, L, KVH, HD, dtype=dtype)
@@ -201,7 +236,7 @@ class Smoke:
         got = flash_prefill(q, k, v)
         torch.cuda.synchronize()
         want = flash_prefill_plain(q, k, v)
-        rtol, atol = (1e-2, 1e-2) if bf16 else (1e-4, 1e-5)
+        rtol, atol = half_tol(dtype)
         max_abs, max_rel = compare(torch, got, want, rtol, atol,
                                    f"flash_prefill {model} L={L}")
         reps = 200 if L <= 128 else 50
@@ -211,16 +246,17 @@ class Smoke:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                  enable_gqa=True)
-        compare(torch, lib_out.transpose(1, 2), want, *((2e-2, 2e-2) if bf16 else (1e-3, 1e-4)),
+        compare(torch, lib_out.transpose(1, 2), want, *(
+            (2 * rtol, 2 * atol) if half else (1e-3, 1e-4)),
                 "scaled_dot_product_attention yardstick")
         library_ms = queued_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps)
         flash_prefill.launches = launches  # comparison launches do not count
         flops = 4.0 * B * NH * HD * L * (L + 1) / 2
         nbytes = q.element_size() * (2 * B * L * NH * HD + 2 * B * L * KVH * HD)
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if bf16 else FP32_FLOP_S)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if half else FP32_FLOP_S)
         row = {"phase": "kernel", "kernel": "flash_prefill",
-               "mode": "bf16" if bf16 else "fp32", "model": model,
+               "mode": dtype_name(dtype), "model": model,
                "shape": {"B": B, "L": L, "NH": NH, "KVH": KVH, "HD": HD},
                "max_abs_err": max_abs, "max_rel_err": max_rel,
                "tol": {"rtol": rtol, "atol": atol}, "ms": ms, "event_ms": event_ms,
@@ -231,9 +267,10 @@ class Smoke:
         return row
 
     def decode_phase(self, model: str, layers, args, pos: int):
-        """The decode kernel against its plain twin; `layers` holds float32
-        or bf16 weights, or int8 weights with their scales (the int8 mode
-        under float32 norms, the int8/bf16 mode under bf16 norms).  `ms` is
+        """The decode kernel against its plain twin; `layers` holds float32,
+        bf16 or fp16 weights, or int8 weights with their scales (the int8
+        mode under float32 norms, the int8/bf16 or int8/fp16 mode under
+        16-bit norms).  `ms` is
         the device time per call queued behind a spin kernel
         (`queued_ms`: where the host's enqueue of a call's launches takes
         longer than the card, back-to-back events time the host);
@@ -243,8 +280,8 @@ class Smoke:
             decode_layers, decode_layers_plain)
 
         nl, kvh, M, hd = args.n_layers, args.kv_heads, args.max_seq_len, args.head_dim
-        bf16 = layers["attn_norm"].dtype == torch.bfloat16  # bf16 activations
-        dt = torch.bfloat16 if bf16 else torch.float32
+        dt = layers["attn_norm"].dtype  # the activations' dtype
+        half = dt != torch.float32
         kc = self.randn(nl, kvh, M, hd, dtype=dt)
         vc = self.randn(nl, kvh, M, hd, dtype=dt)
         x = self.randn(1, args.dim, scale=0.5, dtype=dt)
@@ -257,12 +294,12 @@ class Smoke:
         got, _, _ = decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)
         torch.cuda.synchronize()
         want, _, _ = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)
-        if bf16:
+        if half:
             # The twin rounds at the same points, but an f32 sum taken in
             # another order may round the other way at any of them, and the
             # 1-ulp flips compound through the layers (`by_depth` prints the
-            # kernel-vs-twin error over the first 1 and 8 layers).  So bf16
-            # is held normwise: kernel vs twin within 5e-2, and the kernel
+            # kernel-vs-twin error over the first 1 and 8 layers).  So 16-bit
+            # modes are held normwise: kernel vs twin within 5e-2, and the kernel
             # no farther (within 25 %) from the f32 function of the same
             # weights and inputs (no bf16 rounding inside; int8 weights
             # dequantized by their scales) than the twin.
@@ -325,7 +362,7 @@ class Smoke:
                   + kc.element_size() * (2 * args.dim + 2 * nl * kvh * hd * (pos + 1))
                   + 4.0 * hd)
         flops = 2.0 * w_elems + 4.0 * nl * args.n_heads * hd * (pos + 1)
-        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if bf16 else FP32_FLOP_S)
+        bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if half else FP32_FLOP_S)
         row = {"phase": "kernel", "kernel": "decode_layers", "mode": mode, "model": model,
                "shape": {"NL": nl, "D": args.dim, "NH": args.n_heads,
                          "KVH": kvh, "HD": hd, "FD": args.hidden_dim, "M": M,
@@ -340,15 +377,16 @@ class Smoke:
 
     def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
                     Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3,
-                    quant: bool = False, bf16: bool = False, case: str = "skewed"):
+                    quant: bool = False, dtype=None, case: str = "skewed"):
         """The paged-attention kernel against its plain twin in its three
         modes (plain, stacked with the current column, window at win_count
         0, 1 and Q), on shuffled block tables with null-page padding, and
         an overrun row; `quant` runs the int8-pool mode (pools, rows and
         window quantized per token and KV head, with their scales) and
-        also fills the scale slots no row may read with NaN/inf; `bf16` the
-        bf16 mode (q, pools and rows in bf16, compared in f32 within two
-        bf16 ulps of the output: 1e-2).  Timing
+        also fills the scale slots no row may read with NaN/inf; `dtype`
+        is q's (bf16 or fp16: the 16-bit modes, q, pools and rows in that
+        dtype, or with `quant` int8 pools under that q), compared in f32
+        within two ulps of the output (bf16 1e-2, fp16 2e-3).  Timing
         rotates over NL layers of pools (more than the 50 MB L2), as a
         decode step's layers find their pools cold.  `ms` is the device
         time per call (the attention kernel and the merge, `queued_ms`);
@@ -369,7 +407,7 @@ class Smoke:
             bt[b, min(p // page + 1, maxp):] = 0
         bt = bt.to("cuda")
         pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-        dt = torch.bfloat16 if bf16 else torch.float32
+        dt = dtype or torch.float32
         q = self.randn(B, 1, NH, HD, dtype=dt)
         kp = self.randn(NL, P, KVH, page, HD, dtype=dt)
         vp = self.randn(NL, P, KVH, page, HD, dtype=dt)
@@ -405,7 +443,7 @@ class Smoke:
                 return fn(*a, **kw)
             return run
 
-        rtol, atol = (1e-2, 1e-2) if bf16 else (1e-4, 1e-5)
+        rtol, atol = half_tol(dt)
         launches = paged_attention.launches
         modes = {}
         for mode in ("plain", "stacked", "window0", "window1", f"window{Q}"):
@@ -473,8 +511,10 @@ class Smoke:
                 raise AssertionError(f"paged_attention int8 {model}: masked scale "
                                      "slots changed the output")
         paged_attention.launches = launches  # comparison launches do not count
-        row = {"phase": "kernel", "kernel": "paged_attention",
-               "mode": "int8" if quant else "bf16" if bf16 else "fp32", "model": model,
+        mode = dtype_name(dt)
+        if quant:
+            mode = "int8" if mode == "fp32" else f"int8-{mode}"
+        row = {"phase": "kernel", "kernel": "paged_attention", "mode": mode, "model": model,
                "case": case,
                "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
                          "maxp": maxp, "P": P, "pos": pos_list, "Q": Q, "NL": NL},
@@ -492,7 +532,7 @@ class Smoke:
         block 0 and the first of block 1, each summing to exactly 32: the
         lower one must win).  `ms` is the device time per call (both
         launches, `queued_ms`); `library_ms` one torch.matmul
-        + torch.argmax (in w's dtype: bf16 rounds the logits), a yardstick
+        + torch.argmax (in w's dtype: bf16 or fp16 rounds the logits), a yardstick
         the port never calls."""
         torch = self.torch
         from llama3np_tpu_torch.ops.kernels.greedy_head import (
@@ -522,10 +562,10 @@ class Smoke:
         plain_ms = time_ms(torch, lambda: argmax_head_plain(x, w), 10, warmup=1)
         library_ms = queued_ms(torch, lambda: torch.argmax(torch.matmul(x, w), dim=-1), 50)
         argmax_head.launches = launches  # comparison launches do not count
-        bf16 = w.dtype == torch.bfloat16
+        half = w.dtype != torch.float32
         nbytes = w.element_size() * (D * VS + D) + 8.0
-        bound_ms, bound_by = bound(nbytes, 2.0 * D * VS, BF16_FLOP_S if bf16 else FP32_FLOP_S)
-        row = {"phase": "kernel", "kernel": "argmax_head", "mode": "bf16" if bf16 else "fp32",
+        bound_ms, bound_by = bound(nbytes, 2.0 * D * VS, BF16_FLOP_S if half else FP32_FLOP_S)
+        row = {"phase": "kernel", "kernel": "argmax_head", "mode": dtype_name(w.dtype),
                "model": model, "shape": {"D": D, "VS": VS}, "rows_equal": n_x,
                "tie_across_blocks_ok": True, "max_abs_err": 0.0, "tol": "exact token",
                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
@@ -854,6 +894,126 @@ class CardWeights:
 # the repo's bf16 envelope, tests/test_dtype.py's 0.15 x max(1, max
 # |logits|).
 E8B_ENVELOPE = 0.15
+# float16 models (tinyllama-1.1b): tests/test_dtype.py's fp16 envelope,
+# 0.02 x max(1, max |logits|); int8 weights under fp16 activations round
+# the activation to bf16 before each int8 product on the kernel path (the
+# TPU kernel's `_wdot`) and not on the plain path, so they take the bf16
+# envelope above.
+F16_ENVELOPE = 0.02
+# The paged kernel's skewed row mix at llama3-8b (8 rows, 16-token pages,
+# tables of 512 pages).
+SKEWED_8B = [0, 15, 16, 255, 500, 1023, 4000, 8191]
+
+
+def pool_capacity(torch, eng, card, max_len: int = 8192):
+    """The paged pool's bytes a token for the engine's float KV and for
+    int8 KV, measured from allocated pools (`init_paged_cache`, 64 pages
+    of 16: K, V and, in int8, their f32 scales, every layer), and how many
+    `max_len`-token rows each fits in the card's free memory with the
+    engine loaded (its weights and its batch-1 dense cache)."""
+    from llama3np_tpu_torch.kvcache import init_paged_cache
+
+    per_token = {}
+    for kv_quant in (None, "int8"):
+        pools = init_paged_cache(eng.args, 64, 16, quant=kv_quant, device="cuda")
+        nbytes = sum(t.numel() * t.element_size() for t in pools.values())
+        per_token[kv_quant or eng.args.kv_dtype] = nbytes / (64 * 16)
+        del pools
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {"phase": "pool_capacity", "model": "llama3-8b", "pool_bytes_per_token": per_token,
+            "free_gb": free / 1e9, "total_gb": total / 1e9,
+            "device_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+            "row_tokens": max_len,
+            "rows_that_fit": {k: int(free // (v * max_len)) for k, v in per_token.items()},
+            "card": card}
+
+
+def serve_vs_solo(torch, model: str, eng, workload, runs, limit, card, kv_quant=None,
+                  **tags):
+    """Paged serving of `workload` (`serve`) at each (run, quantum) of
+    `runs`, every stream against its capacity-1 stream (`solo_serve`) by
+    the near-tie rule under `limit`; exact launch counts (flash once a
+    layer an admission, the paged kernel once a layer a decode step), all
+    pages back.  Returns each run's launch counts."""
+    nl = eng.args.n_layers
+    solo, gaps = solo_serve(eng, workload, kv_quant, margins=True)
+    out = {}
+    for run, quantum in runs:
+        reset_counters()  # the main path: serving through the kernels
+        streams, st = serve(torch, eng, workload, quantum, kv_quant=kv_quant)
+        counts = counters()
+        what = f"{model} serving {run} kv_quant={kv_quant}"
+        rules = [near_tie(g, w, lambda i, m=m: m[i], limit, f"{what} request {r}")
+                 for r, (g, w, m) in enumerate(zip(streams, solo, gaps))]
+        expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
+                  "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
+        if counts != expect or st["admissions"] != len(workload):
+            raise AssertionError(f"{what} launch counts {counts}, expected {expect} "
+                                 f"({st['admissions']} admissions)")
+        out[run] = counts
+        emit({"phase": "e2e", "model": model, "path": "serving", **tags, "run": run, **st,
+              "launches": counts,
+              "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
+              "near_ties": [dict(request=i, **r) for i, r in enumerate(rules)
+                            if r["first_diff"] is not None],
+              "near_tie_limit": limit, "pages_leaked": 0, "card": card})
+    return out
+
+
+def generate_vs_plain(torch, model: str, eng, prompt, n_tok: int, envelope: float,
+                      card, **tags):
+    """Greedy generation through the kernels against the plain path on the
+    same weights: exact launch counts (flash once a layer, the decode
+    kernel and, for a float lm_head, the greedy head once a token after
+    the first); last-prompt logits finite, within `envelope` x max(1, max
+    |logits|) of the plain path's, top-1 equal; the stream equal or parted
+    at a near-tie under twice the logits' max-abs error.  Returns the
+    launch counts and the near-tie limit."""
+    import numpy as np
+
+    from llama3np_tpu_torch.observability import timed_generate
+
+    nl = eng.args.n_layers
+    reset_counters()  # the main path: greedy generation through the kernels
+    toks_k = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    counts = counters()
+    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
+              "argmax_head": 0 if "lm_head_scale" in eng.params else n_tok - 1}
+    if counts != expect:
+        raise AssertionError(f"{model} {tags} launch counts {counts}, expected {expect}")
+    logits_k = torch.from_numpy(eng(prompt, 0))
+    twin = plain_twin(eng)
+    toks_x = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    logits_x = torch.from_numpy(twin(prompt, 0))
+    if not torch.isfinite(logits_k).all():
+        raise AssertionError(f"non-finite {model} {tags} logits")
+    l_abs = (logits_k - logits_x).abs().max().item()
+    l_scale = max(1.0, logits_x.abs().max().item())
+    if l_abs > envelope * l_scale or \
+            int(logits_k[0, -1].argmax()) != int(logits_x[0, -1].argmax()):
+        raise AssertionError(f"{model} {tags} kernel vs plain logits: max abs err {l_abs} "
+                             f"(envelope {envelope * l_scale}) or top-1 differs")
+    limit = 2 * l_abs
+
+    def plain_margin(i):  # the plain path's top-2 margin before token i
+        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
+        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
+        return float(top[0] - top[1])
+
+    rule = near_tie(toks_k, toks_x, plain_margin, limit, f"{model} {tags} greedy stream")
+    k_stats = timed_generate(eng, prompt, 64)[1]
+    x_stats = timed_generate(twin, prompt, 64)[1]
+    emit({"phase": "e2e", "model": model, **tags, "prompt_tokens": int(prompt.shape[1]),
+          "launches": counts, "stream_vs_plain": rule, "near_tie_limit": limit,
+          "logits_max_abs_err": l_abs, "logits_max_abs": l_scale,
+          "logits_envelope": envelope * l_scale,
+          "kernels": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
+          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
+          "timed_tokens": 64, "card": card})
+    del twin
+    torch.cuda.empty_cache()
+    return counts, limit
 
 
 def llama3_8b_phases(torch, smoke, card):
@@ -869,7 +1029,6 @@ def llama3_8b_phases(torch, smoke, card):
 
     from llama3np_tpu_torch import preset
     from llama3np_tpu_torch.models.llama import Llama
-    from llama3np_tpu_torch.observability import timed_generate
 
     args = preset("llama3-8b")
     nl, bf16 = args.n_layers, torch.bfloat16
@@ -890,77 +1049,38 @@ def llama3_8b_phases(torch, smoke, card):
     rows["decode_layers"] = smoke.decode_phase("llama3-8b", eng.params["layers"], args, 511)
     smoke.decode_phase("llama3-8b", eng.params["layers"], args, 8191)
     rows["paged_attention"] = smoke.paged_phase(
-        "llama3-8b", 8, *shape, 16, 512, [0, 15, 16, 255, 500, 1023, 4000, 8191], bf16=True)
-    smoke.paged_phase("llama3-8b", 8, *shape, 16, 512, [4096] * 8, bf16=True, case="equal")
+        "llama3-8b", 8, *shape, 16, 512, SKEWED_8B, dtype=bf16)
+    smoke.paged_phase("llama3-8b", 8, *shape, 16, 512, [4096] * 8, dtype=bf16, case="equal")
+    # int8 pools under a bf16 q: the 8B int8-KV serving cell's kernel mode.
+    rows["paged_attention_i8"] = smoke.paged_phase(
+        "llama3-8b", 8, *shape, 16, 512, SKEWED_8B, quant=True, dtype=bf16)
+    smoke.paged_phase("llama3-8b", 8, *shape, 16, 512, [4096] * 8, quant=True, dtype=bf16,
+                      case="equal")
     torch.cuda.empty_cache()
 
     # Greedy generation: the main path through the four kernels.
     prompt = np.random.default_rng(0).integers(3, args.vocab_size, size=(1, 500))
-    n_tok = 32
-    reset_counters()
-    toks_k = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
-    gen_counts = counters()
-    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
-              "argmax_head": n_tok - 1}
-    if gen_counts != expect:
-        raise AssertionError(f"llama3-8b launch counts {gen_counts}, expected {expect}")
-    logits_k = torch.from_numpy(eng(prompt, 0))  # ragged L=500 prefill
-    twin = plain_twin(eng)
-    toks_x = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
-    logits_x = torch.from_numpy(twin(prompt, 0))
-    if not torch.isfinite(logits_k).all():
-        raise AssertionError("non-finite llama3-8b logits")
-    l_abs = (logits_k - logits_x).abs().max().item()
-    l_scale = max(1.0, logits_x.abs().max().item())
-    if l_abs > E8B_ENVELOPE * l_scale or int(logits_k[0, -1].argmax()) != int(logits_x[0, -1].argmax()):
-        raise AssertionError(f"llama3-8b kernel vs plain logits: max abs err {l_abs} "
-                             f"(envelope {E8B_ENVELOPE * l_scale}) or top-1 differs")
-    limit = 2 * l_abs
-
-    def plain_margin(i):  # the plain path's top-2 margin before token i
-        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
-        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
-        return float(top[0] - top[1])
-
-    gen_rule = near_tie(toks_k, toks_x, plain_margin, limit, "llama3-8b greedy stream")
-    k_stats = timed_generate(eng, prompt, 64)[1]
-    x_stats = timed_generate(twin, prompt, 64)[1]
-    emit({"phase": "e2e", "model": "llama3-8b", "dtype": "bfloat16", "prompt_tokens": 500,
-          "launches": gen_counts, "stream_vs_plain": gen_rule, "near_tie_limit": limit,
-          "logits_max_abs_err": l_abs, "logits_max_abs": l_scale,
-          "logits_envelope": E8B_ENVELOPE * l_scale,
-          "kernels": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
-          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
-          "timed_tokens": 64, "card": card})
+    gen_counts, limit = generate_vs_plain(torch, "llama3-8b", eng, prompt, 32, E8B_ENVELOPE,
+                                          card, dtype="bfloat16")
     emit(profile_phase(torch, "llama3-8b", eng, prompt, card))
-    del twin
-    torch.cuda.empty_cache()
 
     # Serving: bf16 pools at quanta 1 and 4, against capacity-1 streams.
     workload = serve_workload(args.vocab_size)
-    solo, gaps = solo_serve(eng, workload, None, margins=True)
-    paths = {name: {"generate": n} for name, n in gen_counts.items()}
-    for run, quantum in (("q1", 1), ("q4", 4)):
-        reset_counters()  # the main path: serving through the kernels
-        streams, st = serve(torch, eng, workload, quantum)
-        counts = counters()
-        rules = [near_tie(g, w, lambda i, m=m: m[i], limit,
-                          f"llama3-8b serving {run} request {r}")
-                 for r, (g, w, m) in enumerate(zip(streams, solo, gaps))]
-        expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
-                  "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
-        if counts != expect or st["admissions"] != len(workload):
-            raise AssertionError(f"llama3-8b serving {run} launch counts {counts}, "
-                                 f"expected {expect} ({st['admissions']} admissions)")
-        for name, n in counts.items():
-            paths[name]["serve_" + run] = n
-        emit({"phase": "e2e", "model": "llama3-8b", "path": "serving", "dtype": "bfloat16",
-              "run": run, **st, "launches": counts,
-              "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
-              "near_ties": [dict(request=i, **r) for i, r in enumerate(rules)
-                            if r["first_diff"] is not None],
-              "near_tie_limit": limit, "pages_leaked": 0, "card": card})
+    served = serve_vs_solo(torch, "llama3-8b", eng, workload, (("q1", 1), ("q4", 4)), limit,
+                           card, dtype="bfloat16")
+    paths = {name: {"generate": n, **{"serve_" + run: c[name] for run, c in served.items()}}
+             for name, n in gen_counts.items()}
     emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card))
+
+    # Serving with int8 KV (int8 pools under the bf16 q) at quanta 1 and 4,
+    # against capacity-1 int8-KV streams; the pools' bytes a token and the
+    # 8,192-token rows that fit beside the weights.
+    emit(pool_capacity(torch, eng, card))
+    i8 = serve_vs_solo(torch, "llama3-8b", eng, workload, (("q1", 1), ("q4", 4)), limit,
+                       card, kv_quant="int8", dtype="bfloat16", kv="int8")
+    paths["paged_attention_i8"] = {"serve_q1": i8["q1"]["paged_attention"],
+                                   "serve_q4": i8["q4"]["paged_attention"]}
+    emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card, kv_quant="int8"))
     del eng
     torch.cuda.empty_cache()
     return rows, paths
@@ -1147,12 +1267,13 @@ def decode_breakdown(torch, fn, calls: int = 8):
 def card_layers(torch, args, mode: str, seed: int = 0, scale: float = 0.02):
     """A fused whole-layer decode tree of `args` made on the card from a
     seeded card generator, layer by layer: weights normal x scale, norms
-    1 + that; fp32 or bf16 weights, or int8 ones quantized per output
-    column (scale = max |w| / 127) under f32 or bf16 norms."""
+    1 + that; fp32, bf16 or fp16 weights, or int8 ones quantized per
+    output column (scale = max |w| / 127) under f32, bf16 or fp16 norms."""
     g = torch.Generator("cuda").manual_seed(seed)
     nl, d, fd = args.n_layers, args.dim, args.hidden_dim
     qd, kvd = args.n_heads * args.head_dim, args.kv_heads * args.head_dim
-    act = torch.bfloat16 if mode in ("bf16", "int8-bf16") else torch.float32
+    act = {"bf16": torch.bfloat16, "fp16": torch.float16}.get(mode.split("-")[-1],
+                                                              torch.float32)
     int8 = mode.startswith("int8")
     out = {n: (1 + scale * torch.randn(nl, 1, d, generator=g, device="cuda")).to(act)
            for n in ("attn_norm", "ffn_norm")}
@@ -1175,9 +1296,10 @@ def card_layers(torch, args, mode: str, seed: int = 0, scale: float = 0.02):
     return out
 
 
-def load_parent(parent_dir: str):
-    """The decode wrapper of another checkout of the port (its own kernel
-    sources and build directory), imported as the package `l3t_parent`."""
+def load_parent(parent_dir: str, module: str = "decode_step"):
+    """A kernel wrapper module (`ops.kernels.<module>`) of another checkout
+    of the port (its own kernel sources and build directory), imported
+    from the package `l3t_parent`."""
     import importlib
     import importlib.util
 
@@ -1187,7 +1309,7 @@ def load_parent(parent_dir: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["l3t_parent"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("l3t_parent.ops.kernels.decode_step")
+    return importlib.import_module(f"l3t_parent.ops.kernels.{module}")
 
 
 def decode_ab(torch, parent_dir: str, card: str, only=()):
@@ -1263,6 +1385,68 @@ def decode_ab(torch, parent_dir: str, card: str, only=()):
     return rows
 
 
+def paged_ab(torch, parent_dir: str, card: str):
+    """The paged kernel of the checkout at `parent_dir` against this one's,
+    in one process on one card: llama3-8b's paged shapes (B=8, page 16,
+    tables of 512 pages; skewed rows and 8 rows at 4,096), stacked mode,
+    int8 pools under a bf16 and an fp16 q and bf16 pools, the same inputs,
+    device time per call queued behind a spin kernel (`queued_ms`, 8
+    layers of pools in rotation) in the order parent, change, change,
+    parent, and the largest difference of the two outputs."""
+    from llama3np_tpu_torch.ops.core import quantize_kv_rows
+    from llama3np_tpu_torch.ops.kernels import paged_attention as new
+
+    old = load_parent(parent_dir, "paged_attention")
+    B, NH, KVH, HD, page, maxp, NL = 8, 32, 8, 128, 16, 512, 8
+    g = torch.Generator("cuda").manual_seed(3)
+    rows = []
+    for case, pos_list in (("skewed", SKEWED_8B), ("equal", [4096] * 8)):
+        P = 1 + B * maxp
+        bt = (torch.randperm(P - 1, generator=g, device="cuda")[: B * maxp] + 1)
+        bt = bt.reshape(B, maxp).to(torch.int32)
+        for b, p in enumerate(pos_list):
+            bt[b, min(p // page + 1, maxp):] = 0
+        pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+        for mode in ("int8-bf16", "int8-fp16", "bf16"):
+            qdt = torch.float16 if mode.endswith("fp16") else torch.bfloat16
+            kv = [torch.randn(NL, P, KVH, page, HD, generator=g, device="cuda").to(qdt)
+                  for _ in range(2)]
+            cur = [torch.randn(B, KVH, HD, generator=g, device="cuda").to(qdt)
+                   for _ in range(2)]
+            kw = {}
+            if mode.startswith("int8"):
+                (kp, ks), (vp, vs) = quantize_kv_rows(kv[0]), quantize_kv_rows(kv[1])
+                (ck, cks), (cv, cvs) = quantize_kv_rows(cur[0]), quantize_kv_rows(cur[1])
+                kw = dict(k_scale=ks, v_scale=vs, cur_ks=cks, cur_vs=cvs)
+            else:
+                kp, vp, (ck, cv) = kv[0], kv[1], cur
+            del kv
+            q = torch.randn(B, 1, NH, HD, generator=g, device="cuda").to(qdt)
+            it = itertools.count()
+
+            def call(mod, layer=None):
+                def run():
+                    li = next(it) % NL if layer is None else layer
+                    return mod.paged_attention(q, kp, vp, bt, pos, layer=li, cur_k=ck,
+                                               cur_v=cv, **kw)
+                return run
+            outs = {who: call(mod, 1)() for who, mod in (("parent", old), ("change", new))}
+            torch.cuda.synchronize()
+            series = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                series[who].append(queued_ms(torch, call(old if who == "parent" else new), 50))
+            row = {"phase": "paged_ab", "model": "llama3-8b", "mode": mode, "case": case,
+                   "ms": series, "change_vs_parent_max_abs":
+                   (outs["change"].float() - outs["parent"].float()).abs().max().item(),
+                   "card": card}
+            emit(row)
+            rows.append(row)
+            del kp, vp
+            torch.cuda.empty_cache()
+    new.paged_attention.launches = 0
+    return rows
+
+
 def head_alternation(torch, smoke, w, rounds: int = 6):
     """The greedy head against one torch.matmul + torch.argmax on the same
     lm_head and row, alternated `rounds` times (kernel, library, library,
@@ -1305,7 +1489,6 @@ def llama3_8b_int8_phases(torch, smoke, card):
 
     from llama3np_tpu_torch import preset
     from llama3np_tpu_torch.models.llama import Llama
-    from llama3np_tpu_torch.observability import timed_generate
 
     args = preset("llama3-8b", quant="int8")
     nl = args.n_layers
@@ -1327,45 +1510,9 @@ def llama3_8b_int8_phases(torch, smoke, card):
     torch.cuda.empty_cache()
 
     prompt = np.random.default_rng(0).integers(3, args.vocab_size, size=(1, 500))
-    n_tok = 32
-    reset_counters()  # the main path: int8 greedy generation through the kernels
-    toks_k = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
-    counts = counters()
-    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
-              "argmax_head": 0}
-    if counts != expect:
-        raise AssertionError(f"llama3-8b int8 launch counts {counts}, expected {expect}")
-    logits_k = torch.from_numpy(eng(prompt, 0))
-    twin = plain_twin(eng)
-    toks_x = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
-    logits_x = torch.from_numpy(twin(prompt, 0))
-    if not torch.isfinite(logits_k).all():
-        raise AssertionError("non-finite llama3-8b int8 logits")
-    l_abs = (logits_k - logits_x).abs().max().item()
-    l_scale = max(1.0, logits_x.abs().max().item())
-    if l_abs > E8B_ENVELOPE * l_scale or \
-            int(logits_k[0, -1].argmax()) != int(logits_x[0, -1].argmax()):
-        raise AssertionError(f"llama3-8b int8 kernel vs plain logits: max abs err {l_abs} "
-                             f"(envelope {E8B_ENVELOPE * l_scale}) or top-1 differs")
-    limit = 2 * l_abs
-
-    def plain_margin(i):  # the plain path's top-2 margin before token i
-        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
-        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
-        return float(top[0] - top[1])
-
-    rule = near_tie(toks_k, toks_x, plain_margin, limit, "llama3-8b int8 greedy stream")
-    k_stats = timed_generate(eng, prompt, 64)[1]
-    x_stats = timed_generate(twin, prompt, 64)[1]
-    emit({"phase": "e2e", "model": "llama3-8b", "quant": "int8", "dtype": "bfloat16",
-          "prompt_tokens": 500, "launches": counts, "stream_vs_plain": rule,
-          "near_tie_limit": limit, "logits_max_abs_err": l_abs, "logits_max_abs": l_scale,
-          "logits_envelope": E8B_ENVELOPE * l_scale,
-          "kernels": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
-          "plain": {"prefill_ms": x_stats.prefill_ms, "decode_tok_s": x_stats.decode_tok_s},
-          "timed_tokens": 64, "card": card})
-    del twin
-    torch.cuda.empty_cache()
+    # The main path: int8 greedy generation through the kernels.
+    counts, limit = generate_vs_plain(torch, "llama3-8b", eng, prompt, 32, E8B_ENVELOPE,
+                                      card, quant="int8", dtype="bfloat16")
     prof = profile_phase(torch, "llama3-8b-int8", eng, prompt, card)
     dec = prof["decode"]["device_ms_by_kind"]
     total = sum(dec.values()) or 1.0
@@ -1374,9 +1521,88 @@ def llama3_8b_int8_phases(torch, smoke, card):
     # runs a GEMM or a cast.
     prof["decode"]["plain_head_share"] = (dec.get("gemm", 0.0) + dec.get("copy_cast", 0.0)) / total
     emit(prof)
+    # Serving with int8 weights and int8 KV under bf16 activations, quantum 1.
+    i8 = serve_vs_solo(torch, "llama3-8b", eng, serve_workload(args.vocab_size), (("q1", 1),),
+                       limit, card, kv_quant="int8", quant="int8", dtype="bfloat16", kv="int8")
     del eng
     torch.cuda.empty_cache()
-    return row, {"decode_layers": {"generate": counts["decode_layers"]}}
+    return row, {"decode_layers": {"generate": counts["decode_layers"]},
+                 "paged_attention_i8": {"serve_q1_int8_weights": i8["q1"]["paged_attention"]}}
+
+
+def fp16_phases(torch, smoke, args, weights, prompt, workload, card):
+    """tinyllama-1.1b in float16 at full width and depth: the four kernels'
+    fp16 modes and the paged kernel's int8-under-fp16 mode against their
+    twins at its shapes; greedy generation against the plain path (the
+    fp16 envelope, near-tie rule), serving over fp16 pools and over int8
+    pools at quantum 1 against capacity-1 streams; then int8 weights under
+    fp16 activations: the decode kernel's int8/fp16 mode against its twin,
+    and greedy generation against the plain path (the bf16 envelope: the
+    kernel rounds the activation to bf16 before an int8 product).  Returns
+    the kernel rows and each one's launches on its path."""
+    from llama3np_tpu_torch.models.llama import Llama
+
+    f16, model = torch.float16, "tinyllama-1.1b"
+    h_args = args.replace(dtype="float16", kv_dtype=None).validate()  # fp16 caches too
+    shape = (args.n_heads, args.kv_heads, args.head_dim)
+    skewed = [0, 15, 16, 255, 500, 1023, 1500, 2047]
+    eng = Llama(weights, h_args, device="cuda")
+    rows = {"flash_prefill": smoke.flash_phase(model, 1, 512, *shape, dtype=f16)}
+    smoke.decode_phase(model, eng.params["layers"], h_args, 0)
+    rows["decode_layers"] = smoke.decode_phase(model, eng.params["layers"], h_args, 511)
+    rows["argmax_head"] = smoke.argmax_phase(model, eng.params["lm_head"])
+    rows["paged_attention"] = smoke.paged_phase(model, 8, *shape, 16, args.max_seq_len // 16,
+                                                skewed, NL=22, dtype=f16)
+    rows["paged_attention_i8"] = smoke.paged_phase(
+        model, 8, *shape, 16, args.max_seq_len // 16, skewed, NL=22, quant=True, dtype=f16)
+    gen, limit = generate_vs_plain(torch, model, eng, prompt, 32, F16_ENVELOPE, card,
+                                   dtype="float16")
+    emit(profile_phase(torch, "tinyllama-1.1b-fp16", eng, prompt, card))
+    serve_f = serve_vs_solo(torch, model, eng, workload, (("q1", 1),), limit, card,
+                            dtype="float16")
+    serve_i = serve_vs_solo(torch, model, eng, workload, (("q1", 1),), limit, card,
+                            kv_quant="int8", dtype="float16", kv="int8")
+    del eng
+    torch.cuda.empty_cache()
+    q_eng = Llama(weights, h_args.replace(quant="int8"), device="cuda")
+    rows["decode_layers_i8"] = smoke.decode_phase(model, q_eng.params["layers"], h_args, 511)
+    q_gen, _ = generate_vs_plain(torch, model, q_eng, prompt, 32, E8B_ENVELOPE, card,
+                                 dtype="float16", quant="int8")
+    del q_eng
+    torch.cuda.empty_cache()
+    paths = {"flash_prefill": {"serve_q1": serve_f["q1"]["flash_prefill"],
+                               "generate": gen["flash_prefill"]},
+             "decode_layers": {"generate": gen["decode_layers"]},
+             "argmax_head": {"generate": gen["argmax_head"]},
+             "paged_attention": {"serve_q1": serve_f["q1"]["paged_attention"]},
+             "paged_attention_i8": {"serve_q1": serve_i["q1"]["paged_attention"]},
+             "decode_layers_i8": {"generate": q_gen["decode_layers"]}}
+    return rows, paths
+
+
+def fp16_8b_shapes(torch, smoke):
+    """The fp16 kernel modes at llama3-8b's shapes, alone (no 8B fp16
+    engine is built): flash at L=512, the greedy head on a 4096 x 128,256
+    lm_head, the decode kernel's fp16 and int8/fp16 modes on 32 layers
+    made on the card (`card_layers`) at pos 511, the paged kernel over fp16
+    pools and over int8 pools under an fp16 q (skewed rows)."""
+    from llama3np_tpu_torch import preset
+
+    f16, model = torch.float16, "llama3-8b"
+    args = preset("llama3-8b", dtype="float16")
+    shape = (args.n_heads, args.kv_heads, args.head_dim)
+    smoke.flash_phase(model, 1, 512, *shape, dtype=f16)
+    w = smoke.randn(args.dim, args.vocab_size, scale=0.02, dtype=f16)
+    smoke.argmax_phase(model, w)
+    del w
+    for mode in ("fp16", "int8-fp16"):
+        layers = card_layers(torch, args, mode)
+        smoke.decode_phase(model, layers, args, 511)
+        del layers
+        torch.cuda.empty_cache()
+    smoke.paged_phase(model, 8, *shape, 16, 512, SKEWED_8B, dtype=f16)
+    smoke.paged_phase(model, 8, *shape, 16, 512, SKEWED_8B, quant=True, dtype=f16)
+    torch.cuda.empty_cache()
 
 
 def synthetic_vocab(path: str, size: int, seed: int = 0):
@@ -1431,6 +1657,11 @@ def main() -> int:
         # The decode kernel of another checkout (a `git archive` of the
         # parent commit) against this one's, then nothing else.
         decode_ab(torch, sys.argv[2], card, sys.argv[3:])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--paged-ab":
+        # The paged kernel of another checkout against this one's at
+        # llama3-8b's shapes, then nothing else.
+        paged_ab(torch, sys.argv[2], card)
         return 0
     t0 = time.perf_counter()
     _build.KernelLibrary.get()
@@ -1604,6 +1835,9 @@ def main() -> int:
     # ---- tinyllama-1.1b with int8 weights and int8 KV ----------------------
     decode_i8, paged_i8, i8_paths = int8_phases(torch, smoke, t_args, t_weights, prompt,
                                                 workload, card)
+
+    # ---- tinyllama-1.1b in float16, and int8 weights under float16 ----------
+    h_rows, h_paths = fp16_phases(torch, smoke, t_args, t_weights, prompt, workload, card)
     del t_weights  # host memory for the 8B staging
     import gc
     gc.collect()
@@ -1614,6 +1848,9 @@ def main() -> int:
 
     # ---- llama3-8b with int8 weights under bf16 activations ----------------
     q8_row, q8_paths = llama3_8b_int8_phases(torch, smoke, card)
+
+    # ---- the fp16 kernel modes at llama3-8b's shapes ------------------------
+    fp16_8b_shapes(torch, smoke)
 
     # ---- summary --------------------------------------------------------------
     sources = {"flash_prefill": ("llama3np_tpu_torch/csrc/flash_prefill.cu",
@@ -1640,7 +1877,11 @@ def main() -> int:
               ("decode_layers", "bf16"): "pr6", ("decode_layers", "int8-bf16"): "pr6",
               ("paged_attention", "fp32"): "pr5",
               ("paged_attention", "int8"): "pr5", ("paged_attention", "bf16"): "pr5",
-              ("argmax_head", "bf16"): "pr4"}
+              ("argmax_head", "bf16"): "pr4",
+              ("paged_attention", "int8-bf16"): "pr7", ("paged_attention", "int8-fp16"): "pr7",
+              ("paged_attention", "fp16"): "pr7", ("flash_prefill", "fp16"): "pr7",
+              ("decode_layers", "fp16"): "pr7", ("decode_layers", "int8-fp16"): "pr7",
+              ("argmax_head", "fp16"): "pr7"}
 
     def stacked(row):  # the paged kernel's stacked mode stands for the row
         return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
@@ -1655,7 +1896,15 @@ def main() -> int:
                        (b_rows["decode_layers"], b_paths["decode_layers"]),
                        (stacked(b_rows["paged_attention"]), b_paths["paged_attention"]),
                        (b_rows["argmax_head"], b_paths["argmax_head"]),
-                       (q8_row, q8_paths["decode_layers"])):
+                       (q8_row, q8_paths["decode_layers"]),
+                       (stacked(b_rows["paged_attention_i8"]),
+                        {**b_paths["paged_attention_i8"], **q8_paths["paged_attention_i8"]}),
+                       (h_rows["flash_prefill"], h_paths["flash_prefill"]),
+                       (h_rows["decode_layers"], h_paths["decode_layers"]),
+                       (h_rows["argmax_head"], h_paths["argmax_head"]),
+                       (stacked(h_rows["paged_attention"]), h_paths["paged_attention"]),
+                       (h_rows["decode_layers_i8"], h_paths["decode_layers_i8"]),
+                       (stacked(h_rows["paged_attention_i8"]), h_paths["paged_attention_i8"])):
         name = row["kernel"]
         src, replaces = sources[name]
         if name == "decode_layers" and row["mode"] != "fp32":

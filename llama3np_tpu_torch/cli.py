@@ -3,10 +3,10 @@
 Mirrors `llama3np_tpu.cli`: the same streamed text and the same final
 `Token count: N, elapsed: S, T tokens/s` line (quirks Q3/Q6), with the
 prefill/decode split on stderr.  It runs on the card unless `--device cpu`
-is given; `--dtype bfloat16` runs the kernels' bf16 modes there.  `--quant
-int8` runs int8 weights (int4, and int8 under bfloat16 on the card, exit
-with the ROADMAP message).  Trace, debug and sampling flags wait for later
-slices.
+is given; `--dtype bfloat16` or `--dtype float16` runs the kernels' 16-bit
+modes there.  `--quant int8` runs int8 weights under any of the three
+dtypes (int4 exits with the ROADMAP message).  Trace, debug and sampling
+flags wait for later slices.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 // Fused batch-1 decode step for Hopper (sm_90a): all layers of one token,
-// in four modes: float32 weights and activations; int8 weights with
+// in six modes: float32 weights and activations; int8 weights with
 // per-output-column f32 scales under float32 activations; bf16 weights,
 // activations and caches; int8 weights with f32 scales under bf16
-// activations and caches.
+// activations and caches; and the float16 counterparts of the last two
+// (float16 weights, activations and caches; int8 weights under float16
+// activations and caches).
 //
 // Replaces: llama3np_tpu/ops/kernels/decode_step.py, `decode_layers` (:917)
 // in its whole-layer form (`make_decode_kernel` :266, pallas_call at :992),
@@ -81,6 +83,13 @@
 // appended as its f32 k_rot/v_new column); the new K/V rows are stored in
 // the cache dtype; the residual stays f32 through the layer and is rounded
 // to bf16 once, at its end.  fp32 modes round nowhere.
+// float16 modes: the bf16 modes' rounding points in float16 (the activation
+// before a float16 weight, the stored K/V rows, the residual at a layer's
+// end), float16 weights on CUDA cores.  int8 weights under float16
+// activations take `_wdot`'s rule as it is: the activation is rounded to
+// bf16, not float16, before the int8 product (the JAX kernel casts x to bf16
+// for any int8 weight), so that mode is the int8/bf16 tensor-core GEMV, with
+// float16 norms, caches, residual and output around it.
 // The cache is updated in place: split 0 of each KV head writes k_rot and
 // v_new into row `pos`, and attention never reads row `pos` (it masks
 // kv_idx < pos), so the write cannot race a read; pos = 0 attends only the
@@ -89,6 +98,7 @@
 // SiLU as g/(1+exp(-g)) (:261), residuals summed in f32.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -97,6 +107,7 @@
 #include <type_traits>
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 namespace {
 
@@ -120,28 +131,48 @@ constexpr int kAttnStageBytes = 64 * 1024;         // staged K and V rows a spli
 constexpr int kAttnMinRows = 16;                   // cache rows a split takes at least
 constexpr int kMaxDynSmem = 200 * 1024;            // dynamic shared memory a kernel may take
 
-// Weights a lane reads as one 16-byte vector: 4 floats, 8 bf16 or 16 int8.
+// Weights a lane reads as one 16-byte vector: 4 floats, 8 bf16 / f16 or 16
+// int8.
 template <typename W>
 constexpr int kVec = 16 / (int)sizeof(W);
 template <typename W>
 constexpr int kCols = kTileBytes / (int)sizeof(W);  // columns of a tile
-// int8 weights under bf16 activations run on the tensor cores.
+// 16-bit activations (bf16 or f16).
+template <typename T>
+constexpr bool kAct16 = std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
+// int8 weights under 16-bit activations run on the tensor cores (bf16).
 template <typename W, typename T>
-constexpr bool kMma = std::is_same<W, int8_t>::value && std::is_same<T, bf16>::value;
+constexpr bool kMma = std::is_same<W, int8_t>::value && kAct16<T>;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_f(f16* p, float v) { *p = __float2half_rn(v); }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
-
-// A GEMV's activation as its product sees it: rounded to bf16 under bf16
-// activations (the TPU kernel's `_wdot` casts), f32 otherwise.
+__device__ __forceinline__ float round_f16(float v) { return __half2float(__float2half_rn(v)); }
+// v rounded to T (unchanged for float).
 template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, bf16>::value) return round_bf16(v);
+  else if constexpr (std::is_same<T, f16>::value) return round_f16(v);
+  else return v;
+}
+
+// A GEMV's activation as its product sees it (the TPU kernel's `_wdot`):
+// rounded to the weight's type before a 16-bit weight, to bf16 before an
+// int8 weight under 16-bit activations, f32 otherwise.
+template <typename W, typename T>
 __device__ __forceinline__ float act_in(float v) {
-  return std::is_same<T, bf16>::value ? round_bf16(v) : v;
+  if constexpr (std::is_same<W, f16>::value || std::is_same<W, bf16>::value)
+    return round_to<W>(v);
+  else if constexpr (std::is_same<W, int8_t>::value && kAct16<T>)
+    return round_bf16(v);
+  else
+    return v;
 }
 
 // ---- programmatic dependent launch and async copies --------------------
@@ -220,6 +251,18 @@ __device__ __forceinline__ void load_w(const bf16* p, float (&w)[8]) {
   }
 }
 
+// Eight float16 weights -> floats (exact).
+__device__ __forceinline__ void load_w(const f16* p, float (&w)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
+  }
+}
+
 // Bytes 0 and 2 of v (two int8 b) -> a bf16 pair, exactly: the bf16 with
 // bits 0x4300 | (b & 127) is 128 + (b & 127); minus 128 (b >= 0) or 256
 // (b < 0, bits 0x4380) gives b.  fma(m, 1, -s) in bf16x2: the result is an
@@ -232,7 +275,8 @@ __device__ __forceinline__ uint32_t i8pair_to_bf16x2(uint32_t v) {
   return r;
 }
 
-// Four consecutive elements of a cache row, widened (8-byte aligned in bf16).
+// Four consecutive elements of a cache row, widened (8-byte aligned in 16
+// bits).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -240,6 +284,12 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
                      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const f16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -296,7 +346,7 @@ struct Gemv {
   float* out;            // [N] finished columns
   const float* resid;    // kOutResid: residual base [N] (null: resid_t)
   const T* resid_t;
-  int round_out;         // kOutResid: round to bf16 (the end of a bf16 layer)
+  int round_out;         // kOutResid: round to T (the end of a 16-bit layer)
   float* out_ss;         // kOutResid: [tiles] sums of squares of out
   T* out_t;              // kOutResid, last layer: x_out (then no out/out_ss)
 };
@@ -446,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_gemv_kernel(const Gemv<T> 
         const float g = __ldcg(a.vec + k), u = __ldcg(a.vec + a.K + k);
         v = g * (1.f / (1.f + expf(-g))) * u;
       }
-      v = act_in<T>(v);
+      v = act_in<W, T>(v);
     }
     xs[i] = v;
   }
@@ -532,7 +582,7 @@ __global__ void __launch_bounds__(kThreads, 2) decode_gemv_kernel(const Gemv<T> 
     } else {
       const float base = a.resid != nullptr ? __ldcg(a.resid + col) : to_f(a.resid_t[col]);
       float x = base + v;
-      if (a.round_out) x = round_bf16(x);
+      if (a.round_out) x = round_to<T>(x);
       if (a.out_t != nullptr) {
         store_f(a.out_t + col, x);
       } else {
@@ -822,8 +872,8 @@ cudaError_t launch_gemv(Gemv<T> a, int sms, cudaStream_t st) {
 }
 
 // Every layer of one token; W = float, int8_t (with the per-column scales
-// s_* [NL][N]; null otherwise) or bf16.  T: the type of the norms,
-// x_in/x_out and the caches (float, or bf16).
+// s_* [NL][N]; null otherwise), bf16 or f16.  T: the type of the norms,
+// x_in/x_out and the caches (float, bf16 or f16).
 template <typename W, typename T>
 int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
                   const float* s_qkv, const float* s_o, const float* s_gu,
@@ -842,7 +892,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   constexpr int V = kVec<W>;  // whole, aligned 16-byte vectors
   if (qkvd % V != 0 || d % V != 0 || (2 * fd) % V != 0)
     return (int)cudaErrorInvalidValue;
-  constexpr int kRound = std::is_same<T, bf16>::value;  // bf16: the layer's end rounds
+  constexpr int kRound = kAct16<T>;  // 16-bit: the layer's end rounds
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sms = num_sms(device);
 
@@ -891,7 +941,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
     g.count = count;
     g.eps = eps;
     // 1. QKV of rmsnorm(x): x_in for layer 0, else the previous layer's
-    //    residual (rounded to bf16 in bf16 modes, as the TPU kernel's x_out).
+    //    residual (rounded to T in 16-bit modes, as the TPU kernel's x_out).
     g.w = wqkv + (size_t)l * d * qkvd;
     g.wscale = layer_scale(s_qkv, l, qkvd);
     g.K = d;
@@ -939,7 +989,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
     g.norm_w = ffn_norm + (size_t)l * d;
     g.out = gu;
     if ((err = launch_gemv<kInNorm, kOutStore, W>(g, sms, st)) != cudaSuccess) return (int)err;
-    // 5. x = h + (silu(gate) * up) @ w_down, rounded at a bf16 layer's end;
+    // 5. x = h + (silu(gate) * up) @ w_down, rounded at a 16-bit layer's end;
     //    the last layer writes x_out.
     g = Gemv<T>{};
     g.part = part;
@@ -1037,4 +1087,35 @@ extern "C" int l3t_decode_layers_bf16(
                                    nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache,
                                    v_cache, cos_row, sin_row, scratch, counters, nl, d, nh,
                                    kvh, hd, fd, m, pos, eps, device, stream);
+}
+
+// int8 weights with their f32 scales under float16 activations: float16
+// norms, x_in/x_out and caches; the int8 products take the activation
+// rounded to bf16, as the int8/bf16 mode's.
+extern "C" int l3t_decode_layers_i8_f16(
+    const int8_t* wqkv, const int8_t* wo, const int8_t* wgu,
+    const int8_t* wdown, const float* s_qkv, const float* s_o,
+    const float* s_gu, const float* s_dn, const f16* attn_norm,
+    const f16* ffn_norm, const f16* x_in, f16* x_out, f16* k_cache,
+    f16* v_cache, const float* cos_row, const float* sin_row,
+    float* scratch, unsigned* counters, int nl, int d, int nh, int kvh, int hd,
+    int fd, int m, int pos, float eps, int device, void* stream) {
+  return decode_layers<int8_t, f16>(wqkv, wo, wgu, wdown, s_qkv, s_o, s_gu, s_dn,
+                                    attn_norm, ffn_norm, x_in, x_out, k_cache, v_cache,
+                                    cos_row, sin_row, scratch, counters, nl, d, nh, kvh,
+                                    hd, fd, m, pos, eps, device, stream);
+}
+
+// float16 weights, norms, x_in/x_out and caches.  Otherwise as
+// l3t_decode_layers_bf16.
+extern "C" int l3t_decode_layers_f16(
+    const f16* wqkv, const f16* wo, const f16* wgu, const f16* wdown,
+    const f16* attn_norm, const f16* ffn_norm, const f16* x_in, f16* x_out,
+    f16* k_cache, f16* v_cache, const float* cos_row, const float* sin_row,
+    float* scratch, unsigned* counters, int nl, int d, int nh, int kvh, int hd,
+    int fd, int m, int pos, float eps, int device, void* stream) {
+  return decode_layers<f16, f16>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,
+                                 nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache,
+                                 v_cache, cos_row, sin_row, scratch, counters, nl, d, nh,
+                                 kvh, hd, fd, m, pos, eps, device, stream);
 }

@@ -1,4 +1,4 @@
-// Flash prefill attention for Hopper (sm_90a), float32 or bf16.
+// Flash prefill attention for Hopper (sm_90a), float32, bf16 or float16.
 //
 // Replaces: llama3np_tpu/ops/kernels/flash_prefill.py, `flash_prefill` (body
 // `_kernel`, pallas_call at :102).  Causal GQA self-attention for the
@@ -72,19 +72,31 @@
 //  * a warp skips the key tiles that lie wholly above its rows; the grid
 //    puts the query tile last and reversed, so the longest (last) tiles of
 //    every head launch first.
+// float16 mode: the bf16 mode's kernel with float16 operands
+// (mma.sync...f16.f16.f32) and a float16 output.  A product of two float16
+// values is exact in f32 too.  P's split P_hi = f16(P), P_lo = f16(P -
+// P_hi) keeps P within 2^-22 relative while P_lo is normal; for P_lo below
+// 2^-14 (subnormal) the error is under 2^-25 absolute a probability, so a
+// row's P.V moves by at most L * 2^-25 * max|v| before its normalizer
+// (>= 1): under 2^-16 of max|v| at L=512, inside the output's one float16
+// rounding (2^-11).
 // mma.sync was taken over wgmma: its fragments are documented per thread,
 // so the kernel could be written and checked without a compiler at hand;
 // wgmma's shared-memory descriptors and the warp-specialised TMA producer
 // are queued (ROADMAP D3).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 // ---- float32 mode: CUDA cores --------------------------------------------
 
@@ -234,7 +246,7 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
-// ---- bf16 mode: tensor cores ----------------------------------------------
+// ---- bf16 and float16 modes: tensor cores ---------------------------------
 
 constexpr int kBr = 64;       // query rows a block, 16 a warp
 constexpr int kBc = 64;       // keys a tile
@@ -272,48 +284,75 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
 
-// d += a . b: one m16n8k16 product, bf16 operands, f32 accumulators (not
-// volatile: the compiler may interleave independent products).
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a . b: one m16n8k16 product, bf16 or float16 (T) operands, f32
+// accumulators (not volatile: the compiler may interleave independent
+// products).
+template <typename T>
+__device__ __forceinline__ void mma16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, f16>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two f32 probabilities (lower column first) as the hi and lo bf16 pairs of
-// an A fragment register: hi = bf16(p), lo = bf16(p - hi).
+// Two f32 values as one 4-byte pair of T (the lower column first).
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float p0, float p1) {
+  if constexpr (std::is_same<T, f16>::value) {
+    const __half2 h = __floats2half2_rn(p0, p1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+}
+__device__ __forceinline__ float low_f(uint32_t w, bf16) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float high_f(uint32_t w, bf16) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ float low_f(uint32_t w, f16) {
+  return __half2float(__ushort_as_half((unsigned short)(w & 0xffffu)));
+}
+__device__ __forceinline__ float high_f(uint32_t w, f16) {
+  return __half2float(__ushort_as_half((unsigned short)(w >> 16)));
+}
+
+// Two f32 probabilities (lower column first) as the hi and lo pairs of T of
+// an A fragment register: hi = T(p), lo = T(p - hi).
+template <typename T>
 __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  hi = pack2<T>(p0, p1);
+  lo = pack2<T>(p0 - low_f(hi, T()), p1 - high_f(hi, T()));
 }
 
-// HDP: head dim padded to a multiple of 16; V16: 16-byte copies (HD % 8 ==
-// 0), else 4-byte ones (HD even).
-template <int HDP, bool V16>
+// T: bf16 or f16; HDP: head dim padded to a multiple of 16; V16: 16-byte
+// copies (HD % 8 == 0), else 4-byte ones (HD even).
+template <typename T, int HDP, bool V16>
 __global__ void __launch_bounds__(kBThreads, 1)
-flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int L, int NH, int KVH, int HD, float scale_log2) {
+flash_prefill_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        int L, int NH, int KVH, int HD, float scale_log2) {
   constexpr int kRow = HDP + 8;  // row stride: an odd number of 16-byte chunks
   constexpr int kVec = V16 ? 8 : 2;  // elements a copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kBr][kRow]
-  bf16* Ks = Qs + kBr * kRow;                     // [kStages][kBc][kRow]
-  bf16* Vs = Ks + kStages * kBc * kRow;           // [kStages][kBc][kRow]
+  T* Qs = reinterpret_cast<T*>(smem_raw);  // [kBr][kRow]
+  T* Ks = Qs + kBr * kRow;                     // [kStages][kBc][kRow]
+  T* Vs = Ks + kStages * kBc * kRow;           // [kStages][kBc][kRow]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBr;  // the last query tiles first
   const int kvh = h / (NH / KVH);
   const size_t q_stride = (size_t)NH * HD, kv_stride = (size_t)KVH * HD;
-  const bf16* qb = q + (size_t)b * L * q_stride + (size_t)h * HD;
-  const bf16* kb = k + (size_t)b * L * kv_stride + (size_t)kvh * HD;
-  const bf16* vb = v + (size_t)b * L * kv_stride + (size_t)kvh * HD;
+  const T* qb = q + (size_t)b * L * q_stride + (size_t)h * HD;
+  const T* kb = k + (size_t)b * L * kv_stride + (size_t)kvh * HD;
+  const T* vb = v + (size_t)b * L * kv_stride + (size_t)kvh * HD;
 
   // Zero the pad columns [HD, HDP) of every staged row (Q and the ring are
   // one array of rows); the copies never write them.
@@ -321,16 +360,16 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int pad = HDP - HD;
     for (int e = tid; e < (kBr + 2 * kStages * kBc) * pad; e += kBThreads) {
       const int r = e / pad;
-      Qs[r * kRow + HD + (e - r * pad)] = __float2bfloat16(0.f);
+      reinterpret_cast<unsigned short*>(Qs)[r * kRow + HD + (e - r * pad)] = 0;
     }
   }
   // Rows r0.. of [.., HD] at `stride` into `dst`; rows >= L as zeros.
-  auto stage = [&](bf16* dst, const bf16* src, size_t stride, int r0, int rows) {
+  auto stage = [&](T* dst, const T* src, size_t stride, int r0, int rows) {
     const int per_row = HD / kVec;
     for (int e = tid; e < rows * per_row; e += kBThreads) {
       const int r = e / per_row, c = (e - r * per_row) * kVec;
       const bool ok = r0 + r < L;
-      const bf16* s = src + (size_t)(ok ? r0 + r : 0) * stride + c;
+      const T* s = src + (size_t)(ok ? r0 + r : 0) * stride + c;
       if constexpr (V16) cp_async16(smem_u32(dst + r * kRow + c), s, ok);
       else cp_async4(smem_u32(dst + r * kRow + c), s, ok);
     }
@@ -377,8 +416,8 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
     const int t0 = it * kBc;
     if (t0 > row0 + 15) continue;  // every key of the tile lies above this warp's rows
-    const bf16* Kt = Ks + (it % kStages) * kBc * kRow;
-    const bf16* Vt = Vs + (it % kStages) * kBc * kRow;
+    const T* Kt = Ks + (it % kStages) * kBc * kRow;
+    const T* Vt = Vs + (it % kStages) * kBc * kRow;
 
     // S = Q K^T: 16 rows x 64 keys a warp.
     float s[kBc / 8][4];
@@ -394,8 +433,8 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int n = 0; n < kBc / 8; n += 2) {
         uint32_t bb[4];
         ldmatrix_x4(bb, smem_u32(Kt + n * 8 * kRow + k_off + kk * 16));
-        mma_bf16(s[n], a, bb[0], bb[1]);
-        mma_bf16(s[n + 1], a, bb[2], bb[3]);
+        mma16<T>(s[n], a, bb[0], bb[1]);
+        mma16<T>(s[n + 1], a, bb[2], bb[3]);
       }
     }
 
@@ -442,18 +481,18 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
     for (int j = 0; j < kBc / 16; ++j) {
       uint32_t ph[4], pl[4];
-      split_pair(s[2 * j][0], s[2 * j][1], ph[0], pl[0]);
-      split_pair(s[2 * j][2], s[2 * j][3], ph[1], pl[1]);
-      split_pair(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
-      split_pair(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
+      split_pair<T>(s[2 * j][0], s[2 * j][1], ph[0], pl[0]);
+      split_pair<T>(s[2 * j][2], s[2 * j][3], ph[1], pl[1]);
+      split_pair<T>(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
+      split_pair<T>(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
       uint32_t vb[HDP / 8][2];  // the V fragments of the step, for hi then lo
 #pragma unroll
       for (int n = 0; n < HDP / 8; n += 2)
         ldmatrix_x4_trans(&vb[n][0], smem_u32(Vt + j * 16 * kRow + v_off + n * 8));
 #pragma unroll
-      for (int n = 0; n < HDP / 8; ++n) mma_bf16(acc[n], ph, vb[n][0], vb[n][1]);
+      for (int n = 0; n < HDP / 8; ++n) mma16<T>(acc[n], ph, vb[n][0], vb[n][1]);
 #pragma unroll
-      for (int n = 0; n < HDP / 8; ++n) mma_bf16(acc[n], pl, vb[n][0], vb[n][1]);
+      for (int n = 0; n < HDP / 8; ++n) mma16<T>(acc[n], pl, vb[n][0], vb[n][1]);
     }
   }
 
@@ -468,46 +507,46 @@ flash_prefill_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int row = row0 + g + 8 * i;
     if (row >= L) continue;
     const float den = fmaxf(l_run[i], 1e-30f);
-    bf16* op = o + ((size_t)b * L + row) * q_stride + (size_t)h * HD;
+    T* op = o + ((size_t)b * L + row) * q_stride + (size_t)h * HD;
 #pragma unroll
     for (int n = 0; n < HDP / 8; ++n) {
       const int col = n * 8 + 2 * tig;  // HD is even: col < HD covers col + 1
       if (col < HD)
-        *reinterpret_cast<__nv_bfloat162*>(op + col) =
-            __floats2bfloat162_rn(acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
+        *reinterpret_cast<uint32_t*>(op + col) =
+            pack2<T>(acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
     }
   }
 }
 
-template <int HDP, bool V16>
-cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                        int L, int NH, int KVH, int HD, cudaStream_t st) {
-  const size_t smem = (size_t)(kBr + 2 * kStages * kBc) * (HDP + 8) * sizeof(bf16);
+template <typename T, int HDP, bool V16>
+cudaError_t launch_tc(const T* q, const T* k, const T* v, T* o, int B,
+                      int L, int NH, int KVH, int HD, cudaStream_t st) {
+  const size_t smem = (size_t)(kBr + 2 * kStages * kBc) * (HDP + 8) * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_prefill_bf16_kernel<HDP, V16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_prefill_tc_kernel<T, HDP, V16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   const float scale_log2 = (float)(1.0 / sqrt((double)HD)) * kLog2e;
   dim3 grid(NH, B, (L + kBr - 1) / kBr);
-  flash_prefill_bf16_kernel<HDP, V16><<<grid, kBThreads, smem, st>>>(
+  flash_prefill_tc_kernel<T, HDP, V16><<<grid, kBThreads, smem, st>>>(
       q, k, v, o, L, NH, KVH, HD, scale_log2);
   return cudaGetLastError();
 }
 
-template <bool V16>
-cudaError_t dispatch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                          int L, int NH, int KVH, int HD, cudaStream_t st) {
+template <typename T, bool V16>
+cudaError_t dispatch_tc(const T* q, const T* k, const T* v, T* o, int B,
+                        int L, int NH, int KVH, int HD, cudaStream_t st) {
   switch ((HD + 15) / 16) {
-    case 1: return launch_bf16<16, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 2: return launch_bf16<32, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 3: return launch_bf16<48, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 4: return launch_bf16<64, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 5: return launch_bf16<80, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 6: return launch_bf16<96, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    case 7: return launch_bf16<112, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
-    default: return launch_bf16<128, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 1: return launch_tc<T, 16, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 2: return launch_tc<T, 32, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 3: return launch_tc<T, 48, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 4: return launch_tc<T, 64, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 5: return launch_tc<T, 80, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 6: return launch_tc<T, 96, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    case 7: return launch_tc<T, 112, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
+    default: return launch_tc<T, 128, V16>(q, k, v, o, B, L, NH, KVH, HD, st);
   }
 }
 
@@ -541,15 +580,33 @@ extern "C" int l3t_flash_prefill_f32(const float* q, const float* k,
   }
 }
 
+namespace {
+
+// The tensor-core modes' entry: checks, then the kernel for T.
+template <typename T>
+int run_tc(const T* q, const T* k, const T* v, T* o, int B, int L, int NH, int KVH,
+           int HD, int device, void* stream) {
+  const cudaError_t err = set_device_and_check(B, L, NH, KVH, HD, device);
+  if (err != cudaSuccess) return (int)err;
+  if (HD % 2 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(HD % 8 == 0 ? dispatch_tc<T, true>(q, k, v, o, B, L, NH, KVH, HD, st)
+                           : dispatch_tc<T, false>(q, k, v, o, B, L, NH, KVH, HD, st));
+}
+
+}  // namespace
+
 // As l3t_flash_prefill_f32, with bf16 q, k, v and o (tensor cores, f32
 // accumulation); HD must be even.
 extern "C" int l3t_flash_prefill_bf16(const bf16* q, const bf16* k, const bf16* v,
                                       bf16* o, int B, int L, int NH, int KVH, int HD,
                                       int device, void* stream) {
-  const cudaError_t err = set_device_and_check(B, L, NH, KVH, HD, device);
-  if (err != cudaSuccess) return (int)err;
-  if (HD % 2 != 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(HD % 8 == 0 ? dispatch_bf16<true>(q, k, v, o, B, L, NH, KVH, HD, st)
-                           : dispatch_bf16<false>(q, k, v, o, B, L, NH, KVH, HD, st));
+  return run_tc<bf16>(q, k, v, o, B, L, NH, KVH, HD, device, stream);
+}
+
+// As l3t_flash_prefill_bf16, with float16 q, k, v and o.
+extern "C" int l3t_flash_prefill_f16(const f16* q, const f16* k, const f16* v,
+                                     f16* o, int B, int L, int NH, int KVH, int HD,
+                                     int device, void* stream) {
+  return run_tc<f16>(q, k, v, o, B, L, NH, KVH, HD, device, stream);
 }

@@ -1,5 +1,5 @@
-// Fused lm_head + argmax (a greedy head) for Hopper (sm_90a): float32 or
-// bf16 weights.
+// Fused lm_head + argmax (a greedy head) for Hopper (sm_90a): float32,
+// bf16 or float16 weights.
 //
 // Replaces: llama3np_tpu/ops/kernels/greedy_head.py, `argmax_head` (:70;
 // kernel `_make_kernel` :42, pallas_call at :83).  One row's greedy token:
@@ -17,7 +17,7 @@
 // next.  Blocks on the GPU run in parallel and in no order, so the carry
 // becomes two launches:
 //  1. argmax_head_partial: block b owns 32*V neighbouring vocab columns
-//     (V = 4 f32 or 8 bf16 weights a 16-byte load).  Lane c of every warp
+//     (V = 4 f32 or 8 bf16 / float16 weights a 16-byte load).  Lane c of every warp
 //     reads columns [c*V, c*V+V) of a row as one vector, so a warp reads 512
 //     contiguous bytes; the 8 warps take interleaved rows.  x is staged in
 //     shared memory once (widened to f32; the wrapper hands it over in the
@@ -32,6 +32,7 @@
 // column, and a masked tail column (-inf) never beats a real one.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -44,6 +45,7 @@ constexpr int kFinalThreads = 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 __device__ __forceinline__ void load_w(const float* p, float (&w)[4]) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -61,6 +63,18 @@ __device__ __forceinline__ void load_w(const __nv_bfloat16* p, float (&w)[8]) {
   for (int i = 0; i < 4; ++i) {
     w[2 * i] = __uint_as_float(u[i] << 16);
     w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+// Eight float16 weights -> floats (exact).
+__device__ __forceinline__ void load_w(const __half* p, float (&w)[8]) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+    w[2 * i] = f.x;
+    w[2 * i + 1] = f.y;
   }
 }
 
@@ -206,4 +220,11 @@ extern "C" int l3t_argmax_head_bf16(const __nv_bfloat16* x, const __nv_bfloat16*
                                     int64_t* out, float* part_m, int* part_i, int D,
                                     int VS, int device, void* stream) {
   return run<__nv_bfloat16>(x, w, out, part_m, part_i, D, VS, device, stream);
+}
+
+// x [D] and w [D, VS] row-major, both float16; out: one int64.
+extern "C" int l3t_argmax_head_f16(const __half* x, const __half* w, int64_t* out,
+                                   float* part_m, int* part_i, int D, int VS,
+                                   int device, void* stream) {
+  return run<__half>(x, w, out, part_m, part_i, D, VS, device, stream);
 }

@@ -1,5 +1,6 @@
 // Paged decode attention for Hopper (sm_90a): float32 pools, int8 pools
-// with per-(token, KV head) f32 scales, or bf16 pools with bf16 q and out.
+// with per-(token, KV head) f32 scales under a float32, bf16 or float16 q,
+// or bf16 / float16 pools with q and out of the pools' type.
 //
 // Replaces: llama3np_tpu/ops/kernels/paged_attention.py, `paged_attention`
 // (:257; kernel body `_kernel` :66, pallas_call at :375).  One decode token
@@ -16,9 +17,13 @@
 // scale; cur_k/cur_v and the window rows are int8 with scales
 // cur_ks/cur_vs [B, KVH] and win_ks/win_vs [B, KVH, Q], folded in as a
 // read-back of their slot would be.
-// bf16 mode: bf16 pools, q, rows and output; everything is widened to f32
-// and accumulated in f32, as the TPU kernel does (pools upcast to f32,
-// :167-170, :239, :251; the output in q's dtype, :254).
+// int8 pools under a bf16 or float16 q (the 16-bit models' int8 KV): q is
+// widened to f32 once, as it is staged (the TPU kernel's :134 widens q
+// whatever its dtype), the scores, softmax and P.V are the f32 int8 mode's,
+// and the output is rounded to q's dtype once (:254).
+// bf16 and float16 modes: 16-bit pools, q, rows and output; everything is
+// widened to f32 and accumulated in f32, as the TPU kernel does (pools
+// upcast to f32, :167-170, :239, :251; the output in q's dtype, :254).
 //
 // What bounds it on the H100: bytes.  Each visible token's K and V rows are
 // read once for all G = NH/KVH query heads of their KV head (2*KVH*HD*4
@@ -68,10 +73,16 @@
 //    normalizer is clamped at 1e-30, as the TPU kernel's :254 is.
 // int8 widens 4 int8 of a row at a time to f32 with byte permutes (exact,
 // full ALU rate); the softmax stores p * v_scale for the P.V loop.  bf16
-// widens a 4-byte word (two values) by shifts.  q is widened to f32 as it
-// is staged.
+// widens a 4-byte word (two values) by shifts, float16 by the half2
+// conversion.  q is widened to f32 as it is staged.  The 16-bit pools take
+// the tensor-core form (HD % 16 == 0, G <= 16) with mma.sync operands of
+// their own type: a product of two bf16 or two float16 values is exact in
+// f32, and P enters P.V as a hi + lo pair of that type (float16: a lo part
+// below 2^-14 is subnormal, an absolute error under 2^-25 a probability,
+// far inside the output's one rounding).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -88,19 +99,23 @@ constexpr int kMaxChunkPages = 256;
 constexpr int kMaxSmem = 227 * 1024;
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(f16 v) { return __half2float(v); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void store_f(f16* p, float v) { *p = __float2half_rn(v); }
 
-// The type of q and out for pools of T: bf16 with bf16 pools, else float.
+// A 16-bit float type (the tensor-core form's operands).
 template <typename T>
-using QType = typename std::conditional<std::is_same<T, bf16>::value, bf16, float>::type;
+constexpr bool kHalf16 = std::is_same<T, bf16>::value || std::is_same<T, f16>::value;
 
 struct Args {
-  const void* q;        // [B, NH, HD], float (float/int8 pools) or bf16
-  const void* kp;       // pool of the layer: [P, KVH, page, HD], float, int8 or bf16
+  const void* q;        // [B, NH, HD]: float (float pools), float/bf16/f16 (int8 pools),
+                        // or the 16-bit pools' type
+  const void* kp;       // pool of the layer: [P, KVH, page, HD], float, int8, bf16 or f16
   const void* vp;
   const float* ksp;     // int8: scale pools of the layer [P, KVH, page]
   const float* vsp;
@@ -154,7 +169,7 @@ template <typename T, int VEC, int STAGES, bool TC>
 __host__ __device__ Layout layout(int G, int HD, int C) {
   const bool i8 = std::is_same<T, int8_t>::value;
   Layout s;
-  s.qs = 0;  // TC: bf16 q [16][HD + 8] (rows >= G zero), else f32 [G][q_stride]
+  s.qs = 0;  // TC: 16-bit q [16][HD + 8] (rows >= G zero), else f32 [G][q_stride]
   s.sc = s.qs + (TC ? 16 * (HD + 8) * 2 : G * q_stride(HD) * 4);
   s.ml = s.sc + G * kTile * 4;                          // m, l, alpha: [3][G]
   s.scales = s.ml + 3 * G * 4;                          // int8: [STAGES][2][kTile]
@@ -196,21 +211,36 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
 }
-// d += a . b: one m16n8k16 product, bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += a . b: one m16n8k16 product, bf16 or float16 (T) operands, f32
+// accumulators.
+template <typename T>
+__device__ __forceinline__ void mma16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, f16>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-// Two f32 probabilities (lower column first) as the hi and lo bf16 pairs of
-// an A fragment register: hi = bf16(p), lo = bf16(p - hi).
+// Two f32 probabilities (lower column first) as the hi and lo pairs of T of
+// an A fragment register: hi = T(p), lo = T(p - hi).
+template <typename T>
 __device__ __forceinline__ void split_pair(float p0, float p1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
+  if constexpr (std::is_same<T, f16>::value) {
+    const __half2 h = __floats2half2_rn(p0, p1);
+    const __half2 l = __floats2half2_rn(p0 - __low2float(h), p1 - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  } else {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+    const __nv_bfloat162 l = __floats2bfloat162_rn(p0 - __low2float(h), p1 - __high2float(h));
+    hi = *reinterpret_cast<const uint32_t*>(&h);
+    lo = *reinterpret_cast<const uint32_t*>(&l);
+  }
 }
 
 // Four signed bytes of v -> floats, exactly: b ^ 0x80 = b + 128 as an
@@ -223,7 +253,8 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t v, float* f) {
   f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
 }
 
-// A 4-byte word of a staged row as f32 values: 1 (float), 2 (bf16), 4 (int8).
+// A 4-byte word of a staged row as f32 values: 1 (float), 2 (bf16, f16),
+// 4 (int8).
 template <typename T>
 __device__ __forceinline__ void widen(uint32_t w, float* f) {
   if constexpr (std::is_same<T, int8_t>::value) {
@@ -231,6 +262,10 @@ __device__ __forceinline__ void widen(uint32_t w, float* f) {
   } else if constexpr (std::is_same<T, bf16>::value) {
     f[0] = __uint_as_float(w << 16);
     f[1] = __uint_as_float(w & 0xffff0000u);
+  } else if constexpr (std::is_same<T, f16>::value) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    f[0] = v.x;
+    f[1] = v.y;
   } else {
     f[0] = __uint_as_float(w);
   }
@@ -264,13 +299,16 @@ __device__ __forceinline__ float row_dot(const float* qr, const unsigned char* k
   return dot;
 }
 
-// TC: the bf16 tensor-core form (bf16 only; HD % 16 == 0, G <= 16).
-template <typename T, int VEC, int STAGES, bool TC>  // 3 blocks an SM with 2 stages, else 2
+// T: the pools' type; TQ: q's and out's (T for 16-bit pools; float, bf16
+// or f16 for int8 pools).  TC: the tensor-core form (16-bit pools only; HD %
+// 16 == 0, G <= 16).
+template <typename T, typename TQ, int VEC, int STAGES, bool TC>  // 3 blocks an SM with 2 stages, else 2
 __global__ void __launch_bounds__(kThreads, STAGES == 2 ? 3 : 2)
 paged_attn_kernel(const Args a) {
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
   constexpr int kPer = 4 / (int)sizeof(T);  // dims a 4-byte word holds
-  using TQ = QType<T>;
+  static_assert(!TC || (kHalf16<T> && std::is_same<T, TQ>::value),
+                "the tensor-core form takes 16-bit pools under a q of their type");
   extern __shared__ __align__(16) unsigned char smem[];
   const int s = blockIdx.x, S = gridDim.x, kh = blockIdx.y, b = blockIdx.z;
   const int HD = a.HD, G = a.NH / a.KVH, C = a.chunk_pages, page = a.page;
@@ -300,12 +338,12 @@ paged_attn_kernel(const Args a) {
   const int n_tiles = n_ptiles + (extra + kTile - 1) / kTile;
   const size_t bk = (size_t)b * a.KVH + kh;
 
-  if constexpr (TC) {  // bf16 q rows as they are, 16 of them (rows >= G zero)
-    bf16* qb = reinterpret_cast<bf16*>(qs);
+  if constexpr (TC) {  // 16-bit q rows as they are, 16 of them (rows >= G zero)
+    T* qb = reinterpret_cast<T*>(qs);
     for (int e = tid; e < 16 * HD; e += kThreads) {
       const int g = e / HD, d = e - g * HD;
-      qb[g * (HD + 8) + d] = g < G ? static_cast<const bf16*>(a.q)[(bk * G + g) * HD + d]
-                                   : __float2bfloat16(0.f);
+      store_f(qb + g * (HD + 8) + d,
+              g < G ? to_f(static_cast<const T*>(a.q)[(bk * G + g) * HD + d]) : 0.f);
     }
   } else {
     for (int e = tid; e < G * HD; e += kThreads) {
@@ -407,11 +445,11 @@ paged_attn_kernel(const Args a) {
         *reinterpret_cast<uint4*>(vt + (tvis + e / (rb / 16)) * rb + e % (rb / 16) * 16) =
             make_uint4(0u, 0u, 0u, 0u);
       // Scores on the tensor cores: warp w takes tokens 8w..8w+7 of the
-      // tile for the 16 (G used) query rows; bf16 products are exact in f32.
+      // tile for the 16 (G used) query rows; 16-bit products are exact in f32.
       if (8 * warp < tvis) {
         const int lr = lane & 7, lm = lane >> 3;
         const uint32_t q_addr =
-            smem_u32(reinterpret_cast<const bf16*>(qs) + ((lm & 1) * 8 + lr) * (HD + 8) +
+            smem_u32(reinterpret_cast<const T*>(qs) + ((lm & 1) * 8 + lr) * (HD + 8) +
                      (lm >> 1) * 8);
         const uint32_t k_addr = smem_u32(kt + (8 * warp + lr) * rb + (lm & 1) * 16);
         float c[4] = {0.f, 0.f, 0.f, 0.f};
@@ -420,7 +458,7 @@ paged_attn_kernel(const Args a) {
           uint32_t qa[4], kb[2];
           ldmatrix_x4(qa, q_addr + kk * 32);
           ldmatrix_x2(kb, k_addr + kk * 32);
-          mma_bf16(c, qa, kb[0], kb[1]);
+          mma16<T>(c, qa, kb[0], kb[1]);
         }
         const int t = 8 * warp + 2 * (lane & 3);  // c[e]: row lane/4 + 8(e/2), token t + e%2
 #pragma unroll
@@ -470,7 +508,7 @@ paged_attn_kernel(const Args a) {
 
     if constexpr (TC) {
       // P.V on the tensor cores: warp w takes dims 16w..16w+15 (two
-      // n-tiles); P (f32) enters as P_hi + P_lo, two bf16 products, zero
+      // n-tiles); P (f32) enters as P_hi + P_lo, two 16-bit products, zero
       // past the visible prefix and for rows >= G.
       if (16 * warp < HD) {
         const int g = lane >> 2, tig = lane & 3, lr = lane & 7, lm = lane >> 3;
@@ -490,15 +528,15 @@ paged_attn_kernel(const Args a) {
         for (int j = 0; j < (tvis + 15) / 16; ++j) {
           const int t = 16 * j + 2 * tig;
           uint32_t ph[4], pl[4], vb[4];
-          split_pair(p_at(g, t), p_at(g, t + 1), ph[0], pl[0]);
-          split_pair(p_at(g + 8, t), p_at(g + 8, t + 1), ph[1], pl[1]);
-          split_pair(p_at(g, t + 8), p_at(g, t + 9), ph[2], pl[2]);
-          split_pair(p_at(g + 8, t + 8), p_at(g + 8, t + 9), ph[3], pl[3]);
+          split_pair<T>(p_at(g, t), p_at(g, t + 1), ph[0], pl[0]);
+          split_pair<T>(p_at(g + 8, t), p_at(g + 8, t + 1), ph[1], pl[1]);
+          split_pair<T>(p_at(g, t + 8), p_at(g, t + 9), ph[2], pl[2]);
+          split_pair<T>(p_at(g + 8, t + 8), p_at(g + 8, t + 9), ph[3], pl[3]);
           ldmatrix_x4_trans(vb, v_addr + j * 16 * rb);
-          mma_bf16(acc, ph, vb[0], vb[1]);
-          mma_bf16(acc + 4, ph, vb[2], vb[3]);
-          mma_bf16(acc, pl, vb[0], vb[1]);
-          mma_bf16(acc + 4, pl, vb[2], vb[3]);
+          mma16<T>(acc, ph, vb[0], vb[1]);
+          mma16<T>(acc + 4, ph, vb[2], vb[3]);
+          mma16<T>(acc, pl, vb[0], vb[1]);
+          mma16<T>(acc + 4, pl, vb[2], vb[3]);
         }
       }
       continue;
@@ -600,17 +638,17 @@ paged_attn_merge_kernel(const float* __restrict__ part_ml,
   }
 }
 
-template <typename T, int VEC, int STAGES, bool TC>
+template <typename T, typename TQ, int VEC, int STAGES, bool TC>
 cudaError_t launch(const Args& a, int B, int S, cudaStream_t st) {
   const size_t smem = layout<T, VEC, STAGES, TC>(a.NH / a.KVH, a.HD, a.chunk_pages).total;
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidConfiguration;
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<T, VEC, STAGES, TC>,
+    const cudaError_t err = cudaFuncSetAttribute(paged_attn_kernel<T, TQ, VEC, STAGES, TC>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)smem);
     if (err != cudaSuccess) return err;
   }
-  paged_attn_kernel<T, VEC, STAGES, TC><<<dim3(S, a.KVH, B), kThreads, smem, st>>>(a);
+  paged_attn_kernel<T, TQ, VEC, STAGES, TC><<<dim3(S, a.KVH, B), kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -618,14 +656,15 @@ cudaError_t launch(const Args& a, int B, int S, cudaStream_t st) {
 // flight (3 stages); a longer one takes 2 stages, so that three blocks fit
 // an SM and the longer walk overlaps its copies with the other blocks'
 // compute.
-template <typename T, int VEC, bool TC = false>
+template <typename T, typename TQ, int VEC, bool TC = false>
 cudaError_t launch_ring(const Args& a, int B, int S, cudaStream_t st) {
-  return a.chunk_pages * a.page <= 2 * kTile ? launch<T, VEC, 3, TC>(a, B, S, st)
-                                             : launch<T, VEC, 2, TC>(a, B, S, st);
+  return a.chunk_pages * a.page <= 2 * kTile ? launch<T, TQ, VEC, 3, TC>(a, B, S, st)
+                                             : launch<T, TQ, VEC, 2, TC>(a, B, S, st);
 }
 
-// Checks the shapes, launches the chunk walk, and merges the chunks.
-template <typename T>
+// Checks the shapes, launches the chunk walk, and merges the chunks.  T:
+// the pools' type, TQ: q's and out's.
+template <typename T, typename TQ>
 int run(Args a, int B, int layer, int device, void* stream) {
   constexpr bool kI8 = std::is_same<T, int8_t>::value;
   cudaError_t err = cudaSetDevice(device);
@@ -650,20 +689,21 @@ int run(Args a, int B, int layer, int device, void* stream) {
   a.scale = (float)(1.0 / sqrt((double)HD));
   const int S = (a.maxp + C - 1) / C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (kHalf16<T>) {
     if (HD % 16 == 0 && G <= 16)  // the tensor-core form: 16 query rows, 16-dim steps
-      err = launch_ring<T, 16, true>(a, B, S, st);
+      err = launch_ring<T, TQ, 16, true>(a, B, S, st);
     else
-      err = HD % 8 == 0 ? launch_ring<T, 16>(a, B, S, st) : launch_ring<T, 4>(a, B, S, st);
+      err = HD % 8 == 0 ? launch_ring<T, TQ, 16>(a, B, S, st)
+                        : launch_ring<T, TQ, 4>(a, B, S, st);
   } else {
-    err = (int)sizeof(T) * HD % 16 == 0 ? launch_ring<T, 16>(a, B, S, st)
-                                         : launch_ring<T, 4>(a, B, S, st);
+    err = (int)sizeof(T) * HD % 16 == 0 ? launch_ring<T, TQ, 16>(a, B, S, st)
+                                         : launch_ring<T, TQ, 4>(a, B, S, st);
   }
   if (err != cudaSuccess) return (int)err;
   if (S > 1) {
     paged_attn_merge_kernel<<<dim3(NH, B), 128, 0, st>>>(
         a.part_ml, a.part_acc, a.pos, NH, KVH, HD, S, a.stacked, page, a.maxp, C,
-        static_cast<QType<T>*>(a.out));
+        static_cast<TQ*>(a.out));
     err = cudaGetLastError();
   }
   return (int)err;
@@ -719,21 +759,21 @@ extern "C" int l3t_paged_attention_f32(
   const Args a = make_args(q, k_pools, v_pools, block_table, pos, cur_k, cur_v,
                            win_k, win_v, out, part_ml, part_acc, NH, KVH, HD, P,
                            page, maxp, stacked, win_q, win_count, chunk_pages);
-  return run<float>(a, B, layer, device, stream);
+  return run<float, float>(a, B, layer, device, stream);
 }
 
-// int8 pools with their f32 scale pools [NL,P,KVH,page]; int8 cur_k/cur_v
-// with cur_ks/cur_vs [B,KVH], int8 window rows with win_ks/win_vs
-// [B,KVH,win_q].  Otherwise as l3t_paged_attention_f32.
-extern "C" int l3t_paged_attention_i8(
-    const float* q, const int8_t* k_pools, const int8_t* v_pools,
-    const float* k_scales, const float* v_scales, const int* block_table,
-    const int* pos, const int8_t* cur_k, const int8_t* cur_v,
-    const float* cur_ks, const float* cur_vs, const int8_t* win_k,
-    const int8_t* win_v, const float* win_ks, const float* win_vs, float* out,
-    float* part_ml, float* part_acc, int B, int NH, int KVH, int HD, int P,
-    int page, int maxp, int layer, int stacked, int win_q, int win_count,
-    int chunk_pages, int device, void* stream) {
+namespace {
+
+// int8 pools under a q (and out) of TQ: the scales' checks and pointers.
+template <typename TQ>
+int run_i8(const TQ* q, const int8_t* k_pools, const int8_t* v_pools,
+           const float* k_scales, const float* v_scales, const int* block_table,
+           const int* pos, const int8_t* cur_k, const int8_t* cur_v,
+           const float* cur_ks, const float* cur_vs, const int8_t* win_k,
+           const int8_t* win_v, const float* win_ks, const float* win_vs, TQ* out,
+           float* part_ml, float* part_acc, int B, int NH, int KVH, int HD, int P,
+           int page, int maxp, int layer, int stacked, int win_q, int win_count,
+           int chunk_pages, int device, void* stream) {
   if (k_scales == nullptr || v_scales == nullptr ||
       (stacked && (cur_ks == nullptr || cur_vs == nullptr)) ||
       (win_q > 0 && (win_ks == nullptr || win_vs == nullptr)))
@@ -747,8 +787,37 @@ extern "C" int l3t_paged_attention_i8(
   a.cur_vs = cur_vs;
   a.win_ks = win_ks;
   a.win_vs = win_vs;
-  return run<int8_t>(a, B, layer, device, stream);
+  return run<int8_t, TQ>(a, B, layer, device, stream);
 }
+
+}  // namespace
+
+#define L3T_PAGED_I8_ARGS(TQ)                                                         \
+  const TQ *q, const int8_t *k_pools, const int8_t *v_pools, const float *k_scales,   \
+      const float *v_scales, const int *block_table, const int *pos,                  \
+      const int8_t *cur_k, const int8_t *cur_v, const float *cur_ks,                  \
+      const float *cur_vs, const int8_t *win_k, const int8_t *win_v,                  \
+      const float *win_ks, const float *win_vs, TQ *out, float *part_ml,              \
+      float *part_acc, int B, int NH, int KVH, int HD, int P, int page, int maxp,     \
+      int layer, int stacked, int win_q, int win_count, int chunk_pages, int device,  \
+      void *stream
+#define L3T_PAGED_I8_CALL                                                             \
+  run_i8(q, k_pools, v_pools, k_scales, v_scales, block_table, pos, cur_k, cur_v,     \
+         cur_ks, cur_vs, win_k, win_v, win_ks, win_vs, out, part_ml, part_acc, B, NH, \
+         KVH, HD, P, page, maxp, layer, stacked, win_q, win_count, chunk_pages,       \
+         device, stream)
+
+// int8 pools with their f32 scale pools [NL,P,KVH,page]; int8 cur_k/cur_v
+// with cur_ks/cur_vs [B,KVH], int8 window rows with win_ks/win_vs
+// [B,KVH,win_q]; float32 q and out.  Otherwise as l3t_paged_attention_f32.
+extern "C" int l3t_paged_attention_i8(L3T_PAGED_I8_ARGS(float)) { return L3T_PAGED_I8_CALL; }
+
+// As l3t_paged_attention_i8, under a bf16 q: q widened to f32 inside, the
+// output rounded to bf16 once.
+extern "C" int l3t_paged_attention_i8_bf16(L3T_PAGED_I8_ARGS(bf16)) { return L3T_PAGED_I8_CALL; }
+
+// As l3t_paged_attention_i8, under a float16 q and out.
+extern "C" int l3t_paged_attention_i8_f16(L3T_PAGED_I8_ARGS(f16)) { return L3T_PAGED_I8_CALL; }
 
 // bf16 q, pools, cur_k/cur_v, window rows and out (f32 math inside).
 // Otherwise as l3t_paged_attention_f32.
@@ -762,5 +831,20 @@ extern "C" int l3t_paged_attention_bf16(
   const Args a = make_args(q, k_pools, v_pools, block_table, pos, cur_k, cur_v,
                            win_k, win_v, out, part_ml, part_acc, NH, KVH, HD, P,
                            page, maxp, stacked, win_q, win_count, chunk_pages);
-  return run<bf16>(a, B, layer, device, stream);
+  return run<bf16, bf16>(a, B, layer, device, stream);
+}
+
+// float16 q, pools, cur_k/cur_v, window rows and out (f32 math inside).
+// Otherwise as l3t_paged_attention_f32.
+extern "C" int l3t_paged_attention_f16(
+    const f16* q, const f16* k_pools, const f16* v_pools,
+    const int* block_table, const int* pos, const f16* cur_k, const f16* cur_v,
+    const f16* win_k, const f16* win_v, f16* out, float* part_ml,
+    float* part_acc, int B, int NH, int KVH, int HD, int P, int page, int maxp,
+    int layer, int stacked, int win_q, int win_count, int chunk_pages, int device,
+    void* stream) {
+  const Args a = make_args(q, k_pools, v_pools, block_table, pos, cur_k, cur_v,
+                           win_k, win_v, out, part_ml, part_acc, NH, KVH, HD, P,
+                           page, maxp, stacked, win_q, win_count, chunk_pages);
+  return run<f16, f16>(a, B, layer, device, stream);
 }

@@ -70,9 +70,9 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
     """`decode_steps` with every layer of a token in the fused decode kernel
     (`ops.kernels.decode_step.decode_layers`); the counterpart of the JAX
     package's `pallas_decode_steps`.  Batch 1 only; params in the fused,
-    rope-split layout, float32, bf16 or int8 (the layer tree's `*_scale`
-    leaves select the kernel's int8 mode).  A float32 or bf16 lm_head gives
-    the token through the greedy head (`ops.kernels.greedy_head.
+    rope-split layout, float32, bf16, float16 or int8 (the layer tree's
+    `*_scale` leaves select the kernel's int8 mode).  A float32, bf16 or
+    float16 lm_head gives the token through the greedy head (`ops.kernels.greedy_head.
     argmax_head`: the same argmax of the f32 product, no logits tensor); an
     int8 head keeps the post-scaled `lm_logits` and argmax, since the TPU
     kernel has no int8 mode.  The caches are updated in place."""
@@ -126,9 +126,9 @@ class Generator:
 
     def use_kernels(self, batch: int) -> bool:
         """The fused decode kernel runs batch-1 greedy decode on the card,
-        float32, bf16 or int8 weights alike (attn_impl "auto"/"pallas"; the
-        engine refuses "pallas" elsewhere, and refuses on the card what no
-        kernel takes)."""
+        float32, bf16, float16 or int8 weights alike (attn_impl
+        "auto"/"pallas"; the engine refuses "pallas" elsewhere, and refuses
+        on the card what no kernel takes)."""
         return self.cfg.kernels and self.cfg.rope_split and batch == 1
 
     def decode_fn(self, num_steps: int, batch: int = 1):

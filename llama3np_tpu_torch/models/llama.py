@@ -17,7 +17,10 @@ int8 weights (`quant="int8"`) ride the same tree with `*_scale` leaves
 beside the int8 payloads: every consumer post-scales its product.  int8 KV
 caches carry "k_s"/"v_s" scales; new rows quantize once, when they are
 made.  A bf16 model (every Llama-3 preset) holds bf16 weights, activations
-and caches, and on the card runs the bf16 modes of the same kernels.
+and caches, and on the card runs the bf16 modes of the same kernels; a
+float16 model their float16 modes.  int8 KV serves under any activation
+dtype (the paged kernel takes a float32, bf16 or float16 q over int8
+pools).
 """
 
 from __future__ import annotations
@@ -156,7 +159,7 @@ def forward(params: Dict, input_ids: torch.Tensor, pos: int, cache: Dict,
 def _refuse_unported(lora=None, adapter_ids=None, lora_rows=None):
     if lora is not None or adapter_ids is not None or lora_rows is not None:
         raise NotImplementedError("multi-LoRA serving is still to port "
-                                  "(ROADMAP A12)")
+                                  "(ROADMAP A7)")
 
 
 def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
@@ -193,7 +196,7 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     per layer, which reads the scale pools through the block table itself;
     otherwise the gather form (`ops.paged_attention_stacked`).  Dense
     attention is plain in both packages.  LoRA (`lora`, `adapter_ids`,
-    `lora_rows`, ROADMAP A12) is still to port and raises.
+    `lora_rows`, ROADMAP A7) is still to port and raises.
     """
     _refuse_unported(lora, adapter_ids, lora_rows)
     if pos0 is None:
@@ -386,34 +389,33 @@ def resolve_device(device) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _refuse_unported_kernel_modes(args: ModelArgs):
-    """The kernels run float32 or bf16 models (float or int8 weights) with
-    the KV cache in the activation dtype; raise for what none of them takes
-    yet."""
-    if args.dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError(f"{args.dtype} kernel modes are still to port "
-                                  "(ROADMAP B5); pass attn_impl='xla'")
+    """The kernels run float32, bf16 and float16 models (float or int8
+    weights, a float or int8 KV cache) with the float KV cache in the
+    activation dtype; raise for the JAX package's `kv_dtype` override,
+    which none of them takes yet."""
     if args.kv_dtype != args.dtype:
         raise NotImplementedError(f"a {args.kv_dtype} KV cache under {args.dtype} "
-                                  "activations is still to port (ROADMAP B4); "
-                                  "pass attn_impl='xla'")
+                                  "activations (the kv_dtype override) is still "
+                                  "to port (ROADMAP B11); pass attn_impl='xla'")
 
 
 class Llama:
     """Stateful engine over the functional core (reference-compatible API).
 
     Runs on `device` ("cuda" by default; it raises if there is no card),
-    single-device, on the fused whole-layer layout.  dtype "float32" or
-    "bfloat16" (the Llama-3 presets' default): on the card prefill runs the
-    flash kernel, batch-1 greedy decode the fused decode kernel and the
-    greedy head, and paged serving the paged-attention kernel, each in the
-    model's dtype.  quant="int8" holds int8 weights with per-output-channel
-    scales (built, permuted, fused, then quantized, as the JAX engine's
-    whole-layer tree) under float32 or bf16 activations, and on the card
-    batch-1 decode runs the decode kernel's int8 mode for that activation
-    dtype.  kv_quant="int8" is read by `serving.BatchEngine`.  On the
-    card's kernel path, combinations that no kernel takes yet raise
-    NotImplementedError naming their ROADMAP item: a KV dtype other than
-    the activations', float16; attn_impl="xla" runs any of them plainly."""
+    single-device, on the fused whole-layer layout.  dtype "float32",
+    "bfloat16" (the Llama-3 presets' default) or "float16": on the card
+    prefill runs the flash kernel, batch-1 greedy decode the fused decode
+    kernel and the greedy head, and paged serving the paged-attention
+    kernel, each in the model's dtype.  quant="int8" holds int8 weights
+    with per-output-channel scales (built, permuted, fused, then quantized,
+    as the JAX engine's whole-layer tree) under float32, bf16 or float16
+    activations, and on the card batch-1 decode runs the decode kernel's
+    int8 mode for that activation dtype.  kv_quant="int8" is read by
+    `serving.BatchEngine`: int8 pools under any of the three activation
+    dtypes.  On the card's kernel path a KV dtype other than the
+    activations' (`kv_dtype`) raises NotImplementedError naming its
+    ROADMAP item; attn_impl="xla" runs it plainly."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
                  device="cuda"):

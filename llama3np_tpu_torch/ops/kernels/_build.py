@@ -63,31 +63,39 @@ _PAGED = (ctypes.c_int, [
     _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
     _I, _P,                            # device, stream
 ])
+_PAGED_I8 = (ctypes.c_int, [
+    _P, _P, _P, _P, _P,                # q, k_pools, v_pools, k/v scale pools
+    _P, _P,                            # table, pos
+    _P, _P, _P, _P,                    # cur_k, cur_v, cur_ks, cur_vs
+    _P, _P, _P, _P,                    # win_k, win_v, win_ks, win_vs
+    _P, _P, _P,                        # out, part_ml, part_acc
+    _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
+    _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
+    _I, _P,                            # device, stream
+])
 _ARGMAX = (ctypes.c_int, [_P, _P, _P, _P, _P,  # x, w, out, part_m, part_i
                           _I, _I, _I, _P])     # D, VS, device, stream
 SIGNATURES = {
     "l3t_flash_prefill_f32": _FLASH,
     "l3t_flash_prefill_bf16": _FLASH,
+    "l3t_flash_prefill_f16": _FLASH,
     "l3t_decode_scratch_floats": (ctypes.c_long, [_I, _I, _I, _I, _I]),
     "l3t_decode_counters": (ctypes.c_long, [_I, _I, _I, _I, _I]),
     "l3t_decode_layers_f32": _DECODE,
     "l3t_decode_layers_bf16": _DECODE,
+    "l3t_decode_layers_f16": _DECODE,
     "l3t_decode_layers_i8": _DECODE_I8,
     "l3t_decode_layers_i8_bf16": _DECODE_I8,
-    "l3t_paged_attention_i8": (ctypes.c_int, [
-        _P, _P, _P, _P, _P,                # q, k_pools, v_pools, k/v scale pools
-        _P, _P,                            # table, pos
-        _P, _P, _P, _P,                    # cur_k, cur_v, cur_ks, cur_vs
-        _P, _P, _P, _P,                    # win_k, win_v, win_ks, win_vs
-        _P, _P, _P,                        # out, part_ml, part_acc
-        _I, _I, _I, _I, _I, _I, _I,        # B, NH, KVH, HD, P, page, maxp
-        _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
-        _I, _P,                            # device, stream
-    ]),
+    "l3t_decode_layers_i8_f16": _DECODE_I8,
+    "l3t_paged_attention_i8": _PAGED_I8,
+    "l3t_paged_attention_i8_bf16": _PAGED_I8,
+    "l3t_paged_attention_i8_f16": _PAGED_I8,
     "l3t_paged_attention_f32": _PAGED,
     "l3t_paged_attention_bf16": _PAGED,
+    "l3t_paged_attention_f16": _PAGED,
     "l3t_argmax_head_f32": _ARGMAX,
     "l3t_argmax_head_bf16": _ARGMAX,
+    "l3t_argmax_head_f16": _ARGMAX,
 }
 
 

@@ -12,7 +12,7 @@ softmax; because of that mask the new rows are written into the caches at
 `pos` in place (the JAX kernel emitted them and scattered afterwards), and
 the caches passed in are the ones returned.
 
-Four modes, chosen by the tree and x: float32 weights; int8 weights with
+Six modes, chosen by the tree and x: float32 weights; int8 weights with
 per-output-column f32 scales ("wqkv_scale" [NL, 1, QD+2KVD] and so on,
 `checkpoint.quantize_param_tree`) under float32 activations, the
 counterpart of the TPU's streamed layout with its scale blocks
@@ -26,7 +26,11 @@ at the end of each layer; and int8 weights with f32 scales under bf16
 norms, x and caches (the JAX engine's llama3-8b `quant="int8"`), with the
 bf16 mode's rounding points and `_wdot`'s int8 products: the bf16-rounded
 activation times the int8 weight, f32 sums, the scale post-multiplied.
-float16 raises NotImplementedError.
+The float16 counterparts of the last two (the JAX engine's
+`dtype="float16"`, with and without `quant="int8"`) keep the same rounding
+points in float16, except that `_wdot` rounds the activation to bf16 before
+any int8 weight, so int8 under float16 activations is the int8/bf16
+product with float16 norms, caches, residual and output.
 
 `decode_layers` launches the kernels for CUDA tensors and runs
 `decode_layers_plain` for CPU tensors; there is no fallback from one to the
@@ -45,6 +49,15 @@ from ..core import _scaled_dot
 from . import _build
 
 _WEIGHTS = ("wqkv", "wo", "wgu", "w_down")
+# The C entry of each (weight dtype, activation dtype) mode.
+_ENTRIES = {
+    torch.float32: {torch.float32: "l3t_decode_layers_f32"},
+    torch.bfloat16: {torch.bfloat16: "l3t_decode_layers_bf16"},
+    torch.float16: {torch.float16: "l3t_decode_layers_f16"},
+    torch.int8: {torch.float32: "l3t_decode_layers_i8",
+                 torch.bfloat16: "l3t_decode_layers_i8_bf16",
+                 torch.float16: "l3t_decode_layers_i8_f16"},
+}
 
 
 def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -52,11 +65,17 @@ def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w.float()
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
 def _weight_input(a: torch.Tensor, w: torch.Tensor, act_dtype) -> torch.Tensor:
-    """The activation a weight product sees: rounded to bf16 before a bf16
-    weight, and before an int8 weight under bf16 activations (the TPU
-    kernel's `_wdot` casts); f32 otherwise."""
-    if torch.bfloat16 in (w.dtype, act_dtype):
+    """The activation a weight product sees (the TPU kernel's `_wdot`
+    casts): rounded to the weight's dtype before a bf16 or float16 weight,
+    to bf16 before an int8 weight under 16-bit activations; f32
+    otherwise."""
+    if w.dtype in _HALF:
+        return a.to(w.dtype).float()
+    if w.dtype == torch.int8 and act_dtype in _HALF:
         return a.to(torch.bfloat16).float()
     return a
 
@@ -69,7 +88,7 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The same function in plain PyTorch, with the appended-column math of
     the TPU kernel's `_attend_head` written out (int8 weights post-scale
-    each product; bf16 activations round where the kernel does: each
+    each product; 16-bit activations round where the kernel does: each
     product's activation, the stored rows, the residual at each layer's
     end).
     Updates the caches at `pos` in place and returns (x_out, k_cache,
@@ -115,7 +134,7 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         fd = layers["w_down"].shape[1]
         gate = gu[:, :fd]
         ff = gate * (1.0 / (1.0 + torch.exp(-gate))) * gu[:, fd:]
-        h = (h + proj(ff, "w_down", layer)).to(x.dtype).float()  # bf16: the layer's end
+        h = (h + proj(ff, "w_down", layer)).to(x.dtype).float()  # 16-bit: the layer's end
     return h.to(x.dtype), k_cache, v_cache
 
 
@@ -187,8 +206,9 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     k_cache/v_cache: [NL, KVH, M, HD] (one batch row), read at rows < pos
     and written at row pos in place.  On the card: float32 weights, norms,
     x and caches; int8 weights with f32 scales and float32 the rest; bf16
-    weights, norms, x and caches; or int8 weights with f32 scales and bf16
-    norms, x and caches; cos/sin rows float32.
+    (or float16) weights, norms, x and caches; or int8 weights with f32
+    scales and bf16 (or float16) norms, x and caches; cos/sin rows
+    float32.
     cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
 
     Returns (x_out [1, D], k_cache, v_cache).
@@ -210,19 +230,16 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     f32 = [cos_row, sin_row] + scales
     tensors = weights + acts + f32
     w_dtype, a_dtype = weights[0].dtype, x.dtype
-    if w_dtype not in (torch.float32, torch.bfloat16, torch.int8) \
-            or a_dtype not in (torch.float32, torch.bfloat16) \
-            or (w_dtype == torch.int8) != quant \
-            or (w_dtype != torch.int8 and w_dtype != a_dtype) \
+    if a_dtype not in _ENTRIES.get(w_dtype, {}) or (w_dtype == torch.int8) != quant \
             or any(t.dtype != w_dtype for t in weights) \
             or any(t.dtype != a_dtype for t in acts) \
             or any(t.dtype != torch.float32 for t in f32):
         raise NotImplementedError(
-            "the decode_layers kernel takes float32 or bf16 weights with "
-            "norms, x and caches of the same dtype, or int8 weights with f32 "
-            "scales under float32 or bf16 norms, x and caches (cos/sin rows "
-            f"float32); got {w_dtype} weights and {x.dtype} x, "
-            f"{k_cache.dtype} caches.  float16 is still to port (ROADMAP B5)")
+            "the decode_layers kernel takes float32, bf16 or float16 weights "
+            "with norms, x and caches of the same dtype, or int8 weights with "
+            "f32 scales under float32, bf16 or float16 norms, x and caches "
+            f"(cos/sin rows float32); got {w_dtype} weights and {x.dtype} x, "
+            f"{k_cache.dtype} caches")
     if any(t.device != x.device for t in tensors):
         raise ValueError("decode_layers: every tensor must lie on x's device")
     if not all(t.is_contiguous() for t in tensors):
@@ -234,7 +251,7 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
                          f"dim % 4 == 0, even hidden_dim; got {head_dim}, {d}, {fd}")
     vec = 16 // w_dtype.itemsize
     if vec > 4 and (qkvd % vec or d % vec or (2 * fd) % vec):
-        # One lane reads 16 int8 or 8 bf16 weights as a 16-byte vector:
+        # One lane reads 16 int8 or 8 16-bit weights as a 16-byte vector:
         # each output width must be a multiple of that for whole, aligned
         # vectors.
         raise ValueError(f"the {w_dtype} decode_layers kernel takes output "
@@ -253,14 +270,8 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
             scratch.data_ptr(), counters.data_ptr(), nl, d, n_heads, kv_heads,
             head_dim, fd, k_cache.shape[2], pos, float(norm_eps), x.device.index,
             stream)
-    if quant:
-        entry = (lib.l3t_decode_layers_i8_bf16 if a_dtype == torch.bfloat16
-                 else lib.l3t_decode_layers_i8)
-        rc = entry(*(t.data_ptr() for t in weights + scales), *rest)
-    elif w_dtype == torch.bfloat16:
-        rc = lib.l3t_decode_layers_bf16(*(t.data_ptr() for t in weights), *rest)
-    else:
-        rc = lib.l3t_decode_layers_f32(*(t.data_ptr() for t in weights), *rest)
+    entry = getattr(lib, _ENTRIES[w_dtype][a_dtype])
+    rc = entry(*(t.data_ptr() for t in weights + scales), *rest)
     _build.check(rc, "decode_layers")
     decode_layers.launches += 1
     return x_out, k_cache, v_cache

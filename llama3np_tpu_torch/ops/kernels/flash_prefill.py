@@ -5,10 +5,11 @@ plain PyTorch version.
 Counterpart of `llama3np_tpu.ops.kernels.flash_prefill.flash_prefill`.  The
 kernel masks a ragged L itself, so every first-chunk prefill on the card
 goes through it; the JAX `supports(L)` gate was a TPU tiling rule and has no
-counterpart.  float32 runs on CUDA cores; bf16 on tensor cores, with the
-TPU kernel's f32 semantics: bf16 products are exact in f32, the f32
-probabilities enter P.V as a hi + lo pair of bf16 values (P within 2^-16),
-the sums are f32 and the output is rounded once.
+counterpart.  float32 runs on CUDA cores; bf16 and float16 on tensor
+cores, with the TPU kernel's f32 semantics: 16-bit products are exact in
+f32, the f32 probabilities enter P.V as a hi + lo pair of 16-bit values (P
+within 2^-16 in bf16; in float16 within 2^-22, or 2^-25 absolute where the
+lo part is subnormal), the sums are f32 and the output is rounded once.
 `flash_prefill` launches the kernel for CUDA tensors and runs
 `flash_prefill_plain` for CPU tensors; there is no fallback from one to the
 other.  `flash_prefill.launches` counts kernel launches.
@@ -22,7 +23,8 @@ from ..core import causal_attention
 from . import _build
 
 _ENTRIES = {torch.float32: "l3t_flash_prefill_f32",
-            torch.bfloat16: "l3t_flash_prefill_bf16"}
+            torch.bfloat16: "l3t_flash_prefill_bf16",
+            torch.float16: "l3t_flash_prefill_f16"}
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor,
@@ -52,8 +54,8 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     """Causal self-attention over one block at start_pos == 0.
 
     q: [B, L, NH, HD]; k, v: [B, L, KVH, HD], any L >= 1, HD <= 128 (even
-    in bf16).  Returns [B, L, NH, HD].  CUDA tensors must be contiguous and
-    all float32 or all bf16.
+    in bf16 and float16).  Returns [B, L, NH, HD].  CUDA tensors must be
+    contiguous and all float32, all bf16 or all float16.
     """
     _check_args(q, k, v)
     if q.device.type == "cpu":
@@ -62,20 +64,20 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_prefill runs on CUDA or CPU tensors, not {q.device}")
     if q.dtype not in _ENTRIES or not q.dtype == k.dtype == v.dtype:
         raise NotImplementedError(
-            f"the flash_prefill kernel takes q, k, v all float32 or all bf16 "
-            f"(got {q.dtype}, {k.dtype}, {v.dtype}); float16 is still to "
-            "port (ROADMAP B5)")
+            f"the flash_prefill kernel takes q, k, v all float32, all bf16 or "
+            f"all float16 (got {q.dtype}, {k.dtype}, {v.dtype})")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_prefill takes contiguous q, k, v")
     B, L, NH, HD = q.shape
     if HD > 128:
         raise ValueError(f"flash_prefill takes head_dim <= 128, got {HD}")
-    if q.dtype == torch.bfloat16:  # tiles are copied in pieces of 16 or 4 bytes
+    if q.dtype != torch.float32:  # tiles are copied in pieces of 16 or 4 bytes
         if HD % 2:
-            raise ValueError(f"the bf16 flash_prefill kernel takes an even head_dim, got {HD}")
+            raise ValueError(f"the {q.dtype} flash_prefill kernel takes an even "
+                             f"head_dim, got {HD}")
         piece = 16 if HD % 8 == 0 else 4
         if any(t.data_ptr() % piece for t in (q, k, v)):
-            raise ValueError(f"the bf16 flash_prefill kernel copies q, k and v in "
+            raise ValueError(f"the {q.dtype} flash_prefill kernel copies q, k and v in "
                              f"{piece}-byte pieces: they must be aligned to that")
     lib = _build.KernelLibrary.get()
     o = torch.empty_like(q)

@@ -9,8 +9,8 @@ reasons (an M=1 matvec cannot feed the MXU, and XLA hoisted a bf16 copy of
 the fp32 lm_head); on the H100 an M=1 GEMV is a memory-bound stream
 whoever writes it, and fusing the argmax removes the [1, VS] logits write,
 its read and a launch a token, so the port's batch-1 greedy decode loop
-(`generate.kernel_decode_steps`) takes its token from here for a float32
-or bf16 lm_head.  `argmax_head` launches the kernel for CUDA tensors and
+(`generate.kernel_decode_steps`) takes its token from here for a float32,
+bf16 or float16 lm_head.  `argmax_head` launches the kernel for CUDA tensors and
 runs `argmax_head_plain` for CPU tensors; there is no fallback from one to
 the other.  `argmax_head.launches` counts launches (one per call).
 """
@@ -22,7 +22,8 @@ import torch
 from . import _build
 
 _ENTRIES = {torch.float32: "l3t_argmax_head_f32",
-            torch.bfloat16: "l3t_argmax_head_bf16"}
+            torch.bfloat16: "l3t_argmax_head_bf16",
+            torch.float16: "l3t_argmax_head_f16"}
 
 
 def argmax_head_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -37,7 +38,7 @@ def argmax_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     x: [1, D] (the final-norm hidden state, any float dtype; cast to w's
     dtype as the TPU kernel casts it); w: [D, VS] lm_head.  CUDA tensors:
-    w float32 (VS % 4 == 0) or bf16 (VS % 8 == 0), contiguous.
+    w float32 (VS % 4 == 0), bf16 or float16 (VS % 8 == 0), contiguous.
     """
     if x.dim() != 2 or x.shape[0] != 1 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"argmax_head takes x [1, D] and w [D, VS]; got "
@@ -50,9 +51,9 @@ def argmax_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"argmax_head runs on CUDA or CPU tensors, not {x.device}")
     if w.dtype not in _ENTRIES:
         raise NotImplementedError(
-            f"the argmax_head kernel takes a float32 or bf16 lm_head, not "
-            f"{w.dtype}; an int8 head keeps lm_logits + argmax (the TPU kernel "
-            "has no int8 mode), float16 is still to port (ROADMAP B5)")
+            f"the argmax_head kernel takes a float32, bf16 or float16 lm_head, "
+            f"not {w.dtype}; an int8 head keeps lm_logits + argmax (the TPU "
+            "kernel has no int8 mode)")
     D, VS = w.shape
     vec = 16 // w.element_size()
     if VS % vec or not w.is_contiguous() or w.data_ptr() % 16:

@@ -3,7 +3,7 @@ pool, following each row's block table, as a hand-written CUDA kernel
 (`csrc/paged_attention.cu`) beside its plain PyTorch version.
 
 Counterpart of `llama3np_tpu.ops.kernels.paged_attention.paged_attention`,
-with the same three modes, over float32, bf16 or int8 pools:
+with the same three modes, over float32, bf16, float16 or int8 pools:
 
 * plain: pools [P, KVH, page, HD], row b attends kv_idx <= pos[b];
 * stacked (`layer` given): the whole-model pools [NL, P, KVH, page, HD]
@@ -20,18 +20,20 @@ The kernel reads the scale pools through the block table, as it reads the
 values; the JAX package's per-row scale gather fed a TPU VMEM block and is
 not taken over (the plain version gathers, as the XLA path did).
 
-bf16 pools take bf16 q, cur_k/cur_v and window rows (the activation and
-pool dtypes of a bf16 model) and return bf16; the kernel widens everything
-to f32 and accumulates in f32, as the TPU kernel does, and the plain
-version computes on f32 copies.  int8 pools under a bf16 q, and float16,
-are still to port.
+bf16 and float16 pools take q, cur_k/cur_v and window rows of their dtype
+(the activation and pool dtypes of a 16-bit model) and return it; int8
+pools take a float32, bf16 or float16 q and return q's dtype (a 16-bit
+model's int8 KV).  The kernel widens everything to f32 and accumulates in
+f32, as the TPU kernel does, rounding once at the output; the plain version
+computes on f32 copies of q and the float rows, so it never takes the XLA
+op's rounding of the probabilities to a 16-bit q's dtype.
 
 The kernel cuts each row's visible tokens into chunks of C pages, one
 block a chunk (`chunk_pages` picks C from static shapes only), and merges
 the chunks of the rows that used more than one.  It takes any even HD <=
-128 in float32 and bf16 and HD % 4 == 0 in int8; the JAX `supports()` gate
-(HD % 128 == 0) was a TPU DMA rule and has no counterpart, so every paged
-decode on the card goes through the kernel.  `paged_attention` launches
+128 in float32, bf16 and float16 and HD % 4 == 0 in int8; the JAX
+`supports()` gate (HD % 128 == 0) was a TPU DMA rule and has no
+counterpart, so every paged decode on the card goes through the kernel.  `paged_attention` launches
 the kernel for CUDA tensors and runs `paged_attention_plain` for CPU
 tensors; there is no fallback from one to the other.  `paged_attention.launches` counts launches (one per call).
 """
@@ -46,9 +48,13 @@ import torch
 from .. import core
 from . import _build
 
-_ENTRIES = {torch.float32: "l3t_paged_attention_f32",
-            torch.int8: "l3t_paged_attention_i8",
-            torch.bfloat16: "l3t_paged_attention_bf16"}
+# The C entry of each (pool dtype, q dtype) mode.
+_ENTRIES = {(torch.float32, torch.float32): "l3t_paged_attention_f32",
+            (torch.int8, torch.float32): "l3t_paged_attention_i8",
+            (torch.int8, torch.bfloat16): "l3t_paged_attention_i8_bf16",
+            (torch.int8, torch.float16): "l3t_paged_attention_i8_f16",
+            (torch.bfloat16, torch.bfloat16): "l3t_paged_attention_bf16",
+            (torch.float16, torch.float16): "l3t_paged_attention_f16"}
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -60,12 +66,17 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           win_count: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch: the gather oracle
     (`ops.core.paged_attention`, or `paged_attention_stacked` when `layer`
-    is given).  bf16 pools run it on f32 copies of q, the rows and the pool
-    of the layer read, and return q's dtype (the kernel's f32 math)."""
-    if k_pages.dtype == torch.bfloat16:
+    is given).  A 16-bit q runs it on f32 copies of q and of the float rows
+    (16-bit pools: the pool of the layer read; int8 pools and their f32
+    scales as they are) and returns q's dtype: the kernel's f32 math, one
+    rounding at the output."""
+    if q.dtype != torch.float32:
         if layer is not None:
-            k_pages, v_pages, layer = k_pages[layer : layer + 1], v_pages[layer : layer + 1], 0
-        up = [None if t is None else t.float()
+            k_pages, v_pages = k_pages[layer : layer + 1], v_pages[layer : layer + 1]
+            if k_scale is not None:
+                k_scale, v_scale = k_scale[layer : layer + 1], v_scale[layer : layer + 1]
+            layer = 0
+        up = [None if t is None else t.float() if t.is_floating_point() else t
               for t in (q, k_pages, v_pages, cur_k, cur_v, win_k, win_v)]
         return paged_attention_plain(
             *up[:3], block_table, pos, k_scale, v_scale, layer, *up[3:5],
@@ -180,13 +191,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     """Decode attention over the paged cache, following the block tables.
 
     q: [B, 1, NH, HD]; pools [P, KVH, page, HD] (or [NL, P, KVH, page, HD]
-    with `layer`), float32, bf16, or int8 with their scale pools; block_table [B,
-    maxp] (unused entries -> null page 0); pos [B].  Modes and scales as
-    the module docstring sets out.  A row whose pos ran past its table
-    attends the table's pages and stays in bounds.  Returns [B, 1, NH,
-    HD].  CUDA tensors must be contiguous: float32 q, pools and rows;
-    float32 q and scales with int8 pools and rows; or bf16 q, pools and
-    rows; block_table and pos int32.
+    with `layer`), float32, bf16, float16, or int8 with their scale pools;
+    block_table [B, maxp] (unused entries -> null page 0); pos [B].  Modes
+    and scales as the module docstring sets out.  A row whose pos ran past
+    its table attends the table's pages and stays in bounds.  Returns [B,
+    1, NH, HD].  CUDA tensors must be contiguous: float32 q, pools and
+    rows; a float32, bf16 or float16 q with int8 pools and rows and float32
+    scales; or bf16 (float16) q, pools and rows; block_table and pos
+    int32.
     """
     scales = dict(k_scale=k_scale, v_scale=v_scale, cur_ks=cur_ks,
                   cur_vs=cur_vs, win_ks=win_ks, win_vs=win_vs)
@@ -202,16 +214,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     quant = k_pages.dtype == torch.int8
     rows = [t for t in (k_pages, v_pages, cur_k, cur_v, win_k, win_v) if t is not None]
     floats = [t for t in scales.values() if t is not None]
-    q_dtype = torch.bfloat16 if k_pages.dtype == torch.bfloat16 else torch.float32
-    if k_pages.dtype not in _ENTRIES or q.dtype != q_dtype \
-            or any(t.dtype != k_pages.dtype for t in rows) \
+    entry = _ENTRIES.get((k_pages.dtype, q.dtype))
+    if entry is None or any(t.dtype != k_pages.dtype for t in rows) \
             or any(t.dtype != torch.float32 for t in floats):
         raise NotImplementedError(
-            f"the paged_attention kernel takes float32 pools and rows with "
-            f"float32 q, int8 ones with float32 q and scales, or bf16 ones "
-            f"with bf16 q (got {k_pages.dtype} pools, {q.dtype} q); int8 "
-            "pools under a bf16 q are still to port (ROADMAP B4), float16 "
-            "too (ROADMAP B5)")
+            f"the paged_attention kernel takes float32, bf16 or float16 pools "
+            f"and rows under a q of their dtype, or int8 ones with float32 "
+            f"scales under a float32, bf16 or float16 q (got {k_pages.dtype} "
+            f"pools, {q.dtype} q)")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention takes int32 block_table and pos on the card")
     if not all(t.is_contiguous() for t in tensors):
@@ -246,14 +256,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
             int(layer is not None), win_q, win_count, C, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     if quant:
-        rc = lib.l3t_paged_attention_i8(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), block_table.data_ptr(),
             pos.data_ptr(), ptr(cur_k), ptr(cur_v), ptr(cur_ks), ptr(cur_vs),
             ptr(win_k), ptr(win_v), ptr(win_ks), ptr(win_vs), o.data_ptr(),
             part_ml.data_ptr(), part_acc.data_ptr(), *ints)
     else:
-        rc = getattr(lib, _ENTRIES[k_pages.dtype])(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), pos.data_ptr(), ptr(cur_k), ptr(cur_v),
             ptr(win_k), ptr(win_v), o.data_ptr(), part_ml.data_ptr(),

@@ -22,13 +22,14 @@ the next admission.
     cache holds int8 rows with per-(token, KV head) scales.  Admission
     prefills into a row cache of the activation dtype, and its rows
     quantize once, when they are copied into the slot or the pages.
-  * A bf16 model serves from bf16 pools (the cache follows `kv_dtype`);
-    on the card its paged steps run the paged kernel's bf16 mode.
+  * A bf16 (float16) model serves from bf16 (float16) pools (the cache
+    follows `kv_dtype`), or with `kv_quant="int8"` from int8 pools under
+    its 16-bit q; on the card its paged steps run the paged kernel's mode
+    for that pool and q.
 
 Still to port, each raising NotImplementedError: sampling (`temperature >
-0`, ROADMAP A5), the prefix cache (`prefix_cache`, with `gather_pool_row`,
-A9), multi-LoRA (`adapters`, A12), tensor-parallel serving (A14), and on
-the card int8 KV under bf16 activations (B4).
+0`, ROADMAP A1), the prefix cache (`prefix_cache`, with `gather_pool_row`,
+A2), multi-LoRA (`adapters`, A7) and tensor-parallel serving (A9).
 """
 
 from __future__ import annotations
@@ -180,22 +181,18 @@ class BatchEngine:
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         self.kv_quant = kv_quant
-        if kv_quant and self.cfg.kernels and self.args.dtype != "float32":
-            raise NotImplementedError("the paged kernel's int8 mode takes float32 "
-                                      "q: int8 KV under bf16 activations is still "
-                                      "to port (ROADMAP B4)")
         # int8 caches: admission prefills in the activation dtype and its
         # rows quantize once, at the copy into the cache.
         self._row_dt = torch_dtype(self.args.dtype) if kv_quant else None
         if prefix_cache:
             raise NotImplementedError("the prefix cache is still to port "
-                                      "(ROADMAP A9)")
+                                      "(ROADMAP A2)")
         if adapters:
             raise NotImplementedError("multi-LoRA serving is still to port "
-                                      "(ROADMAP A12)")
+                                      "(ROADMAP A7)")
         if self.args.mesh_tp > 1 or self.args.mesh_dp > 1:
             raise NotImplementedError("sharded serving is still to port "
-                                      "(ROADMAP A14)")
+                                      "(ROADMAP A9)")
         if admit_chunk is not None:
             # Chunked admission parks the slot on an all-zero block table:
             # interleaved decode steps write its K/V into the null page,
@@ -246,11 +243,11 @@ class BatchEngine:
                adapter: Optional[int] = None) -> Request:
         if temperature > 0:
             raise NotImplementedError("sampled serving is still to port "
-                                      "(ROADMAP A5); the port serves greedy "
+                                      "(ROADMAP A1); the port serves greedy "
                                       "requests")
         if adapter is not None:
             raise NotImplementedError("multi-LoRA serving is still to port "
-                                      "(ROADMAP A12)")
+                                      "(ROADMAP A7)")
         req = Request(next(self._ids), list(prompt_ids), max_new_tokens,
                       tuple(stop_ids), temperature, logprobs=logprobs)
         # Validate at submission: a bad request must fail here, not in a

@@ -76,13 +76,37 @@ def test_flash_prefill_bf16_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
                                **BF16_TOL)
 
 
+# float16 kernels against their twins: one rounding of an f32 result, two
+# float16 ulps (2^-11 relative each).
+F16_TOL = dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("B,L,NH,KVH,HD", [
+    (2, 32, 4, 2, 16), (1, 100, 6, 6, 48), (1, 70, 8, 2, 128), (1, 1, 4, 4, 64),
+    (1, 65, 32, 8, 128), (1, 512, 32, 8, 128), (1, 500, 32, 4, 64),
+    (2, 33, 4, 2, 8), (1, 77, 4, 1, 20),
+])
+def test_flash_prefill_f16_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
+    """float16 q, k, v on the tensor cores (float16 operands, P as a hi + lo
+    float16 pair) against the twin's f32 math rounded once."""
+    g = torch.Generator().manual_seed(L + 2)
+    q, k, v = (torch.randn(B, L, h, HD, generator=g).to(cuda, torch.float16)
+               for h in (NH, KVH, KVH))
+    before = flash_prefill.launches
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1 and got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), flash_prefill_plain(q, k, v).float(),
+                               **F16_TOL)
+
+
 def test_flash_prefill_kernel_refuses_unported_dtypes(cuda):
-    """float16 and mixed dtypes are still to port."""
+    """Mixed dtypes: no kernel mode takes them."""
     q = torch.zeros(1, 8, 2, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_prefill(q, q, q)
+    with pytest.raises(NotImplementedError, match="all float32, all bf16"):
+        flash_prefill(q, q.to(torch.bfloat16), q)
     b = q.to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="all float32, all bf16"):
         flash_prefill(b, b.float(), b.float())
 
 
@@ -166,9 +190,10 @@ def test_decode_layers_kernel_refuses_unported_modes(cuda):
                       head_dim=d // nh, norm_eps=1e-5)
 
 
-# The four decode modes: (weights int8?, activation dtype).
+# The decode modes: (weights int8?, activation dtype).
 DECODE_MODES = {"fp32": (False, torch.float32), "int8": (True, torch.float32),
-                "bf16": (False, torch.bfloat16), "int8-bf16": (True, torch.bfloat16)}
+                "bf16": (False, torch.bfloat16), "int8-bf16": (True, torch.bfloat16),
+                "fp16": (False, torch.float16), "int8-fp16": (True, torch.float16)}
 
 
 def _decode_call(cuda, mode, nl, d, nh, kvh, fd, M, pos, seed):
@@ -200,6 +225,32 @@ def test_decode_layers_int8_bf16_kernel_matches_plain(cuda, pos, d, nh, kvh, fd)
     torch.cuda.synchronize()
     want = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)[0]
     assert got.dtype == torch.bfloat16
+    tol = dict(rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(k1[:, :, pos].float(), k2[:, :, pos].float(), **tol)
+    torch.testing.assert_close(v1[:, :, pos].float(), v2[:, :, pos].float(), **tol)
+    others = torch.arange(M, device=cuda) != pos
+    assert torch.equal(k1[:, :, others], kc[:, :, others])
+    assert torch.equal(v1[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("mode", ["fp16", "int8-fp16"])
+@pytest.mark.parametrize("pos", [0, 40, 127])
+@pytest.mark.parametrize("d,nh,kvh,fd", [(256, 8, 2, 512), (768, 6, 2, 2048), (64, 4, 2, 128)])
+def test_decode_layers_f16_kernel_matches_plain(cuda, mode, pos, d, nh, kvh, fd):
+    """float16 weights, and int8 weights under float16 activations (the
+    activation rounded to bf16 for the int8 products, float16 norms, caches
+    and residual), against the twin at pos 0 / mid / M-1; HD = 32, 128 and
+    16: output and new rows within 3e-2, other cache rows untouched."""
+    nl, M = 2, 128
+    layers, x, kc, vc, cos, sin, kw = _decode_call(cuda, mode, nl, d, nh, kvh, fd, M, pos,
+                                                   seed=pos + d + 1)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = decode_layers.launches
+    got = decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)[0]
+    torch.cuda.synchronize()
+    assert decode_layers.launches == before + 1 and got.dtype == torch.float16
+    want = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)[0]
     tol = dict(rtol=3e-2, atol=3e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.testing.assert_close(k1[:, :, pos].float(), k2[:, :, pos].float(), **tol)
@@ -243,12 +294,12 @@ def test_decode_layers_kernel_after_other_shapes(cuda, mode):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D,VS", [(288, 32000), (2048, 32000), (4096, 128256), (64, 1000)])
 def test_argmax_head_kernel_matches_plain(cuda, dtype, D, VS):
     """Exact tokens on random rows, a tie planted across a block boundary
-    (256 bf16 or 128 f32 columns a block: the lower column wins), and a
-    vocab that leaves a partial last block."""
+    (256 bf16 / float16 or 128 f32 columns a block: the lower column wins),
+    and a vocab that leaves a partial last block."""
     g = torch.Generator(cuda).manual_seed(D)  # made on the card: 0.5 G weights
     w = (torch.randn(D, VS, generator=g, device=cuda) * 0.02).to(dtype)
     before = argmax_head.launches
@@ -574,7 +625,8 @@ def _boundary_call(cuda, dtype, mode, seed):
 
 
 @pytest.mark.parametrize("mode", ["plain", "stacked", "window2"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16,
+                                   torch.float16])
 def test_paged_attention_kernel_chunk_boundaries(cuda, dtype, mode):
     """Rows at the chunk schedule's boundary lengths (one chunk, one token
     into the next, the full table, past it) in every pool dtype and mode."""
@@ -582,8 +634,108 @@ def test_paged_attention_kernel_chunk_boundaries(cuda, dtype, mode):
     got = paged_attention(*args, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    tol = BF16_TOL if dtype == torch.bfloat16 else dict(rtol=1e-4, atol=1e-5)
+    tol = {torch.bfloat16: BF16_TOL, torch.float16: F16_TOL}.get(
+        dtype, dict(rtol=1e-4, atol=1e-5))
     torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(), **tol)
+
+
+HALF_TOL = {torch.bfloat16: BF16_TOL, torch.float16: F16_TOL}
+
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window2"])
+def test_paged_attention_int8_16bit_q_chunk_boundaries(cuda, qdt, mode):
+    """int8 pools under a bf16 or float16 q at the chunk boundary lengths:
+    q widened to f32, one rounding at the output (the merge's too)."""
+    args, kw = _boundary_call(cuda, torch.int8, mode, seed=7)
+    args = (args[0].to(qdt),) + args[1:]
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == qdt and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(),
+                               **HALF_TOL[qdt])
+
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window0", "window1", "window3"])
+@pytest.mark.parametrize("NH,KVH,HD", [(6, 6, 48), (8, 2, 64), (32, 8, 128), (4, 2, 20)])
+def test_paged_attention_int8_16bit_q_kernel_matches_plain(cuda, qdt, mode, NH, KVH, HD):
+    """int8 pools with scales under a bf16 or float16 q (a 16-bit model's
+    int8 KV) in the three modes, with an overrun row; G 1, 4 and 2; HD=20
+    takes the 4-byte loads."""
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD + 3)
+    args, kw = _int8_pools(a, None if mode == "plain" else 1)
+    args = (args[0].to(qdt),) + args[1:]
+    if mode == "stacked":
+        for name in ("win_k", "win_v", "win_ks", "win_vs"):
+            kw.pop(name)
+    elif mode != "plain":
+        kw["win_count"] = int(mode[-1])
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1 and got.dtype == qdt
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(),
+                               **HALF_TOL[qdt])
+
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+def test_paged_attention_int8_16bit_q_ignores_masked_scales(cuda, qdt):
+    """Under a 16-bit q as under f32: NaN/inf scales and garbage values in
+    masked slots never reach the output."""
+    B, NH, KVH, HD, page, maxp = 3, 8, 2, 64, 16, 4
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, 2, 4, seed=4)
+    pos = torch.tensor([5, 17, 40], dtype=torch.int32, device=cuda)
+    bt = torch.arange(1, 1 + B * maxp, dtype=torch.int32, device=cuda).reshape(B, maxp)
+    bt[:, 3:] = 0
+    args, kw = _int8_pools(a, layer=0)
+    args = (args[0].to(qdt), args[1], args[2], bt, pos)
+    kw["win_count"] = 2
+    clean = paged_attention(*args, **kw)
+    k8, v8 = args[1].clone(), args[2].clone()
+    ks, vs = kw["k_scale"].clone(), kw["v_scale"].clone()
+    ks[:, 0], vs[:, 0], k8[:, 0], v8[:, 0] = float("nan"), float("inf"), 127, -128
+    for b, p in enumerate(pos.tolist()):  # slots >= pos of the row's pages
+        for t in range(p, 3 * page):
+            pid = int(bt[b, t // page])
+            ks[0, pid, :, t % page] = float("nan")
+            vs[0, pid, :, t % page] = float("inf")
+            v8[0, pid, :, t % page] = 99
+    wks, wvs = kw["win_ks"].clone(), kw["win_vs"].clone()
+    wks[:, :, 2:], wvs[:, :, 2:] = float("nan"), float("inf")
+    kw.update(k_scale=ks, v_scale=vs, win_ks=wks, win_vs=wvs)
+    got = paged_attention(args[0], k8, v8, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+
+
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window0", "window1", "window3"])
+@pytest.mark.parametrize("NH,KVH,HD", [(6, 6, 48), (8, 2, 64), (32, 8, 128), (4, 2, 20),
+                                       (64, 4, 64)])
+def test_paged_attention_f16_kernel_matches_plain(cuda, mode, NH, KVH, HD):
+    """float16 q, pools and rows in the three modes, with an overrun row;
+    G <= 16 with HD % 16 == 0 takes the tensor-core form, G = 16 at HD=64
+    too, HD=48 with G=1 as well; HD=20 the CUDA-core walk."""
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = {k: v.to(torch.float16) if v.is_floating_point() else v for k, v in
+         _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD + 4).items()}
+    if mode == "plain":
+        args = (a["q"], a["kp"][1].contiguous(), a["vp"][1].contiguous(), a["bt"], a["pos"])
+        kw = {}
+    else:
+        args = (a["q"], a["kp"], a["vp"], a["bt"], a["pos"])
+        kw = dict(layer=1, cur_k=a["ck"], cur_v=a["cv"])
+        if mode.startswith("window"):
+            kw.update(win_k=a["wk"], win_v=a["wv"], win_count=int(mode[-1]))
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1 and got.dtype == torch.float16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), paged_attention_plain(*args, **kw).float(),
+                               **F16_TOL)
 
 
 def test_kernels_are_deterministic(cuda):
@@ -596,20 +748,35 @@ def test_kernels_are_deterministic(cuda):
     assert torch.equal(flash_prefill(q, k, v), flash_prefill(q, k, v))
     args, kw = _boundary_call(cuda, torch.bfloat16, "window2", seed=6)
     assert torch.equal(paged_attention(*args, **kw), paged_attention(*args, **kw))
+    q, k, v = (t.half() for t in (q, k, v))
+    assert torch.equal(flash_prefill(q, k, v), flash_prefill(q, k, v))
+    args, kw = _boundary_call(cuda, torch.float16, "window2", seed=6)
+    assert torch.equal(paged_attention(*args, **kw), paged_attention(*args, **kw))
+    args, kw = _boundary_call(cuda, torch.int8, "window2", seed=6)
+    args = (args[0].to(torch.bfloat16),) + args[1:]
+    assert torch.equal(paged_attention(*args, **kw), paged_attention(*args, **kw))
 
 
 def test_paged_attention_kernel_refuses_unported_pools(cuda):
-    """int8 pools under a bf16 q, and float16 pools, are still to port."""
+    """A float pool under a q of another dtype, and int8 scales other than
+    float32: no kernel mode takes them (int8 pools under a bf16 or float16
+    q, and float16 pools, run)."""
     bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
     q = torch.zeros(1, 1, 4, 16, device=cuda, dtype=torch.bfloat16)
-    pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.int8)
-    scale = torch.ones(3, 2, 8, device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        paged_attention(q, pool, pool, bt, pos, k_scale=scale, v_scale=scale)
     half = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        paged_attention(q.half(), half, half, bt, pos)
+    with pytest.raises(NotImplementedError, match="under a q of their dtype"):
+        paged_attention(q, half, half, bt, pos)
+    with pytest.raises(NotImplementedError, match="under a q of their dtype"):
+        paged_attention(q.float(), half, half, bt, pos)
+    pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.int8)
+    scale = torch.ones(3, 2, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float32 scales"):
+        paged_attention(q, pool, pool, bt, pos, k_scale=scale, v_scale=scale)
+    got = paged_attention(q, pool, pool, bt, pos, k_scale=scale.float(),
+                          v_scale=scale.float())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and not got.float().abs().any()
 
 
 @pytest.mark.parametrize("kv_quant", [None, "int8"])
@@ -697,10 +864,87 @@ def test_card_int8_bf16_engine_runs_the_kernels(cuda, name):
 
 
 def test_card_engine_refuses_unported_modes(cuda):
+    """On the card's kernel path only the kv_dtype override still raises;
+    float16 and int8 KV under a 16-bit q build."""
     w = synthetic_weights(preset("test-tiny"), seed=1)
-    for kw in (dict(dtype="float16"), dict(dtype="float32", kv_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in (dict(dtype="float32", kv_dtype="bfloat16"),
+               dict(dtype="bfloat16", kv_dtype="float32")):
+        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
             Llama(w, preset("test-tiny", **kw), device=cuda)
+    assert Llama(w, preset("test-tiny", dtype="float16"), device=cuda).cfg.kernels
     eng = Llama(w, preset("test-tiny", dtype="bfloat16"), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant="int8")
+    be = BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant="int8")
+    assert be.cache["k"].dtype == torch.int8
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+@pytest.mark.parametrize("name", ["test-tiny", "test-tiny-mha"])
+def test_card_f16_engine_runs_the_kernels(cuda, name, quant):
+    """A float16 model on the card (float16 or int8 weights): greedy
+    generation through the float16 flash kernel, the decode kernel's
+    float16 (int8/float16) mode and the float16 greedy head (none for an
+    int8 lm_head), its last-prompt logits within the float16 envelope of
+    tests/test_dtype.py (2e-2 x max(1, max |logits|)) of the plain path's,
+    top-1 equal; paged serving over float16 pools, and over int8 pools,
+    through the paged kernel, every page back."""
+    args = preset(name, dtype="float16", quant=quant)
+    w = synthetic_weights(args, seed=7)
+    ids = [[1, 7, 30, 41, 5]]
+    eng = Llama(w, args, device=cuda)
+    before = (flash_prefill.launches, decode_layers.launches, argmax_head.launches)
+    toks = eng.generate_tokens(ids, 12).cpu()
+    assert toks.shape == (1, 12)
+    assert (flash_prefill.launches - before[0], decode_layers.launches - before[1],
+            argmax_head.launches - before[2]) == (args.n_layers, 11, 0 if quant else 11)
+    got = eng(ids, 0)
+    want = Llama(w, args.replace(attn_impl="xla"), device=cuda)(ids, 0)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 2e-2 * max(1.0, np.abs(want).max())
+    assert got[0, -1].argmax() == want[0, -1].argmax()
+    for kv_quant in (None, "int8"):
+        be = BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant=kv_quant)
+        assert be.cache["k"].dtype == (torch.int8 if kv_quant else torch.float16)
+        before = paged_attention.launches
+        reqs = [be.submit([1, 7, 30, 41, 5], 9, stop_ids=()),
+                be.submit([3, 9, 11], 6, stop_ids=())]
+        steps = 0
+        while be.num_active:
+            be.step()
+            steps += 1
+        assert paged_attention.launches == before + args.n_layers * steps
+        assert [len(r.generated) for r in reqs] == [9, 6]
+        assert be.allocator.available == be.allocator.num_pages - 1
+
+
+@pytest.mark.parametrize("quantum", [1, 3])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_card_16bit_int8_kv_batch_engine(cuda, dtype, quantum):
+    """int8 KV under a 16-bit q on the card: every paged decode step runs
+    the paged kernel's int8/bf16 (int8/float16) mode once a layer, every
+    stream runs to its budget, every page comes back, and the first token
+    of each request (from the prefill, no paged step) is the CPU engine's."""
+    args = preset("test-tiny", dtype=dtype, kv_quant="int8")
+    w = synthetic_weights(args, seed=23)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, args.vocab_size, size=n).tolist() for n in (4, 9, 6)]
+
+    def serve(device):
+        be = BatchEngine(Llama(w, args, device=device), capacity=2, paged=True,
+                         page_size=8)
+        assert be.cache["k"].dtype == torch.int8
+        reqs, steps = [be.submit(prompts[0], 10, stop_ids=())], 0
+        for p in prompts[1:]:
+            be.step(quantum)
+            steps += quantum
+            reqs.append(be.submit(p, 10, stop_ids=()))
+        while be.num_active or be._queue:
+            be.step(quantum)
+            steps += quantum
+        assert be.allocator.available == be.allocator.num_pages - 1
+        return [r.generated for r in reqs], steps
+
+    before = paged_attention.launches
+    got, steps = serve(cuda)
+    assert paged_attention.launches == before + args.n_layers * steps
+    assert [len(g) for g in got] == [10, 10, 10]
+    assert [g[0] for g in got] == [g[0] for g in serve("cpu")[0]]

@@ -273,6 +273,67 @@ def test_paged_kernel_wrapper_int8_matches_jax_kernel(rng, win_count, nh, kvh, h
     assert_allclose(got.numpy(), np.asarray(want), rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
 
 
+# int8 pools under a 16-bit q: one rounding of the f32 result in q's dtype,
+# so two ulps of it (bf16 2^-8, float16 2^-11 relative a ulp).
+HALF_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2),
+            torch.float16: dict(rtol=2e-3, atol=2e-3)}
+JNP = {torch.bfloat16: jnp.bfloat16, torch.float16: jnp.float16}
+
+
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("win_count", ["plain", None, 0, 1, 4])
+@pytest.mark.parametrize("nh,kvh,hd,page", [(4, 2, 32, 8), (8, 2, 16, 8), (4, 1, 128, 4)])
+def test_paged_kernel_wrapper_int8_16bit_q_matches_jax_kernel(rng, qdt, win_count, nh,
+                                                              kvh, hd, page):
+    """int8 pools under a bf16 or float16 q (a 16-bit model's int8 KV) in
+    plain mode (win_count "plain"), stacked mode (None) and window mode
+    (count 0, partial, full), against the JAX kernel in interpret mode,
+    which widens q to f32 and rounds once, at the output.  Row 0 sits at
+    pos 0 (stacked: an all-null table), row 1 ends on a page boundary, and
+    the twin never takes the XLA op's rounding of the probabilities to q's
+    dtype."""
+    Lk, Bk, Pk, maxp, Q, li = 2, 3, 17, 4, 4, 1
+    q = normal(rng, Bk, 1, nh, hd)
+    jq, tq = jnp.asarray(q, JNP[qdt]), t(q).to(qdt)
+    (kp, ksp), (vp, vsp) = (q8(normal(rng, Lk, Pk, kvh, page, hd)) for _ in range(2))
+    bt = rng.permutation(np.arange(1, Pk))[: Bk * maxp].reshape(Bk, maxp).astype(np.int32)
+    if win_count == "plain":
+        pos = np.array([0, 2 * page - 1, maxp * page - 1], np.int32)
+        bt[0, 1:] = 0
+        bt[1, 2:] = 0
+        rows = (jops.gather_page_scales(jnp.asarray(ksp[li]), jnp.asarray(bt)),
+                jops.gather_page_scales(jnp.asarray(vsp[li]), jnp.asarray(bt)))
+        want = j_paged_kernel(jq, *map(jnp.asarray, (kp[li], vp[li], bt, pos)),
+                              k_scale_rows=rows[0], v_scale_rows=rows[1],
+                              interpret=True)
+        before = paged_attention.launches
+        got = paged_attention(tq, *map(t, (kp[li], vp[li], bt, pos)),
+                              k_scale=t(ksp[li]), v_scale=t(vsp[li]))
+        assert paged_attention.launches == before  # CPU: the plain version
+    else:
+        pos = np.array([0, 2 * page, maxp * page - Q], np.int32)
+        bt[0, :] = 0
+        bt[1, 2:] = 0
+        (ck, cks), (cv, cvs) = q8(normal(rng, Bk, kvh, hd)), q8(normal(rng, Bk, kvh, hd))
+        kw = dict(cur_k=ck, cur_v=cv, cur_ks=cks, cur_vs=cvs)
+        if win_count is not None:
+            (wk, wks), (wv, wvs) = (q8(normal(rng, Bk, kvh, Q, hd)),
+                                    q8(normal(rng, Bk, kvh, Q, hd)))
+            kw.update(win_k=wk, win_v=wv, win_ks=wks, win_vs=wvs)
+        jkw, tkw = _jt(kw)
+        rows = (jops.gather_page_scales_stacked(jnp.asarray(ksp), li, jnp.asarray(bt)),
+                jops.gather_page_scales_stacked(jnp.asarray(vsp), li, jnp.asarray(bt)))
+        want = j_paged_kernel(jq, *map(jnp.asarray, (kp, vp, bt, pos)),
+                              k_scale_rows=rows[0], v_scale_rows=rows[1], layer=li, **jkw,
+                              **({} if win_count is None
+                                 else {"win_count": jnp.int32(win_count)}),
+                              interpret=True)
+        got = paged_attention(tq, *map(t, (kp, vp, bt, pos)), k_scale=t(ksp),
+                              v_scale=t(vsp), layer=li, win_count=win_count, **tkw)
+    assert want.dtype == JNP[qdt] and got.dtype == qdt
+    assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **HALF_TOL[qdt])
+
+
 # ---------------------------------------------------------------------------
 # commits, caches
 # ---------------------------------------------------------------------------
@@ -553,3 +614,68 @@ def test_card_path_int8_with_cpu_tensors(rng):
     assert serve() == want
     assert paged_attention.launches == before
     eng.cfg = plain
+
+
+# ---------------------------------------------------------------------------
+# int8 KV under 16-bit activations: the serving engine against JAX's
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_kv_under_16bit_activations_matches_jax(rng, dtype, paged):
+    """BatchEngine(kv_quant="int8") under bf16 and float16 activations,
+    dense and paged, quantum 3, staggered admissions: the same streams as
+    the JAX BatchEngine on the same weights, and every stream its
+    capacity-1 stream."""
+    w = jsynth(jpreset("test-tiny"), seed=31)
+    engs = (jllama.Llama(w, jpreset("test-tiny", dtype=dtype, pallas_ffn_block=0)),
+            tllama.Llama(w, tpreset("test-tiny", dtype=dtype), device="cpu"))
+    prompts = [rng.integers(3, 512, size=n).tolist() for n in (5, 9, 3)]
+
+    def run(BE, eng):
+        be = BE(eng, capacity=2, paged=paged, kv_quant="int8")
+        assert be.cache["k"].dtype in (jnp.int8, torch.int8)
+        reqs = [be.submit(prompts[0], 9)]
+        be.step(quantum=3)
+        reqs += [be.submit(p, 9) for p in prompts[1:]]
+        while any(not r.done for r in reqs):
+            be.step(quantum=3)
+        return [r.generated for r in reqs]
+
+    got = both(engs, run)
+    assert got == [solo(BatchEngine, engs[1], p, 9, paged) for p in prompts]
+
+
+@pytest.mark.parametrize("dtype,quant", [("bfloat16", None), ("float16", None),
+                                         ("float16", "int8")])
+@pytest.mark.parametrize("paged", [False, True])
+def test_16bit_int8_kv_streams_do_not_depend_on_the_quantum(dtype, quant, paged):
+    """The C1 rule for the other 16-bit int8-KV engines: the capacity-1
+    stream at quantum 3 equals the one at quantum 1, and so do its top
+    log-probabilities, bit for bit in bf16 (bf16 with int8 weights is the
+    test above).  In float16 they agree to 1e-3: a quantum moves a token's
+    score from the cache's columns to the window's, the f32 softmax sums
+    the same values in another order, and a probability one f32 ulp apart
+    may round to float16 the other way (an 8th as likely in bf16).  The JAX
+    engine's float16 log-probabilities are not bit-equal across quanta
+    either."""
+    w = jsynth(jpreset("test-tiny"), seed=23)
+    eng = tllama.Llama(w, tpreset("test-tiny", dtype=dtype, quant=quant, kv_quant="int8"),
+                       device="cpu")
+    prompt = np.random.default_rng(2).integers(3, 512, size=6).tolist()
+
+    def stream(quantum):
+        be = BatchEngine(eng, capacity=1, paged=paged, logprobs=1,
+                         **(dict(page_size=8) if paged else {}))
+        assert be.cache["k"].dtype == torch.int8
+        req = be.submit(prompt, 12, stop_ids=(), logprobs=1)
+        while not req.done:
+            be.step(quantum)
+        return req.generated, [top[0][1] for top in req.top_logprobs]
+
+    got, again = stream(1), stream(3)
+    assert len(got[0]) == 12 and again[0] == got[0]
+    if dtype == "float16":
+        assert_allclose(again[1], got[1], rtol=0, atol=1e-3)
+    else:
+        assert again[1] == got[1]

@@ -450,7 +450,7 @@ def test_ragged_decode_refuses_unported():
     args = teng.args
     cache = tkv.init_cache(args, 2, device="cpu")
     z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tllama.forward_ragged_decode(teng.params, z, z, cache, teng.cos,
                                      teng.sin, teng.cfg, lora={})
     # Pre-gathered scale rows (the plain quantum loop's hoist) give the
