@@ -42,7 +42,9 @@ kernel's int8/bf16 mode against its twin, greedy generation against the
 plain path by the same rules, a trace with the plain int8 head's share,
 serving with int8 KV); last, the fp16 kernel modes alone at llama3-8b's
 shapes.  The greedy head is also re-timed against torch.matmul +
-torch.argmax in alternation at tinyllama-1.1b.  It prints one JSON line
+torch.argmax in alternation (tinyllama-1.1b fp32 and fp16, llama3-8b bf16),
+and fp32 flash prefill against scaled_dot_product_attention (stories15M
+L=16 and 100, tinyllama-1.1b L=512).  It prints one JSON line
 per phase (each with `t_s`, the seconds since start), then the `kernels`
 line.  Any failure raises and exits non-zero; the last line, `{"ok": true,
 "device": {...}}`, is printed only when every phase passed.  Without a
@@ -51,13 +53,16 @@ prints no result.
 
     python3 chip_smoke.py --decode-ab PARENT_DIR [MODEL:MODE[@POS,...] ...]
     python3 chip_smoke.py --paged-ab PARENT_DIR
+    python3 chip_smoke.py --kernel-ab PARENT_DIR
 
-run only an A/B of the decode kernel (or of the paged kernel): the one of
-the checkout unpacked at PARENT_DIR (e.g. `git archive` of the parent
-commit) against this one's, in one process, parent, change, change, parent
-at every shape of the decode phases, with each one's step breakdown from
-torch.profiler (the paged kernel: at llama3-8b's paged shapes, int8 pools
-under a bf16 and an fp16 q, and bf16 pools).
+run only an A/B of the decode kernel (or of the paged kernel, or of the
+greedy head and fp32 flash prefill): the one of the checkout unpacked at
+PARENT_DIR (e.g. `git archive` of the parent commit) against this one's, in
+one process, parent, change, change, parent at every shape of the decode
+phases, with each one's step breakdown from torch.profiler (the paged
+kernel: at llama3-8b's paged shapes, int8 pools under a bf16 and an fp16 q,
+and bf16 pools; the head and flash: at the shapes of `AB_HEADS` and
+`AB_FLASH`, with the library call in the same turns).
 
 Times are CUDA-event times on the card, after warm-up, averaged over many
 launches (flash prefill, the paged kernel, the greedy head and their
@@ -527,16 +532,17 @@ class Smoke:
 
     def argmax_phase(self, model: str, w, n_x: int = 16):
         """The greedy head against its plain twin on the model's lm_head w
-        [D, VS]: the same token for `n_x` random rows, and for a row whose
-        two top columns tie across a block boundary (the last column of
-        block 0 and the first of block 1, each summing to exactly 32: the
-        lower one must win).  `ms` is the device time per call (both
-        launches, `queued_ms`); `library_ms` one torch.matmul
-        + torch.argmax (in w's dtype: bf16 or fp16 rounds the logits), a yardstick
-        the port never calls."""
+        [D, VS]: the same token for `n_x` random rows, and for rows whose
+        two top columns tie across a strip boundary (the last column of
+        strip 0 and the first of strip 1) and, where D is split, across the
+        split boundary (the lower column's sum from split 1, the higher's
+        from split 0), each summing to exactly 32: the lower one must win.
+        `ms` is the device time per call (one launch, `queued_ms`);
+        `library_ms` one torch.matmul + torch.argmax (in w's dtype: bf16 or
+        fp16 rounds the logits), a yardstick the port never calls."""
         torch = self.torch
         from llama3np_tpu_torch.ops.kernels.greedy_head import (
-            argmax_head, argmax_head_plain)
+            argmax_head, argmax_head_plain, head_plan)
 
         D, VS = w.shape
         launches = argmax_head.launches
@@ -545,17 +551,22 @@ class Smoke:
         want = [int(argmax_head_plain(x, w)[0]) for x in xs]
         if got != want:
             raise AssertionError(f"argmax_head {model}: tokens {got} vs plain {want}")
-        cols = 32 * 16 // w.element_size()  # vocab columns of a block
-        tied = w.clone()
-        tied[:, cols - 1 : cols + 1] = 0
-        tied[0, cols - 1 : cols + 1] = 8.0
-        x = xs[0].clone()
-        x[0, 0] = 4.0
-        tie = (int(argmax_head(x, tied)[0]), int(argmax_head_plain(x, tied)[0]))
-        if tie != (cols - 1, cols - 1):
-            raise AssertionError(f"argmax_head {model}: tie across a block boundary "
-                                 f"gave {tie}, expected {cols - 1}")
-        del tied
+        cols, _, rows, splits = head_plan(D, VS, w.element_size(),
+                                          torch.cuda.get_device_properties(0).multi_processor_count)
+        ties = {"strip": (0, 0, cols - 1, cols)}  # rows of the lower and higher 8, columns
+        if splits > 1:
+            ties["split"] = (rows, 0, 3, 40)
+        for what, (r_lo, r_hi, lo, hi) in ties.items():
+            tied = w.clone()
+            tied[:, [lo, hi]] = 0
+            tied[r_lo, lo] = tied[r_hi, hi] = 8.0
+            x = xs[0].clone()
+            x[0, r_lo] = x[0, r_hi] = 4.0
+            tie = (int(argmax_head(x, tied)[0]), int(argmax_head_plain(x, tied)[0]))
+            if tie != (lo, lo):
+                raise AssertionError(f"argmax_head {model}: tie across a {what} boundary "
+                                     f"gave {tie}, expected {lo}")
+            del tied
         x = xs[1]
         ms = queued_ms(torch, lambda: argmax_head(x, w), 50)
         event_ms = time_ms(torch, lambda: argmax_head(x, w), 50)
@@ -567,7 +578,8 @@ class Smoke:
         bound_ms, bound_by = bound(nbytes, 2.0 * D * VS, BF16_FLOP_S if half else FP32_FLOP_S)
         row = {"phase": "kernel", "kernel": "argmax_head", "mode": dtype_name(w.dtype),
                "model": model, "shape": {"D": D, "VS": VS}, "rows_equal": n_x,
-               "tie_across_blocks_ok": True, "max_abs_err": 0.0, "tol": "exact token",
+               "grid": {"strips": -(-VS // cols), "splits": splits, "rows": rows},
+               "ties_ok": sorted(ties), "max_abs_err": 0.0, "tol": "exact token",
                "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
                "library_ms": library_ms, "vs_library": ms / library_ms,
@@ -1042,6 +1054,7 @@ def llama3_8b_phases(torch, smoke, card):
           "device_allocated_gb": torch.cuda.memory_allocated() / 1e9, "card": card})
 
     rows = {"argmax_head": smoke.argmax_phase("llama3-8b", eng.params["lm_head"])}
+    emit(head_alternation(torch, smoke, "llama3-8b", eng.params["lm_head"]))
     shape = (args.n_heads, args.kv_heads, args.head_dim)
     rows["flash_prefill"] = smoke.flash_phase("llama3-8b", 1, 512, *shape, dtype=bf16)
     smoke.flash_phase("llama3-8b", 1, 500, *shape, dtype=bf16)
@@ -1303,12 +1316,13 @@ def load_parent(parent_dir: str, module: str = "decode_step"):
     import importlib
     import importlib.util
 
-    pkg = os.path.join(os.path.abspath(parent_dir), "llama3np_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "l3t_parent", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules["l3t_parent"] = mod
-    spec.loader.exec_module(mod)
+    if "l3t_parent" not in sys.modules:  # one parent package a process
+        pkg = os.path.join(os.path.abspath(parent_dir), "llama3np_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "l3t_parent", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["l3t_parent"] = mod
+        spec.loader.exec_module(mod)
     return importlib.import_module(f"l3t_parent.ops.kernels.{module}")
 
 
@@ -1447,29 +1461,136 @@ def paged_ab(torch, parent_dir: str, card: str):
     return rows
 
 
-def head_alternation(torch, smoke, w, rounds: int = 6):
+def alternate(torch, fns: dict, reps: int, rounds: int = 6) -> dict:
+    """`queued_ms` of each callable in `fns`, `rounds` times, in turns that
+    reverse every round (a, b, ..., then ..., b, a): each one's series."""
+    series = {k: [] for k in fns}
+    for r in range(rounds):
+        for who in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            series[who].append(queued_ms(torch, fns[who], reps))
+    return series
+
+
+def spread_of(series: dict) -> dict:
+    """(max - min) / min of each series."""
+    return {k: (max(v) - min(v)) / min(v) for k, v in series.items()}
+
+
+def head_alternation(torch, smoke, model: str, w, rounds: int = 6):
     """The greedy head against one torch.matmul + torch.argmax on the same
     lm_head and row, alternated `rounds` times (kernel, library, library,
     kernel, ...), each a `queued_ms` of 50 calls: both series and their
-    spreads ((max - min) / min)."""
+    spreads."""
     from llama3np_tpu_torch.ops.kernels.greedy_head import argmax_head
 
     launches = argmax_head.launches
     x = smoke.randn(1, w.shape[0], dtype=torch.bfloat16).to(w.dtype)
-    fns = {"kernel": lambda: argmax_head(x, w),
-           "library": lambda: torch.argmax(torch.matmul(x, w), dim=-1)}
-    series = {"kernel": [], "library": []}
-    for r in range(rounds):
-        for who in (("kernel", "library") if r % 2 == 0 else ("library", "kernel")):
-            series[who].append(queued_ms(torch, fns[who], 50))
+    series = alternate(torch, {"kernel": lambda: argmax_head(x, w),
+                               "library": lambda: torch.argmax(torch.matmul(x, w), dim=-1)},
+                       50, rounds)
     argmax_head.launches = launches  # comparison launches do not count
-    spread = {k: (max(v) - min(v)) / min(v) for k, v in series.items()}
-    return {"phase": "head_alternation", "shape": {"D": w.shape[0], "VS": w.shape[1]},
-            "dtype": str(w.dtype).replace("torch.", ""), "ms": series, "spread": spread,
+    return {"phase": "head_alternation", "model": model,
+            "shape": {"D": w.shape[0], "VS": w.shape[1]},
+            "dtype": str(w.dtype).replace("torch.", ""), "ms": series,
+            "spread": spread_of(series),
             "kernel_mean_ms": sum(series["kernel"]) / rounds,
             "library_mean_ms": sum(series["library"]) / rounds,
             "kernel_slower_beyond_spread": min(series["kernel"]) > max(series["library"]),
             "card": smoke.card}
+
+
+def flash_alternation(torch, smoke, model: str, L, NH, KVH, HD, rounds: int = 6):
+    """fp32 flash prefill against one scaled_dot_product_attention
+    (`is_causal`, `enable_gqa`; TF32 off) on the same inputs, alternated
+    `rounds` times, each a `queued_ms` of 200 calls (50 from L = 256):
+    both series and their spreads."""
+    import torch.nn.functional as F
+    from llama3np_tpu_torch.ops.kernels.flash_prefill import flash_prefill
+
+    launches = flash_prefill.launches
+    q, k, v = (smoke.randn(1, L, h, HD) for h in (NH, KVH, KVH))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    series = alternate(torch, {
+        "kernel": lambda: flash_prefill(q, k, v),
+        "library": lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True)},
+        200 if L < 256 else 50, rounds)
+    flash_prefill.launches = launches  # comparison launches do not count
+    return {"phase": "flash_alternation", "model": model,
+            "shape": {"L": L, "NH": NH, "KVH": KVH, "HD": HD}, "dtype": "float32",
+            "ms": series, "spread": spread_of(series),
+            "kernel_mean_ms": sum(series["kernel"]) / rounds,
+            "library_mean_ms": sum(series["library"]) / rounds,
+            "kernel_slower_beyond_spread": min(series["kernel"]) > max(series["library"]),
+            "card": smoke.card}
+
+
+# The shapes `kernel_ab` times: the greedy head's lm_heads (D, VS, dtype) and
+# fp32 flash prefill's (L, NH, KVH, HD), as the main paths give them
+# (tinyllama-1.1b serving admits prompts in buckets up to 1,024).
+AB_HEADS = (("stories15M", 288, 32000, "float32"), ("tinyllama-1.1b", 2048, 32000, "float32"),
+            ("tinyllama-1.1b", 2048, 32000, "float16"),
+            ("llama3-8b", 4096, 128256, "bfloat16"))
+AB_FLASH = (("stories15M", 16, 6, 6, 48), ("stories15M", 100, 6, 6, 48),
+            ("tinyllama-1.1b", 256, 32, 4, 64), ("tinyllama-1.1b", 512, 32, 4, 64),
+            ("tinyllama-1.1b", 1024, 32, 4, 64))
+
+
+def kernel_ab(torch, parent_dir: str, card: str, rounds: int = 4):
+    """The greedy head and fp32 flash prefill of the checkout at
+    `parent_dir` against this one's and the library call, in one process on
+    one card: at each shape of AB_HEADS and AB_FLASH, the same inputs,
+    `queued_ms` in turns (parent, change, library, then reversed), and the
+    two kernels' outputs compared.  Returns the rows."""
+    import torch.nn.functional as F
+
+    from llama3np_tpu_torch.ops.kernels import flash_prefill as new_flash
+    from llama3np_tpu_torch.ops.kernels import greedy_head as new_head
+
+    old_head = load_parent(parent_dir, "greedy_head")
+    old_flash = load_parent(parent_dir, "flash_prefill")
+    t0 = time.perf_counter()
+    old_head._build.KernelLibrary.get()
+    new_head._build.KernelLibrary.get()
+    emit({"phase": "ab_build", "seconds": time.perf_counter() - t0,
+          "parent": os.path.relpath(old_head._build.KernelLibrary.path, REPO),
+          "change": os.path.relpath(new_head._build.KernelLibrary.path, REPO)})
+    g = torch.Generator("cuda").manual_seed(5)
+    rows = []
+    for model, D, VS, dt in AB_HEADS:
+        dtype = getattr(torch, dt)
+        w = (torch.randn(D, VS, generator=g, device="cuda") * 0.02).to(dtype)
+        x = torch.randn(1, D, generator=g, device="cuda").to(dtype)
+        fns = {"parent": lambda: old_head.argmax_head(x, w),
+               "change": lambda: new_head.argmax_head(x, w),
+               "library": lambda: torch.argmax(torch.matmul(x, w), dim=-1)}
+        toks = {k: int(f()[0]) for k, f in fns.items() if k != "library"}
+        series = alternate(torch, fns, 50, rounds)
+        row = {"phase": "kernel_ab", "kernel": "argmax_head", "model": model, "dtype": dt,
+               "shape": {"D": D, "VS": VS}, "ms": series, "spread": spread_of(series),
+               "tokens_equal": toks["parent"] == toks["change"], "card": card}
+        if not row["tokens_equal"]:
+            raise AssertionError(f"argmax_head A/B {model} {dt}: tokens {toks}")
+        emit(row)
+        rows.append(row)
+        del w
+    for model, L, NH, KVH, HD in AB_FLASH:
+        q, k, v = (torch.randn(1, L, h, HD, generator=g, device="cuda") for h in (NH, KVH, KVH))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        fns = {"parent": lambda: old_flash.flash_prefill(q, k, v),
+               "change": lambda: new_flash.flash_prefill(q, k, v),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)}
+        diff = (fns["change"]() - fns["parent"]()).abs().max().item()
+        series = alternate(torch, fns, 200 if L < 256 else 50, rounds)
+        row = {"phase": "kernel_ab", "kernel": "flash_prefill", "model": model,
+               "dtype": "float32", "shape": {"L": L, "NH": NH, "KVH": KVH, "HD": HD},
+               "ms": series, "spread": spread_of(series), "change_vs_parent_max_abs": diff,
+               "card": card}
+        emit(row)
+        rows.append(row)
+    new_head.argmax_head.launches = new_flash.flash_prefill.launches = 0
+    return rows
 
 
 def llama3_8b_int8_phases(torch, smoke, card):
@@ -1551,6 +1672,7 @@ def fp16_phases(torch, smoke, args, weights, prompt, workload, card):
     smoke.decode_phase(model, eng.params["layers"], h_args, 0)
     rows["decode_layers"] = smoke.decode_phase(model, eng.params["layers"], h_args, 511)
     rows["argmax_head"] = smoke.argmax_phase(model, eng.params["lm_head"])
+    emit(head_alternation(torch, smoke, model, eng.params["lm_head"]))
     rows["paged_attention"] = smoke.paged_phase(model, 8, *shape, 16, args.max_seq_len // 16,
                                                 skewed, NL=22, dtype=f16)
     rows["paged_attention_i8"] = smoke.paged_phase(
@@ -1663,6 +1785,11 @@ def main() -> int:
         # llama3-8b's shapes, then nothing else.
         paged_ab(torch, sys.argv[2], card)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel-ab":
+        # The greedy head and fp32 flash prefill of another checkout against
+        # this one's and the library calls, then nothing else.
+        kernel_ab(torch, sys.argv[2], card)
+        return 0
     t0 = time.perf_counter()
     _build.KernelLibrary.get()
     build_s = time.perf_counter() - t0
@@ -1683,6 +1810,8 @@ def main() -> int:
     hd = s_args.head_dim
     for L in (16, 100):
         smoke.flash_phase("stories15M", 1, L, s_args.n_heads, s_args.kv_heads, hd)
+        emit(flash_alternation(torch, smoke, "stories15M", L, s_args.n_heads,
+                               s_args.kv_heads, hd))
     for pos in (0, 5, 1023):
         smoke.decode_phase("stories15M", s_eng.params["layers"], s_args, pos)
     smoke.argmax_phase("stories15M", s_eng.params["lm_head"])
@@ -1729,10 +1858,12 @@ def main() -> int:
     t_eng = Llama(t_weights, t_args, device="cuda")
     flash_row = smoke.flash_phase("tinyllama-1.1b", 1, 512, t_args.n_heads,
                                   t_args.kv_heads, t_args.head_dim)
+    emit(flash_alternation(torch, smoke, "tinyllama-1.1b", 512, t_args.n_heads,
+                           t_args.kv_heads, t_args.head_dim))
     smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 0)
     decode_row = smoke.decode_phase("tinyllama-1.1b", t_eng.params["layers"], t_args, 511)
-    smoke.argmax_phase("tinyllama-1.1b", t_eng.params["lm_head"])
-    emit(head_alternation(torch, smoke, t_eng.params["lm_head"]))
+    head_row = smoke.argmax_phase("tinyllama-1.1b", t_eng.params["lm_head"])
+    emit(head_alternation(torch, smoke, "tinyllama-1.1b", t_eng.params["lm_head"]))
 
     prompt = np.random.default_rng(0).integers(3, t_args.vocab_size, size=(1, 500))
     n_tok = 32
@@ -1872,16 +2003,16 @@ def main() -> int:
     main_path = {"flash_prefill": "serve_q1", "decode_layers": "generate",
                  "paged_attention": "serve_q1", "argmax_head": "generate"}
     # The PR of each kernel mode's current design.
-    design = {("flash_prefill", "fp32"): "pr1", ("flash_prefill", "bf16"): "pr5",
+    design = {("flash_prefill", "fp32"): "pr8", ("flash_prefill", "bf16"): "pr5",
               ("decode_layers", "fp32"): "pr6", ("decode_layers", "int8"): "pr6",
               ("decode_layers", "bf16"): "pr6", ("decode_layers", "int8-bf16"): "pr6",
               ("paged_attention", "fp32"): "pr5",
               ("paged_attention", "int8"): "pr5", ("paged_attention", "bf16"): "pr5",
-              ("argmax_head", "bf16"): "pr4",
+              ("argmax_head", "fp32"): "pr8", ("argmax_head", "bf16"): "pr8",
               ("paged_attention", "int8-bf16"): "pr7", ("paged_attention", "int8-fp16"): "pr7",
               ("paged_attention", "fp16"): "pr7", ("flash_prefill", "fp16"): "pr7",
               ("decode_layers", "fp16"): "pr7", ("decode_layers", "int8-fp16"): "pr7",
-              ("argmax_head", "fp16"): "pr7"}
+              ("argmax_head", "fp16"): "pr8"}
 
     def stacked(row):  # the paged kernel's stacked mode stands for the row
         return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
@@ -1890,6 +2021,7 @@ def main() -> int:
     for row, paths in ((flash_row, by_path["flash_prefill"]),
                        (decode_row, by_path["decode_layers"]),
                        (stacked(paged_row), by_path["paged_attention"]),
+                       (head_row, by_path["argmax_head"]),
                        (decode_i8, i8_paths["decode_layers"]),
                        (stacked(paged_i8), i8_paths["paged_attention"]),
                        (b_rows["flash_prefill"], b_paths["flash_prefill"]),

@@ -12,24 +12,37 @@
 // tinyllama-1.1b in f32, 0.078 ms), at 2 FLOPs a weight: far below the
 // card's ratio of compute to bandwidth.
 //
-// Design.  The TPU kernel walks vocab blocks in order on one core and
-// carries a running (max, argmax) pair in SMEM from one grid step to the
-// next.  Blocks on the GPU run in parallel and in no order, so the carry
-// becomes two launches:
-//  1. argmax_head_partial: block b owns 32*V neighbouring vocab columns
-//     (V = 4 f32 or 8 bf16 / float16 weights a 16-byte load).  Lane c of every warp
-//     reads columns [c*V, c*V+V) of a row as one vector, so a warp reads 512
-//     contiguous bytes; the 8 warps take interleaved rows.  x is staged in
-//     shared memory once (widened to f32; the wrapper hands it over in the
-//     weight dtype, the TPU kernel's x.astype(w.dtype)).  The row groups'
-//     partial sums meet in shared memory in a fixed order, the columns past
-//     VS are masked to -inf, and the block reduces its columns to one
-//     (max, lowest index) pair.
-//  2. argmax_head_final: one block folds the pairs.
-// Both reductions use the total order "greater value, then lower index", so
-// the result does not depend on the order in which blocks run or pairs meet
-// (no float atomics), a tie across a block boundary goes to the lower
-// column, and a masked tail column (-inf) never beats a real one.
+// Design: one launch.  The TPU kernel walks vocab blocks in order on one
+// core and carries a running (max, argmax) pair in SMEM from one grid step
+// to the next.  Blocks on the GPU run in parallel and in no order, so:
+//  * The grid is (column strips x D splits).  A strip is 32*V neighbouring
+//    vocab columns (V = 4 f32 or 8 bf16 / float16 weights a 16-byte load):
+//    lane c of every warp reads columns [c*V, c*V+V) of a row as one
+//    vector, so a warp reads 512 contiguous bytes of a row.  A block takes
+//    the rows [split * rows, ...) of its strip; the wrapper's planner
+//    (`ops/kernels/greedy_head.head_plan`) sizes the splits from (D, VS,
+//    element size, SM count) so that the grid fills whole waves of four
+//    blocks an SM (__launch_bounds__(256, 4)), each block the same bytes.
+//  * Each step, the 8 warps read 64 rows: every lane issues its 8 16-byte
+//    loads before it multiplies any of them, so 32 KB of a block (128 KB
+//    of an SM) are in flight, enough to cover HBM latency.  The loads are
+//    streaming ones (ld.global.cs: the head is read once a token; 1-2.5 %
+//    faster than __ldg, PERF.md).
+//  * x's rows of the split are staged in shared memory once (widened to
+//    f32; the wrapper hands it over in the weight dtype, the TPU kernel's
+//    x.astype(w.dtype)).  The 8 warps' partial sums meet in shared memory
+//    in warp order.
+//  * Split-K finish: each block writes its split's column sums to scratch,
+//    and after a __threadfence counts its arrival on the strip's ticket;
+//    the last block of the strip to arrive sums the splits in split order
+//    (bit-equal from run to run, whatever order the blocks ran in), masks
+//    the columns past VS, and reduces the strip to one (max, lowest index)
+//    pair.  The last strip to finish (a second ticket) folds every strip's
+//    pair, writes the token and resets the tickets for the next call (each
+//    strip's last block resets its own), so no call pays for clearing them.
+// The reductions use the total order "greater value, then lower index", so
+// a tie across a split or strip boundary goes to the lower column, and a
+// masked tail column (-inf) never beats a real one.  No float atomics.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -40,41 +53,40 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowGroups = kThreads / 32;
-constexpr int kFinalThreads = 1024;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;                  // rows in flight a lane
+constexpr int kRowStep = kWarps * kUnroll;  // rows of a block step
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
-__device__ __forceinline__ void load_w(const float* p, float (&w)[4]) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  w[0] = v.x;
-  w[1] = v.y;
-  w[2] = v.z;
-  w[3] = v.w;
+// acc[j] += a * (the V weights in the 16 bytes `u`), widened exactly.
+__device__ __forceinline__ void fma_row(float (&acc)[4], float a, uint4 u, float) {
+  acc[0] = fmaf(a, __uint_as_float(u.x), acc[0]);
+  acc[1] = fmaf(a, __uint_as_float(u.y), acc[1]);
+  acc[2] = fmaf(a, __uint_as_float(u.z), acc[2]);
+  acc[3] = fmaf(a, __uint_as_float(u.w), acc[3]);
 }
 
-// Eight bf16 weights -> floats: a bf16 is the high half of its float.
-__device__ __forceinline__ void load_w(const __nv_bfloat16* p, float (&w)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+// Eight bf16 weights: a bf16 is the high half of its float.
+__device__ __forceinline__ void fma_row(float (&acc)[8], float a, uint4 u, __nv_bfloat16) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    w[2 * i] = __uint_as_float(u[i] << 16);
-    w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+    acc[2 * i] = fmaf(a, __uint_as_float(w[i] << 16), acc[2 * i]);
+    acc[2 * i + 1] = fmaf(a, __uint_as_float(w[i] & 0xffff0000u), acc[2 * i + 1]);
   }
 }
 
-// Eight float16 weights -> floats (exact).
-__device__ __forceinline__ void load_w(const __half* p, float (&w)[8]) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+// Eight float16 weights (exact in f32).
+__device__ __forceinline__ void fma_row(float (&acc)[8], float a, uint4 u, __half) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
-    w[2 * i] = f.x;
-    w[2 * i + 1] = f.y;
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    acc[2 * i] = fmaf(a, f.x, acc[2 * i]);
+    acc[2 * i + 1] = fmaf(a, f.y, acc[2 * i + 1]);
   }
 }
 
@@ -101,9 +113,8 @@ __device__ void block_best(float m, int i, float* red_m, int* red_i) {
   }
   __syncthreads();
   if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    m = lane < nw ? red_m[lane] : -INFINITY;
-    i = lane < nw ? red_i[lane] : INT32_MAX;
+    m = lane < kWarps ? red_m[lane] : -INFINITY;
+    i = lane < kWarps ? red_i[lane] : INT32_MAX;
     for (int off = 16; off > 0; off >>= 1) {
       const float m2 = __shfl_xor_sync(0xffffffffu, m, off);
       const int i2 = __shfl_xor_sync(0xffffffffu, i, off);
@@ -117,114 +128,151 @@ __device__ void block_best(float m, int i, float* red_m, int* red_i) {
   __syncthreads();
 }
 
+// Scratch (f32 words): [ks][VS] split column sums (ks > 1 only), then each
+// strip's max [strips], then its index [strips] (int32).  count: [strips]
+// strip tickets, then the fold's ticket; zero before and after every call.
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
-argmax_head_partial(const W* __restrict__ x, const W* __restrict__ w, int D,
-                    int VS, float* __restrict__ part_m, int* __restrict__ part_i) {
+__global__ void __launch_bounds__(kThreads, 4)
+argmax_head_kernel(const W* __restrict__ x, const W* __restrict__ w, int D, int VS,
+                   int rows, float* __restrict__ scratch, unsigned* __restrict__ count,
+                   int64_t* __restrict__ out) {
   constexpr int V = 16 / (int)sizeof(W);
-  constexpr int kCols = 32 * V;  // vocab columns of a block
-  extern __shared__ __align__(16) float smem[];
-  float* red = smem;                   // [kRowGroups][kCols] partial sums
-  float* xs = red + kRowGroups * kCols;  // [D] x, widened
+  constexpr int kCols = 32 * V;  // vocab columns of a strip
+  __shared__ __align__(16) float red[kWarps * kCols];  // the warps' partial sums
+  extern __shared__ float xs[];                          // [rows] x, widened
   __shared__ float red_m[32];
   __shared__ int red_i[32];
-  for (int i = threadIdx.x; i < D; i += kThreads) xs[i] = to_f(x[i]);
+  __shared__ int is_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int strip = blockIdx.x, split = blockIdx.y, ks = gridDim.y, strips = gridDim.x;
+  const int r0 = split * rows, n = min(D, r0 + rows) - r0;
+  float* part = scratch;
+  float* strip_m = scratch + (ks > 1 ? (size_t)ks * VS : 0);
+  int* strip_i = reinterpret_cast<int*>(strip_m + strips);
+  for (int i = tid; i < n; i += kThreads) xs[i] = to_f(x[r0 + i]);
   __syncthreads();
 
-  const int cx = threadIdx.x & 31, ry = threadIdx.x >> 5;
-  const int col = blockIdx.x * kCols + cx * V;
+  const int col = strip * kCols + lane * V;
   float acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
   if (col < VS) {  // VS % V == 0: the whole vector is in range
-    const W* wp = w + col;
-#pragma unroll 4
-    for (int r = ry; r < D; r += kRowGroups) {
-      float wv[V];
-      load_w(wp + (size_t)r * VS, wv);
-      const float a = xs[r];
+    const W* wp = w + (size_t)r0 * VS + col;
+    for (int g = warp; g < n; g += kRowStep) {
+      uint4 u[kUnroll];
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] = fmaf(a, wv[j], acc[j]);
+      for (int k = 0; k < kUnroll; ++k) {  // every load issued before any use
+        const int r = g + k * kWarps;
+        u[k] = r < n ? __ldcs(reinterpret_cast<const uint4*>(wp + (size_t)r * VS))
+                     : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int r = g + k * kWarps;
+        fma_row(acc, r < n ? xs[r] : 0.f, u[k], W());
+      }
     }
   }
-  float4* rr = reinterpret_cast<float4*>(red + ry * kCols + cx * V);
+  float4* rr = reinterpret_cast<float4*>(red + warp * kCols + lane * V);
 #pragma unroll
   for (int j = 0; j < V / 4; ++j)
     rr[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
   __syncthreads();
 
-  float m = -INFINITY;
-  int idx = INT32_MAX;
-  for (int c0 = threadIdx.x; c0 < kCols; c0 += kThreads) {
-    const int c = blockIdx.x * kCols + c0;
-    if (c < VS) {
-      float s = 0.f;
-      for (int r = 0; r < kRowGroups; ++r) s += red[r * kCols + c0];
-      take_better(m, idx, s, c);
+  // The split's column sums, warps in order (kCols <= kThreads: one a thread).
+  const int c = strip * kCols + tid;
+  float s = 0.f;
+  if (tid < kCols) {
+#pragma unroll
+    for (int r = 0; r < kWarps; ++r) s += red[r * kCols + tid];
+  }
+  if (ks > 1) {  // split-K: the strip's last block to arrive finishes it
+    if (tid < kCols && c < VS) part[(size_t)split * VS + c] = s;
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) is_last = atomicAdd(count + strip, 1u) == (unsigned)(ks - 1);
+    __syncthreads();
+    if (!is_last) return;
+    __threadfence();
+    if (tid < kCols && c < VS) {
+      s = 0.f;
+      for (int sp = 0; sp < ks; ++sp) s += __ldcg(part + (size_t)sp * VS + c);
     }
+    if (tid == 0) count[strip] = 0u;
   }
-  block_best(m, idx, red_m, red_i);
-  if (threadIdx.x == 0) {
-    part_m[blockIdx.x] = red_m[0];
-    part_i[blockIdx.x] = red_i[0];
-  }
-}
-
-__global__ void __launch_bounds__(kFinalThreads)
-argmax_head_final(const float* __restrict__ part_m, const int* __restrict__ part_i,
-                  int n, int64_t* __restrict__ out) {
-  __shared__ float red_m[32];
-  __shared__ int red_i[32];
   float m = -INFINITY;
   int idx = INT32_MAX;
-  for (int b = threadIdx.x; b < n; b += kFinalThreads) take_better(m, idx, part_m[b], part_i[b]);
+  if (tid < kCols && c < VS) {
+    m = s;
+    idx = c;
+  }
   block_best(m, idx, red_m, red_i);
-  if (threadIdx.x == 0) out[0] = red_i[0];
+
+  // The last strip to finish folds every strip's pair.
+  if (tid == 0) {
+    strip_m[strip] = red_m[0];
+    strip_i[strip] = red_i[0];
+    __threadfence();
+    is_last = atomicAdd(count + strips, 1u) == (unsigned)(strips - 1);
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  m = -INFINITY;
+  idx = INT32_MAX;
+  for (int b = tid; b < strips; b += kThreads)
+    take_better(m, idx, __ldcg(strip_m + b), __ldcg(strip_i + b));
+  block_best(m, idx, red_m, red_i);
+  if (tid == 0) {
+    out[0] = red_i[0];
+    count[strips] = 0u;
+  }
 }
 
 template <typename W>
-int run(const W* x, const W* w, int64_t* out, float* part_m, int* part_i, int D,
-        int VS, int device, void* stream) {
+int run(const W* x, const W* w, int64_t* out, float* scratch, unsigned* count, int D,
+        int VS, int rows, int device, void* stream) {
   constexpr int V = 16 / (int)sizeof(W);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaGetLastError();  // clear any stale error of this runtime
-  if (D < 1 || VS < 1 || VS % V != 0) return (int)cudaErrorInvalidValue;
+  if (D < 1 || VS < 1 || VS % V != 0 || rows < 1 || rows % kRowStep != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (VS + 32 * V - 1) / (32 * V);
-  const size_t smem = ((size_t)kRowGroups * 32 * V + D) * sizeof(float);
+  const dim3 grid((VS + 32 * V - 1) / (32 * V), (D + rows - 1) / rows);
+  const size_t smem = (size_t)rows * sizeof(float);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(argmax_head_partial<W>,
+    err = cudaFuncSetAttribute(argmax_head_kernel<W>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  argmax_head_partial<W><<<nb, kThreads, smem, st>>>(x, w, D, VS, part_m, part_i);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  argmax_head_final<<<1, kFinalThreads, 0, st>>>(part_m, part_i, nb, out);
+  argmax_head_kernel<W><<<grid, kThreads, smem, st>>>(x, w, D, VS, rows, scratch, count, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// part_m/part_i: one (float, int) pair per block of 32 * (16 / element
-// size) vocab columns.  x [D] and w [D, VS] row-major, both float32; out:
-// one int64.
+// x [D] and w [D, VS] row-major, both float32; out: one int64.  rows: the
+// rows of a D split (a multiple of 64; splits = ceil(D / rows)).  scratch:
+// (splits > 1 ? splits * VS : 0) + 2 * strips words, strips = VS / 128 (f32)
+// or VS / 256 (16-bit) rounded up; count: strips + 1 zeroed words, left zero.
 extern "C" int l3t_argmax_head_f32(const float* x, const float* w, int64_t* out,
-                                   float* part_m, int* part_i, int D, int VS,
-                                   int device, void* stream) {
-  return run<float>(x, w, out, part_m, part_i, D, VS, device, stream);
+                                   float* scratch, unsigned* count, int D, int VS,
+                                   int rows, int device, void* stream) {
+  return run<float>(x, w, out, scratch, count, D, VS, rows, device, stream);
 }
 
-// x [D] and w [D, VS] row-major, both bf16; out: one int64.
+// As l3t_argmax_head_f32, with bf16 x and w.
 extern "C" int l3t_argmax_head_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                                    int64_t* out, float* part_m, int* part_i, int D,
-                                    int VS, int device, void* stream) {
-  return run<__nv_bfloat16>(x, w, out, part_m, part_i, D, VS, device, stream);
+                                    int64_t* out, float* scratch, unsigned* count, int D,
+                                    int VS, int rows, int device, void* stream) {
+  return run<__nv_bfloat16>(x, w, out, scratch, count, D, VS, rows, device, stream);
 }
 
-// x [D] and w [D, VS] row-major, both float16; out: one int64.
+// As l3t_argmax_head_f32, with float16 x and w.
 extern "C" int l3t_argmax_head_f16(const __half* x, const __half* w, int64_t* out,
-                                   float* part_m, int* part_i, int D, int VS,
-                                   int device, void* stream) {
-  return run<__half>(x, w, out, part_m, part_i, D, VS, device, stream);
+                                   float* scratch, unsigned* count, int D, int VS,
+                                   int rows, int device, void* stream) {
+  return run<__half>(x, w, out, scratch, count, D, VS, rows, device, stream);
 }

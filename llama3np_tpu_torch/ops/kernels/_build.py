@@ -17,6 +17,7 @@ pass across; each C entry takes the device index and selects it first.
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -73,10 +74,13 @@ _PAGED_I8 = (ctypes.c_int, [
     _I, _I, _I, _I, _I,                # layer, stacked, win_q, win_count, chunk_pages
     _I, _P,                            # device, stream
 ])
-_ARGMAX = (ctypes.c_int, [_P, _P, _P, _P, _P,  # x, w, out, part_m, part_i
-                          _I, _I, _I, _P])     # D, VS, device, stream
+_ARGMAX = (ctypes.c_int, [_P, _P, _P, _P, _P,  # x, w, out, scratch, count
+                          _I, _I, _I, _I, _P])  # D, VS, rows, device, stream
+_FLASH_F32 = (ctypes.c_int, [_P, _P, _P, _P, _P, _P,      # q, k, v, o, part, count
+                             _I, _I, _I, _I, _I,          # B, L, NH, KVH, HD
+                             _I, _I, _I, _P])             # BM, KS, device, stream
 SIGNATURES = {
-    "l3t_flash_prefill_f32": _FLASH,
+    "l3t_flash_prefill_f32": _FLASH_F32,
     "l3t_flash_prefill_bf16": _FLASH,
     "l3t_flash_prefill_f16": _FLASH,
     "l3t_decode_scratch_floats": (ctypes.c_long, [_I, _I, _I, _I, _I]),
@@ -174,6 +178,32 @@ def _build() -> str:
     with open(so_path + ".log", "w") as f:
         f.write(log)
     return so_path
+
+
+_TICKETS: dict = {}
+
+
+def tickets(kernel: str, device, stream: int, n: int):
+    """A kernel's arrival counters for calls on `stream` (int32): zeroed
+    once and left zero by every call (the blocks that read them reset
+    them), so no call pays for clearing them; a larger need gets a new
+    zeroed buffer.  One buffer a kernel, device and stream: calls on one
+    stream run in order."""
+    import torch
+
+    c = _TICKETS.get((kernel, device, stream))
+    if c is None or c.numel() < n:
+        c = _TICKETS[(kernel, device, stream)] = torch.zeros(
+            max(n, 1), dtype=torch.int32, device=device)
+    return c
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index` (the launch planners' input)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(rc: int, what: str):

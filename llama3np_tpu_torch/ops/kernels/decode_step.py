@@ -176,20 +176,6 @@ def _check_args(layers, x, pos, k_cache, v_cache, cos_row, sin_row,
                          f"[0, {k_cache.shape[2]})")
 
 
-_COUNTERS: Dict = {}
-
-
-def _counters(device, stream: int, n: int) -> torch.Tensor:
-    """The kernel's arrival counters for calls on `stream`: zeroed once,
-    and left zero by every call (each finishing block resets its own), so
-    no call pays for clearing them; a larger width gets a new zeroed
-    buffer."""
-    c = _COUNTERS.get((device, stream))
-    if c is None or c.numel() < n:
-        c = _COUNTERS[(device, stream)] = torch.zeros(n, dtype=torch.int32, device=device)
-    return c
-
-
 def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
                   k_cache: torch.Tensor, v_cache: torch.Tensor,
                   cos_row: torch.Tensor, sin_row: torch.Tensor,
@@ -262,7 +248,8 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     scratch = torch.empty(lib.l3t_decode_scratch_floats(*widths),
                           dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    counters = _counters(x.device, stream, lib.l3t_decode_counters(*widths))
+    counters = _build.tickets("decode_layers", x.device, stream,
+                              lib.l3t_decode_counters(*widths))
     x_out = torch.empty_like(x)
     rest = (layers["attn_norm"].data_ptr(), layers["ffn_norm"].data_ptr(),
             x.data_ptr(), x_out.data_ptr(), k_cache.data_ptr(),

@@ -5,7 +5,8 @@ plain PyTorch version.
 Counterpart of `llama3np_tpu.ops.kernels.flash_prefill.flash_prefill`.  The
 kernel masks a ragged L itself, so every first-chunk prefill on the card
 goes through it; the JAX `supports(L)` gate was a TPU tiling rule and has no
-counterpart.  float32 runs on CUDA cores; bf16 and float16 on tensor
+counterpart.  float32 runs on CUDA cores or, in 64-row tiles, on tensor
+cores through a 3-piece bf16 split (below); bf16 and float16 on tensor
 cores, with the TPU kernel's f32 semantics: 16-bit products are exact in
 f32, the f32 probabilities enter P.V as a hi + lo pair of 16-bit values (P
 within 2^-16 in bf16; in float16 within 2^-22, or 2^-25 absolute where the
@@ -13,6 +14,12 @@ lo part is subnormal), the sums are f32 and the output is rounded once.
 `flash_prefill` launches the kernel for CUDA tensors and runs
 `flash_prefill_plain` for CPU tensors; there is no fallback from one to the
 other.  `flash_prefill.launches` counts kernel launches.
+
+The float32 kernel's grid follows `f32_plan`: query tiles of 16 or 64 rows
+by L, and for L >= 256 each tile's keys cut into pieces merged by the last
+piece to arrive (`csrc/flash_prefill.cu`).  64-row tiles run on tensor
+cores where HD <= 64 (HD % 4 == 0, 16-byte aligned rows): every f32
+operand as three bf16 pieces and each product as six MMAs, never TF32.
 """
 
 from __future__ import annotations
@@ -25,6 +32,34 @@ from . import _build
 _ENTRIES = {torch.float32: "l3t_flash_prefill_f32",
             torch.bfloat16: "l3t_flash_prefill_bf16",
             torch.float16: "l3t_flash_prefill_f16"}
+
+
+F32_KEY_TILE = 64  # keys a tile of the float32 kernel
+
+
+def f32_plan(L: int) -> tuple:
+    """(BM, KS) of the float32 kernel: BM query rows a block (16 for
+    L <= 128, 64 beyond: there the kernel runs on tensor cores when HD <= 64
+    and HD % 4 == 0) and at most KS key tiles of 64 a block: for L >= 256 a
+    query tile's key tiles are cut into pieces of KS (at least 2 tiles a
+    piece, at most two pieces a tile) that the kernel merges; below that
+    one piece covers every tile.  A pure function of L."""
+    BM = 16 if L <= 128 else 64
+    n_kt = -(-L // F32_KEY_TILE)
+    KS = n_kt if L < 256 else max(2, -(-n_kt // 2))
+    return BM, KS
+
+
+def f32_scratch_words(B: int, L: int, NH: int, HD: int) -> tuple:
+    """(partial words, tickets) of a float32 call: a slot of BM rows x (m, l,
+    HD rounded up to 4 accumulators) for every piece of every (batch, head,
+    query tile), and a ticket a tile; (0, 0) when no tile is split."""
+    BM, KS = f32_plan(L)
+    pieces = -(-(-(-L // F32_KEY_TILE)) // KS)
+    if pieces == 1:
+        return 0, 0
+    tiles = B * NH * -(-L // BM)
+    return tiles * pieces * BM * (2 + -(-HD // 4) * 4), tiles
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor,
@@ -82,8 +117,16 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor,
     lib = _build.KernelLibrary.get()
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = getattr(lib, _ENTRIES[q.dtype])(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                         o.data_ptr(), B, L, NH, k.shape[2], HD,
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr())
+    if q.dtype == torch.float32:
+        words, n_tickets = f32_scratch_words(B, L, NH, HD)
+        part = torch.empty(words, dtype=torch.float32, device=q.device) if words else None
+        tickets = _build.tickets("flash_prefill", q.device, stream, n_tickets)
+        args += (part.data_ptr() if words else None, tickets.data_ptr())
+        rest = f32_plan(L)
+    else:
+        rest = ()
+    rc = getattr(lib, _ENTRIES[q.dtype])(*args, B, L, NH, k.shape[2], HD, *rest,
                                          q.device.index, stream)
     _build.check(rc, "flash_prefill")
     flash_prefill.launches += 1

@@ -13,6 +13,10 @@ its read and a launch a token, so the port's batch-1 greedy decode loop
 bf16 or float16 lm_head.  `argmax_head` launches the kernel for CUDA tensors and
 runs `argmax_head_plain` for CPU tensors; there is no fallback from one to
 the other.  `argmax_head.launches` counts launches (one per call).
+
+The kernel is one launch over a grid of (column strips x D splits);
+`head_plan` sizes it from static shapes and the SM count, and the last
+block to arrive folds the splits and the strips (`csrc/greedy_head.cu`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,42 @@ from . import _build
 _ENTRIES = {torch.float32: "l3t_argmax_head_f32",
             torch.bfloat16: "l3t_argmax_head_bf16",
             torch.float16: "l3t_argmax_head_f16"}
+
+
+HEAD_BLOCKS_PER_SM = 4   # __launch_bounds__(256, 4) in csrc/greedy_head.cu
+HEAD_ROW_STEP = 64       # rows a block step: 8 warps x 8 loads in flight a lane
+HEAD_MAX_SPLIT = 16
+HEAD_MIN_SPLIT_ROWS = 256  # a split's rows: shorter ones pay more in the fold than they save
+
+
+def head_plan(D: int, VS: int, itemsize: int, sm_count: int) -> tuple:
+    """(cols, strips, rows, splits) of the kernel's grid: strips of `cols`
+    vocab columns (32 lanes x one 16-byte vector), D cut into `splits`
+    ranges of `rows` rows (a multiple of HEAD_ROW_STEP; the last may be
+    shorter).  The fewest splits within 2 % of the best fill of whole waves
+    of HEAD_BLOCKS_PER_SM blocks an SM, D cut only into splits of at least
+    HEAD_MIN_SPLIT_ROWS rows.  A pure function of its arguments."""
+    cols = 32 * (16 // itemsize)
+    strips = -(-VS // cols)
+    slots = HEAD_BLOCKS_PER_SM * sm_count
+    steps = -(-D // HEAD_ROW_STEP)
+    best, best_fill = None, -1.0
+    for want in range(1, max(1, min(HEAD_MAX_SPLIT, D // HEAD_MIN_SPLIT_ROWS)) + 1):
+        rows = -(-steps // want) * HEAD_ROW_STEP
+        splits = -(-D // rows)
+        blocks = strips * splits
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill > best_fill + 0.02:
+            best, best_fill = (cols, strips, rows, splits), fill
+    return best
+
+
+def scratch_words(VS: int, plan: tuple) -> tuple:
+    """(scratch words, ticket words) of a call planned as `plan`
+    (`head_plan`): the splits' column sums (when D is split) and each
+    strip's (max, index) pair; a ticket a strip and one for the fold."""
+    _, strips, _, splits = plan
+    return (splits * VS if splits > 1 else 0) + 2 * strips, strips + 1
 
 
 def argmax_head_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -62,14 +102,16 @@ def argmax_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"got VS={VS}")
     xs = x.to(w.dtype).contiguous()
     lib = _build.KernelLibrary.get()
-    nb = -(-VS // (32 * vec))  # blocks of 32 lanes x one 16-byte vector
-    # One allocation: the token (int64), then each block's (max, index).
-    buf = torch.empty(2 + 2 * nb, dtype=torch.int32, device=w.device)
+    plan = head_plan(D, VS, w.element_size(), _build.sm_count(w.device.index))
+    stream = torch.cuda.current_stream(w.device).cuda_stream
+    words, n_tickets = scratch_words(VS, plan)
+    tickets = _build.tickets("argmax_head", w.device, stream, n_tickets)
+    # One allocation, never read before written: the token, then the scratch.
+    buf = torch.empty(2 + words, dtype=torch.int32, device=w.device)
     out = buf[:2].view(torch.int64)
     rc = getattr(lib, _ENTRIES[w.dtype])(
         xs.data_ptr(), w.data_ptr(), out.data_ptr(), buf[2:].data_ptr(),
-        buf[2 + nb :].data_ptr(), D, VS, w.device.index,
-        torch.cuda.current_stream(w.device).cuda_stream)
+        tickets.data_ptr(), D, VS, plan[2], w.device.index, stream)
     _build.check(rc, "argmax_head")
     argmax_head.launches += 1
     return out

@@ -40,7 +40,6 @@ tensors; there is no fallback from one to the other.  `paged_attention.launches`
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -148,11 +147,6 @@ def _check_args(q, k_pages, v_pages, block_table, pos, layer, cur_k, cur_v,
     return tensors
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def chunk_pages(B: int, KVH: int, page: int, maxp: int, sm_count: int) -> int:
     """C, the pages one block of the kernel walks: each row's visible tokens
     are cut into chunks of C pages, one block a chunk, and a row that fits
@@ -242,7 +236,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     win_q = 0 if win_k is None else win_k.shape[2]
     win_count = 0 if win_k is None else int(win_count)
     lib = _build.KernelLibrary.get()
-    C, S = schedule(q, k_pages, block_table, pos, _sm_count(q.device.index))
+    C, S = schedule(q, k_pages, block_table, pos, _build.sm_count(q.device.index))
     o = torch.empty_like(q)
     scratch = torch.empty(B * KVH * S * G * (HD + 2) if S > 1 else 1,
                           dtype=torch.float32, device=q.device)

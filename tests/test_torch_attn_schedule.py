@@ -13,6 +13,18 @@ kernels (in interpret mode), on inputs made with numpy from a seed.
     f32 sums, the f32 probabilities entering P.V as P_hi + P_lo (two bf16
     values), agree in f32 with the f32 function before the output's bf16
     rounding: the design needs no new envelope.
+(d) The float32 flash kernel's schedule: query tiles of BM rows chosen from
+    L, each tile's key tiles of 64 cut into pieces of KS (L >= 256), every
+    piece an online softmax of its own, the pieces' (m, l, acc) merged in
+    piece order; against the JAX kernel in interpret mode and the plain
+    version at L in {1, 15, 16, 17, 64, 100, 512}, HD in {48, 64}.
+(e) The float32 kernel's tensor-core form (L >= 256, HD <= 64): every f32
+    operand of QK^T and P.V cut into three bf16 pieces and each product
+    taken as the six products of pieces whose orders add up to at most 2,
+    in f32: inside the fp32 tolerance of the JAX kernel, with inputs next
+    to the subnormals too; with large scores (where any two f32 summation
+    orders part by more than the tolerance) as close to a float64
+    reference as the plain f32 version is.
 
 The models live here, not in the package: the kernels are their
 implementation on the card.
@@ -35,7 +47,8 @@ from llama3np_tpu.ops import core as jops
 from llama3np_tpu.ops.kernels.flash_prefill import flash_prefill as j_flash_prefill
 from llama3np_tpu.ops.kernels.paged_attention import paged_attention as j_paged_attention
 from llama3np_tpu_torch.ops.core import causal_attention, quantize_kv_rows
-from llama3np_tpu_torch.ops.kernels.flash_prefill import flash_prefill_plain
+from llama3np_tpu_torch.ops.kernels.flash_prefill import (
+    F32_KEY_TILE, f32_plan, f32_scratch_words, flash_prefill, flash_prefill_plain)
 from llama3np_tpu_torch.ops.kernels.paged_attention import (
     chunk_pages, paged_attention_plain, schedule)
 
@@ -294,3 +307,164 @@ def test_split_p_flash_needs_no_new_envelope(rng, name, nh, kvh, hd, L):
     if L >= 17:
         once = split_p_flash(q, k, v, kv_tile=16, split=False)
         assert float((once - want).abs().max()) > bound
+
+
+# ---------------------------------------------------------------------------
+# (d) the float32 flash kernel's tiles, key pieces and merge
+# ---------------------------------------------------------------------------
+
+def pieced_flash_f32(q, k, v, dot=torch.matmul):
+    """The float32 kernel's schedule in f32: for each query tile of BM rows
+    (`f32_plan`), its visible key tiles of 64 in pieces of KS, each piece an
+    online softmax over its key tiles (masked entries an explicit 0); one
+    piece is normalized as it stands, several are merged in piece order,
+    rescaled to the rows' common max, the normalizer clamped at 1e-30.
+    `dot` takes the two products (QK^T and P.V)."""
+    Bq, L, nh, hd = q.shape
+    g = nh // k.shape[2]
+    BM, KS = f32_plan(L)
+    T = F32_KEY_TILE
+    out = torch.empty(Bq, L, nh, hd)
+    for b in range(Bq):
+        for h in range(nh):
+            qh, kh, vh = q[b, :, h], k[b, :, h // g], v[b, :, h // g]
+            for q0 in range(0, L, BM):
+                rows = torch.arange(q0, min(q0 + BM, L))
+                n_keys = min(q0 + BM, L)
+                n_kt = -(-n_keys // T)
+                parts = []
+                for kt0 in range(0, n_kt, KS):
+                    m = torch.full((len(rows),), -1e30)
+                    l, acc = torch.zeros(len(rows)), torch.zeros(len(rows), hd)
+                    for t0 in range(kt0 * T, min(n_kt, kt0 + KS) * T, T):
+                        keys = torch.arange(t0, min(t0 + T, n_keys))
+                        vis = keys[None, :] <= rows[:, None]
+                        s = torch.where(vis, dot(qh[rows], kh[keys].T) / math.sqrt(hd), -1e30)
+                        m_new = torch.maximum(m, s.max(-1).values)
+                        p = torch.where(vis, torch.exp(s - m_new[:, None]), 0.0)
+                        alpha = torch.exp(m - m_new)
+                        l, acc = l * alpha + p.sum(-1), acc * alpha[:, None] + dot(p, vh[keys])
+                        m = m_new
+                    parts.append((m, l, acc))
+                if len(parts) == 1:
+                    _, l, acc = parts[0]
+                else:
+                    mx = torch.stack([p[0] for p in parts]).max(0).values
+                    w = [torch.exp(p[0] - mx) for p in parts]
+                    l = sum(wi * p[1] for wi, p in zip(w, parts))
+                    acc = sum(wi[:, None] * p[2] for wi, p in zip(w, parts))
+                out[b, rows, h] = acc / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("hd", [48, 64])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 64, 100, 512])
+def test_pieced_flash_f32_matches_jax_and_plain(rng, L, hd):
+    nh, kvh = 4, 2
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, L, h, hd)).astype(np.float32))
+               for h in (nh, kvh, kvh))
+    got = pieced_flash_f32(q, k, v)
+    want_jax = np.asarray(j_flash_prefill(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                          interpret=True))
+    assert torch.isfinite(got).all()
+    assert_allclose(got.numpy(), want_jax, **F32_TOL)
+    assert_allclose(got.numpy(), flash_prefill_plain(q, k, v).numpy(), **F32_TOL)
+    assert torch.equal(flash_prefill(q, k, v), flash_prefill_plain(q, k, v))  # CPU: the twin
+    BM, KS = f32_plan(L)
+    if L >= 256:  # the long tiles really are merged from several pieces
+        assert -(-(-(-L // F32_KEY_TILE)) // KS) > 1
+
+
+@pytest.mark.parametrize("L,BM,KS", [
+    (1, 16, 1), (16, 16, 1), (64, 16, 1), (100, 16, 2), (128, 16, 2),   # stories15M prompts
+    (129, 64, 3), (255, 64, 4), (256, 64, 2), (500, 64, 4), (512, 64, 4),
+    (1024, 64, 8), (2048, 64, 16),
+])
+def test_f32_tile_height_and_pieces_from_L(L, BM, KS):
+    """16 query rows a block for short prompts (a 16-token prompt computes
+    16 rows, not 64), more for longer ones; from L = 256 at most two
+    pieces of at least two key tiles a query tile."""
+    assert f32_plan(L) == (BM, KS)
+    n_kt = -(-L // F32_KEY_TILE)
+    pieces = -(-n_kt // KS)
+    assert pieces == 1 if L < 256 else pieces == 2
+    words, tickets = f32_scratch_words(2, L, 3, 48)
+    tiles = 2 * 3 * -(-L // BM)
+    assert (words, tickets) == ((0, 0) if pieces == 1 else (tiles * pieces * BM * 50, tiles))
+
+
+# ---------------------------------------------------------------------------
+# (e) the tensor-core form: f32 products from three bf16 pieces
+# ---------------------------------------------------------------------------
+
+def split3(x):
+    """x = x0 + x1 + x2, each piece a bf16 value (held in f32)."""
+    x0 = x.bfloat16().float()
+    r = x - x0
+    x1 = r.bfloat16().float()
+    return x0, x1, (r - x1).bfloat16().float()
+
+
+def x3_dot(a, b):
+    """a @ b as the kernel's six products of pieces (orders i + j <= 2),
+    the smallest first; products of bf16 values are exact in f32."""
+    pa, pb = split3(a), split3(b)
+    out = torch.zeros(a.shape[0], b.shape[1])
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        out = out + pa[i] @ pb[j]
+    return out
+
+
+def test_split3_is_exact_for_normal_values(rng):
+    x = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                         * np.float32(10.0) ** rng.integers(-30, 30, 4096).astype(np.float32))
+    x0, x1, x2 = split3(x)
+    assert torch.equal((x0.double() + x1.double() + x2.double()).float(), x)
+
+
+@pytest.mark.parametrize("inputs", ["normal", "near-subnormal"])
+@pytest.mark.parametrize("hd", [48, 64])
+@pytest.mark.parametrize("L", [256, 512])
+def test_x3_flash_f32_inside_the_fp32_tolerance(rng, L, hd, inputs):
+    nh, kvh = 2, 1
+    q, k, v = (rng.standard_normal((1, L, h, hd)).astype(np.float32) for h in (nh, kvh, kvh))
+    if inputs == "near-subnormal":  # a third of each row's entries at 1e-36 .. 1e-39
+        for t in (q, k, v):
+            t[..., ::3] *= np.float32(1e-37)
+    q, k, v = (torch.from_numpy(t) for t in (q, k, v))
+    got = pieced_flash_f32(q, k, v, dot=x3_dot)
+    want_jax = np.asarray(j_flash_prefill(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                          interpret=True))
+    assert torch.isfinite(got).all()
+    assert_allclose(got.numpy(), want_jax, **F32_TOL)
+    assert_allclose(got.numpy(), flash_prefill_plain(q, k, v).numpy(), rtol=1e-4, atol=1e-5)
+
+
+def attention_f64(q, k, v):
+    """Causal GQA attention in float64: the reference for large scores."""
+    B, L, nh, hd = q.shape
+    g = nh // k.shape[2]
+    out = torch.empty(B, L, nh, hd, dtype=torch.float64)
+    mask = torch.ones(L, L, dtype=torch.bool).tril()
+    for b in range(B):
+        for h in range(nh):
+            s = (q[b, :, h].double() @ k[b, :, h // g].double().T) / math.sqrt(hd)
+            out[b, :, h] = torch.softmax(s.masked_fill(~mask, -math.inf), -1) @ v[b, :, h // g].double()
+    return out
+
+
+@pytest.mark.parametrize("hd", [48, 64])
+def test_x3_flash_f32_large_scores_as_accurate_as_f32(rng, hd):
+    """Scores in the hundreds (q, k x 12) and values at 1e4: the softmax
+    turns a score error of one f32 rounding into an output error past the
+    fp32 tolerance, for any summation order but the plain version's own; so
+    the split form is held to a float64 reference, no further from it than
+    twice the plain f32 version's distance."""
+    L, nh, kvh = 256, 2, 1
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, L, h, hd)).astype(np.float32))
+               for h in (nh, kvh, kvh))
+    q, k, v = q * 12, k * 12, v * 1e4
+    ref = attention_f64(q, k, v)
+    err_x3 = float((pieced_flash_f32(q, k, v, dot=x3_dot).double() - ref).abs().max())
+    err_f32 = float((flash_prefill_plain(q, k, v).double() - ref).abs().max())
+    assert err_x3 <= 2 * err_f32

@@ -18,7 +18,7 @@ from llama3np_tpu_torch.ops.kernels.decode_step import (decode_layers,
 from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
                                                           flash_prefill_plain)
 from llama3np_tpu_torch.ops.kernels.greedy_head import (argmax_head,
-                                                        argmax_head_plain)
+                                                        argmax_head_plain, head_plan)
 from llama3np_tpu_torch.ops.kernels.paged_attention import (
     chunk_pages, paged_attention, paged_attention_plain)
 from llama3np_tpu_torch.serving import BatchEngine
@@ -37,6 +37,8 @@ def cuda():
 @pytest.mark.parametrize("B,L,NH,KVH,HD", [
     (2, 32, 4, 2, 16), (1, 100, 6, 6, 48), (1, 37, 3, 1, 8), (1, 70, 2, 2, 128),
     (1, 1, 4, 4, 64),
+    (2, 300, 4, 2, 10),   # 64-row tiles on CUDA cores: HD % 4 != 0, 4-byte copies
+    (2, 300, 4, 2, 36),   # the 3-piece split with HD padded to 48
 ])
 def test_flash_prefill_kernel_matches_plain(cuda, B, L, NH, KVH, HD):
     g = torch.Generator().manual_seed(L)
@@ -315,6 +317,73 @@ def test_argmax_head_kernel_matches_plain(cuda, dtype, D, VS):
         tied[0, c] = 8.0
     x[0, 0] = 4.0  # both tied columns sum to exactly 32
     assert int(argmax_head(x, tied)[0]) == cols - 1 == int(argmax_head_plain(x, tied)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,VS", [(2048, 32000), (4096, 128256), (1000, 32000),
+                                  (288, 128), (2100, 256)])
+def test_argmax_head_kernel_splits_and_strips(cuda, dtype, D, VS):
+    """The one-launch head on its grid of (strips x D splits): D not a
+    multiple of a split (1000, 2100), one strip (VS = 128 or 256 stands for
+    the strip of the dtype), 32,000 and 128,256; ties planted in one strip,
+    across the split boundary (the lower column's sum from split 1, the
+    higher's from split 0) and across a strip boundary: the lower column
+    wins; two calls in a row on one stream (the tickets reset) give the
+    same token."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cols = head_plan(D, VS, dtype.itemsize, sms)[0]
+    VS = cols if VS in (128, 256) else VS
+    cols, strips, rows, splits = head_plan(D, VS, dtype.itemsize, sms)
+    g = torch.Generator(cuda).manual_seed(D + VS)
+    w = (torch.randn(D, VS, generator=g, device=cuda) * 0.02).to(dtype)
+    for _ in range(3):
+        x = torch.randn(1, D, generator=g, device=cuda).to(dtype)
+        first, second = argmax_head(x, w)[0].item(), argmax_head(x, w)[0].item()
+        assert first == second == int(argmax_head_plain(x, w)[0])
+    ties = [(7, 7, 3, 40)]  # (row of the lower column's 8, of the higher's, columns)
+    if splits > 1:
+        ties.append((rows + 5, 7, 3, 40))
+    if strips > 1:
+        ties.append((7, 7, cols - 1, cols))
+    for r_lo, r_hi, lo, hi in ties:
+        tied, xt = w.clone(), x.clone()
+        tied[:, [lo, hi]] = 0
+        tied[r_lo, lo] = 8.0
+        tied[r_hi, hi] = 8.0
+        xt[0, r_lo] = 4.0  # both columns sum to exactly 32
+        xt[0, r_hi] = 4.0
+        assert int(argmax_head_plain(xt, tied)[0]) == lo
+        assert int(argmax_head(xt, tied)[0]) == lo == int(argmax_head(xt, tied)[0])
+
+
+def test_flash_prefill_f32_unaligned_rows(cuda):
+    """q, k, v and o rows off 16-byte alignment (views one float into their
+    buffers): the kernel takes 4-byte copies and CUDA cores, and still
+    matches the twin."""
+    g = torch.Generator().manual_seed(4)
+    bufs = [torch.randn(1 + 512 * h * 64, generator=g).to(cuda) for h in (8, 2, 2)]
+    q, k, v = (b[1:].view(1, 512, h, 64) for b, h in zip(bufs, (8, 2, 2)))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    torch.testing.assert_close(flash_prefill(q, k, v), flash_prefill_plain(q, k, v),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("HD", [48, 64, 128])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 63, 64, 65, 100, 200, 256, 512])
+def test_flash_prefill_f32_tiles_and_pieces(cuda, L, HD):
+    """The float32 kernel at its tile-height boundaries (16-row tiles to
+    L = 128, 64-row ones beyond: on tensor cores, the 3-piece split, where
+    HD <= 64) and with key pieces merged (L = 256, 512), GQA, against the
+    twin; twice, bit-equal (the merge runs in piece order, the tickets
+    reset)."""
+    g = torch.Generator().manual_seed(L * HD)
+    q = torch.randn(1, L, 8, HD, generator=g).to(cuda)
+    k = torch.randn(1, L, 2, HD, generator=g).to(cuda)
+    v = torch.randn(1, L, 2, HD, generator=g).to(cuda)
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_prefill_plain(q, k, v), rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, flash_prefill(q, k, v))
 
 
 @pytest.mark.parametrize("int8", [False, True])
