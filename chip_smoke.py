@@ -36,7 +36,15 @@ prefill, the decode step and the greedy head against the plain path, and
 paged serving at quanta 1 and 4 against capacity-1 streams, over bf16
 pools and over int8 pools (the pools' bytes a token and the 8,192-token
 rows that fit beside the weights), each traced (16-bit streams may part at
-a near-tie: the first differing token must be one); then llama3-8b with
+a near-tie: the first differing token must be one), sampled generation
+(T 0.8, top-p 0.9, seed 0; tinyllama-1.1b too) through the decode kernel
+against the plain path (equal, or parted at a near-tie of the perturbed
+logits), the prefix cache (8 requests sharing a 2,048-token prefix and a
+second turn, over bf16 and int8 pools, against the same traffic admitted
+cold) and the HTTP server (`llama3np_tpu_torch.server` on 127.0.0.1:
+concurrent streamed completions against capacity-1 streams, a streamed
+against a whole response, a two-turn chat that hits the prefix cache,
+sampled requests, /stats and /metrics); then llama3-8b with
 int8 weights under bf16 activations at full width and depth (the decode
 kernel's int8/bf16 mode against its twin, greedy generation against the
 plain path by the same rules, a trace with the plain int8 head's share,
@@ -1028,6 +1036,375 @@ def generate_vs_plain(torch, model: str, eng, prompt, n_tok: int, envelope: floa
     return counts, limit
 
 
+# The sampling policy the sampled phases draw with.
+SAMPLED = dict(temperature=0.8, top_p=0.9, seed=0)
+
+
+def sampled_vs_plain(torch, model: str, eng, prompt, n_tok: int, card, **tags):
+    """Sampled generation (T 0.8, top-p 0.9, seed 0) through the kernels
+    (`kernel_sampled_decode_steps`: the decode kernel, then the plain
+    logits and the sampler) against the plain path on the same card.  The
+    streams must be equal, or first part at a near-tie of the perturbed
+    logits (logits / T, masked, plus the Gumbel noise of that token's key:
+    `generate.sample_scores`) of the plain path: their top-2 margin there
+    under twice the logits' max-abs error over T.  Temperature 0 must give
+    the greedy kernel stream, and the same seed twice the same stream.
+    Exact launch counts: flash once a layer, the decode kernel once a token
+    after the first, the greedy head never.  Returns the launch counts."""
+    import numpy as np
+
+    from llama3np_tpu_torch.generate import Sampling, decode_keys, sample_scores
+    from llama3np_tpu_torch.observability import timed_generate
+
+    nl, pol = eng.args.n_layers, Sampling(**SAMPLED)
+    reset_counters()  # the main path: sampled generation through the kernels
+    toks_k = eng.generate_tokens(prompt, n_tok, sampling=pol).cpu()[0].tolist()
+    counts = counters()
+    expect = {"flash_prefill": nl, "decode_layers": n_tok - 1, "paged_attention": 0,
+              "argmax_head": 0}
+    if counts != expect:
+        raise AssertionError(f"{model} {tags} sampled launch counts {counts}, expected {expect}")
+    again = eng.generate_tokens(prompt, n_tok, sampling=pol).cpu()[0].tolist()
+    if again != toks_k:
+        raise AssertionError(f"{model} {tags}: the same seed drew another stream")
+    greedy = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    t0 = eng.generate_tokens(prompt, n_tok, sampling=Sampling(temperature=0.0)).cpu()[0].tolist()
+    if t0 != greedy:
+        raise AssertionError(f"{model} {tags}: temperature 0 is not the greedy stream")
+    twin = plain_twin(eng)
+    toks_x = twin.generate_tokens(prompt, n_tok, sampling=pol).cpu()[0].tolist()
+    logits_k = torch.from_numpy(eng(prompt, 0))
+    logits_x = torch.from_numpy(twin(prompt, 0))
+    l_abs = (logits_k - logits_x).abs().max().item()
+    limit = 2 * l_abs / pol.temperature
+    keys = decode_keys(pol, n_tok - 1, prompt.shape[1], eng.args.max_seq_len)
+
+    def perturbed_margin(i):  # the plain path's perturbed top-2 margin at token i
+        ctx = np.array([prompt[0].tolist() + toks_x[:i]])
+        logits = torch.from_numpy(twin(ctx, 0))[:, -1].float()
+        top = sample_scores(logits, keys[i], pol)[0].topk(2).values
+        return float(top[0] - top[1])
+
+    rule = near_tie(toks_k, toks_x, perturbed_margin, limit,
+                    f"{model} {tags} sampled stream")
+    k_stats = timed_generate(eng, prompt, 64, sampling=pol)[1]
+    g_stats = timed_generate(eng, prompt, 64)[1]
+    emit({"phase": "e2e", "model": model, "path": "sampled", **tags, "policy": SAMPLED,
+          "prompt_tokens": int(prompt.shape[1]), "tokens": n_tok, "launches": counts,
+          "stream_vs_plain": rule, "near_tie_limit": limit, "logits_max_abs_err": l_abs,
+          "same_seed_same_stream": True, "temperature0_equals_greedy": True,
+          "sampled": {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s},
+          "greedy": {"prefill_ms": g_stats.prefill_ms, "decode_tok_s": g_stats.decode_tok_s},
+          "timed_tokens": 64, "card": card})
+    del twin
+    torch.cuda.empty_cache()
+    return counts
+
+
+def sampled_step_phase(torch, model: str, eng, workload, card, steps: int = 8):
+    """A serving decode step at B=8 (quantum 1) with every row greedy, then
+    with every row sampled (T 0.8, top-p 0.9: fold_row_keys, the Gumbel
+    threefry over [8, VS] and the masks, in plain torch ops): host ms a
+    step (fenced), and device kernels a step from a traced step."""
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    out = {}
+    for mode, temp in (("greedy", 0.0), ("sampled", SAMPLED["temperature"])):
+        be = BatchEngine(eng, capacity=8, paged=True, page_size=16, top_p=SAMPLED["top_p"])
+        for p, _ in workload[:8]:
+            be.submit(p, 400, stop_ids=(), temperature=temp)
+        be.step()
+        be.step()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            be.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        _, win, rows = trace(torch, be.step)
+        out[mode] = {"ms_per_step": ms, "device_kernels_per_step": sum(n for _, _, n in rows),
+                     "device_ms_per_step": win["device_ms"]}
+        del be
+    emit({"phase": "e2e", "model": model, "path": "serving-sampled-step", "batch": 8,
+          "policy": SAMPLED, **out,
+          "extra_kernels_per_step": out["sampled"]["device_kernels_per_step"]
+          - out["greedy"]["device_kernels_per_step"],
+          "extra_ms_per_step": out["sampled"]["ms_per_step"] - out["greedy"]["ms_per_step"],
+          "card": card})
+
+
+def prefix_workload(vocab_size: int, seed: int = 1):
+    """8 requests sharing a 2,048-token prefix, each with its own 64-token
+    suffix and a budget of 16 tokens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    head = rng.integers(3, vocab_size, size=2048).tolist()
+    return [(head + rng.integers(3, vocab_size, size=64).tolist(), 16) for _ in range(8)]
+
+
+def prefix_run(torch, eng, workload, prefix_cache: bool, kv_quant=None, turn2=None):
+    """Serve `workload` through a paged engine (capacity 8, page 16, top-2
+    logprobs), then one more request: a second turn that extends request
+    0's conversation by 32 tokens (`turn2`, or made here from its reply).
+    Each admission is timed, fenced.  Returns (streams, top-2 margins,
+    the turn-2 prompt, stats)."""
+    import numpy as np
+
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    be = BatchEngine(eng, capacity=8, paged=True, page_size=16, logprobs=2,
+                     prefix_cache=prefix_cache, kv_quant=kv_quant)
+    admit = []
+    prefill_into = be._prefill_into
+
+    def timed_prefill(slot, req):
+        t0 = time.perf_counter()
+        prefill_into(slot, req)
+        torch.cuda.synchronize()
+        admit.append(time.perf_counter() - t0)
+
+    be._prefill_into = timed_prefill
+    reset_counters()
+    reqs = [be.submit(p, n, stop_ids=STOP_IDS, logprobs=2) for p, n in workload]
+    steps = 0
+    while be.num_active or be._queue:
+        be.step(1)
+        steps += 1
+    if turn2 is None:
+        rng = np.random.default_rng(2)
+        turn2 = workload[0][0] + reqs[0].generated + \
+            rng.integers(3, eng.args.vocab_size, size=32).tolist()
+    reqs.append(be.submit(turn2, 16, stop_ids=STOP_IDS, logprobs=2))
+    while be.num_active or be._queue:
+        be.step(1)
+        steps += 1
+    counts = counters()
+    stats = be.prefix_stats
+    nl = eng.args.n_layers
+    cold = len(reqs) - (stats["hits"] if stats else 0)
+    expect = {"flash_prefill": nl * cold, "decode_layers": 0,
+              "paged_attention": nl * steps, "argmax_head": 0}
+    if counts != expect:
+        raise AssertionError(f"prefix run (cache {prefix_cache}, kv {kv_quant}) launch "
+                             f"counts {counts}, expected {expect}")
+    held = len(be._registry) if prefix_cache else 0
+    if be.allocator.available + held != be.allocator.num_pages - 1:
+        raise AssertionError("prefix run: pages leaked before clear")
+    if prefix_cache:
+        be._registry.clear(be.allocator)
+    if be.allocator.available != be.allocator.num_pages - 1:
+        raise AssertionError("prefix run: pages not all back after clear")
+    margins = [[t[0][1] - t[1][1] for t in r.top_logprobs] for r in reqs]
+    del be
+    return [r.generated for r in reqs], margins, turn2, {
+        "prefix_stats": stats, "admissions": len(admit), "admit_s": sum(admit),
+        "admit_s_first": admit[0], "admit_s_rest_mean": sum(admit[1:]) / (len(admit) - 1),
+        "decode_steps": steps, "launches": counts, "cached_pages_cleared": held}
+
+
+def prefix_phase(torch, eng, limit, card, kv_quant=None):
+    """llama3-8b, paged, page 16: 8 requests sharing a 2,048-token prefix
+    (then a second turn of request 0) with the prefix cache, against the
+    same traffic admitted cold; every stream equal to its cold one or
+    parted at a near-tie (the cold run's top-2 margin under `limit`),
+    hits above 0, every page back after clear.  Returns the cached run's
+    launch counts."""
+    workload = prefix_workload(eng.args.vocab_size)
+    hot, _, turn2, st_hot = prefix_run(torch, eng, workload, True, kv_quant)
+    cold, gaps, _, st_cold = prefix_run(torch, eng, workload, False, kv_quant, turn2)
+    if not st_hot["prefix_stats"]["hits"] > 0:
+        raise AssertionError(f"prefix run (kv {kv_quant}): no hits {st_hot['prefix_stats']}")
+    what = f"llama3-8b prefix kv_quant={kv_quant}"
+    rules = [near_tie(h, c, lambda i, m=m: m[i], limit, f"{what} request {r}")
+             for r, (h, c, m) in enumerate(zip(hot, cold, gaps))]
+    emit({"phase": "e2e", "model": "llama3-8b", "path": "prefix-cache", "kv_quant": kv_quant,
+          "requests": len(hot), "prefix_tokens": 2048, "suffix_tokens": 64,
+          "turn2_prompt_tokens": len(turn2), "cached": st_hot, "cold": st_cold,
+          "streams_equal_cold": sum(r["first_diff"] is None for r in rules),
+          "near_ties": [dict(request=i, **r) for i, r in enumerate(rules)
+                        if r["first_diff"] is not None],
+          "near_tie_limit": limit, "pages_leaked": 0, "card": card})
+    return st_hot["launches"]
+
+
+def http_call(port: int, path: str, body=None, stream: bool = False):
+    """One request to the server on 127.0.0.1:port: (status, JSON body)
+    or, streamed, (status, SSE events, seconds to the first token event,
+    seconds to the end)."""
+    import http.client
+
+    t0 = time.perf_counter()
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=180)
+    if body is None:
+        c.request("GET", path)
+    else:
+        c.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
+    r = c.getresponse()
+    if not stream:
+        data = r.read()
+        c.close()
+        return r.status, (json.loads(data) if data.startswith(b"{") else data.decode())
+    events, buf, t_first = [], b"", None
+    while True:
+        data = r.read1(65536)
+        if not data:
+            break
+        buf += data
+        while b"\n\n" in buf:
+            raw, buf = buf.split(b"\n\n", 1)
+            text = raw.decode()[len("data: "):]
+            if text != "[DONE]":
+                ev = json.loads(text)
+                if t_first is None and ev.get("choices"):
+                    t_first = time.perf_counter() - t0
+                events.append(ev)
+    c.close()
+    return r.status, events, t_first, time.perf_counter() - t0
+
+
+def server_phase(torch, eng, limit, card):
+    """The HTTP server (`llama3np_tpu_torch.server.serve`) around a paged,
+    prefix-caching BatchEngine on the loaded llama3-8b (quantum 4), on
+    127.0.0.1 with an ephemeral port, with a tokenizer over a 128,256-entry
+    vocabulary made from a seed.  8 client threads stream greedy
+    completions (ids) at once, then one streamed and one whole completion
+    of the same prompt, a two-turn chat, and sampled requests.  The
+    greedy streams must equal their capacity-1 streams (near-tie rule),
+    the streamed response the whole one (the same rule, the whole one's
+    margins), /stats must show prefix hits, /metrics parse, and every page
+    come back.  Reports requests/s, time to first token and ms per token
+    of the 8 concurrent requests, and the launch counts."""
+    import threading
+
+    import numpy as np
+
+    from llama3np_tpu_torch import Tokenizer
+    from llama3np_tpu_torch.server import serve as http_serve
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    vocab = synthetic_vocab(os.path.join(REPO, "build", "smoke", "vocab128k.json"),
+                            eng.args.vocab_size)
+    tok = Tokenizer(vocab)
+    rng = np.random.default_rng(3)
+    work = [([1] + rng.integers(3, eng.args.vocab_size, size=int(n)).tolist(), 24)
+            for n in (40, 300, 120, 700, 60, 250, 500, 90)]
+    solo, gaps = solo_serve(eng, work, None, margins=True)  # before the server runs
+    be = BatchEngine(eng, capacity=8, paged=True, page_size=16, prefix_cache=True,
+                     logprobs=2)
+    srv = http_serve(be, tok, "127.0.0.1", 0, quantum=4)
+    port = srv.server_address[1]
+    torch.cuda.synchronize()
+    reset_counters()  # the main path: the server's engine thread
+    try:
+        results = [None] * len(work)
+
+        def client(i):
+            results[i] = http_call(port, "/v1/completions",
+                                   {"prompt_ids": work[i][0], "max_tokens": work[i][1],
+                                    "stream": True}, stream=True)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(work))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or any(r is None for r in results):
+            raise AssertionError("server: a concurrent request never completed")
+        streams, ttft, per_tok = [], [], []
+        for status, events, t_first, t_end in results:
+            if status != 200 or t_first is None:
+                raise AssertionError(f"server: a streamed request failed ({status})")
+            ids = [t for e in events for t in e["choices"][0]["token_ids"]]
+            streams.append(ids)
+            ttft.append(t_first)
+            per_tok.append((t_end - t_first) * 1e3 / max(len(ids) - 1, 1))
+        rules = [near_tie(g, w, lambda i, m=m: m[i], limit, f"server request {r}")
+                 for r, (g, w, m) in enumerate(zip(streams, solo, gaps))]
+        # One prompt streamed, then whole (it hits the prefix cache).
+        body = {"prompt_ids": work[3][0], "max_tokens": 24, "logprobs": 2}
+        status, events, _, _ = http_call(port, "/v1/completions", {**body, "stream": True},
+                                         stream=True)
+        status2, whole = http_call(port, "/v1/completions", body)
+        if status != 200 or status2 != 200:
+            raise AssertionError(f"server: streamed/whole request failed ({status}, {status2})")
+        s_ids = [t for e in events for t in e["choices"][0]["token_ids"]]
+        w_choice = whole["choices"][0]
+        w_gaps = [t[0]["logprob"] - t[1]["logprob"]
+                  for t in w_choice["logprobs"]["top_logprobs"]]
+        stream_rule = near_tie(s_ids, w_choice["token_ids"], lambda i: w_gaps[i], limit,
+                               "server streamed vs whole")
+        s_text = "".join(e["choices"][0]["text"] for e in events)
+        if stream_rule["first_diff"] is None and s_text != w_choice["text"]:
+            raise AssertionError("server: the streamed text is not the whole text")
+        # A two-turn chat: the second turn's prompt extends the first's.
+        turn1 = [{"role": "user", "content": "once upon a time there was a little cat who "
+                                             "lived in a house by the sea and loved fish"}]
+        status, r1 = http_call(port, "/v1/chat/completions", {"messages": turn1,
+                                                              "max_tokens": 16})
+        turn2 = turn1 + [r1["choices"][0]["message"],
+                         {"role": "user", "content": "what happened next?"}]
+        hits0 = http_call(port, "/stats")[1]["prefix_cache"]["hits"]
+        status2, r2 = http_call(port, "/v1/chat/completions", {"messages": turn2,
+                                                               "max_tokens": 16})
+        stats = http_call(port, "/stats")[1]
+        if status != 200 or status2 != 200 or not stats["prefix_cache"]["hits"] > hits0:
+            raise AssertionError(f"server chat: {status} {status2}, prefix stats "
+                                 f"{stats['prefix_cache']} (hits before turn 2: {hits0})")
+        # Sampled requests: two choices of one prompt, and a chat.
+        status, sampled = http_call(port, "/v1/completions",
+                                    {"prompt_ids": work[0][0], "max_tokens": 16, "n": 2,
+                                     "temperature": 0.8, "stop_ids": []})
+        status2, s_chat = http_call(port, "/v1/chat/completions",
+                                    {"messages": turn1, "max_tokens": 8, "temperature": 0.8})
+        draws = [c["token_ids"] for c in sampled["choices"]] if status == 200 else []
+        if status != 200 or status2 != 200 or [len(d) for d in draws] != [16, 16] or \
+                not all(0 <= t < eng.args.vocab_size for d in draws for t in d):
+            raise AssertionError(f"server sampled requests: {status} {status2} {draws}")
+        status, metrics = http_call(port, "/metrics")
+        parsed = {}
+        for line in metrics.splitlines():
+            if line and not line.startswith("#"):
+                k, v = line.split()
+                parsed[k] = float(v)
+        if status != 200 or parsed.get("llama3np_prefix_hits_total", 0) < 1:
+            raise AssertionError(f"server /metrics: {status} {metrics[:400]}")
+    finally:
+        srv.shutdown()
+        srv.loop.shutdown()
+        srv.server_close()
+    torch.cuda.synchronize()
+    counts = counters()
+    if not (counts["flash_prefill"] and counts["paged_attention"]) or \
+            counts["decode_layers"] or counts["argmax_head"]:
+        raise AssertionError(f"server launch counts {counts}")
+    held = len(be._registry)
+    if be.allocator.available + held != be.allocator.num_pages - 1:
+        raise AssertionError("server: pages leaked")
+    be._registry.clear(be.allocator)
+    if be.allocator.available != be.allocator.num_pages - 1:
+        raise AssertionError("server: pages not all back after clear")
+    emit({"phase": "e2e", "model": "llama3-8b", "path": "server", "quantum": 4,
+          "concurrent_requests": len(work), "prompt_tokens": [len(p) for p, _ in work],
+          "max_tokens": 24, "wall_s": wall, "requests_per_s": len(work) / wall,
+          "ttft_s": ttft, "ttft_s_mean": sum(ttft) / len(ttft),
+          "ms_per_token": per_tok, "ms_per_token_mean": sum(per_tok) / len(per_tok),
+          "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
+          "near_ties": [dict(request=i, **r) for i, r in enumerate(rules)
+                        if r["first_diff"] is not None],
+          "near_tie_limit": limit, "stream_vs_whole": stream_rule,
+          "chat_turn2_prompt_tokens": r2["usage"]["prompt_tokens"],
+          "prefix_stats": stats["prefix_cache"], "served_requests": stats["served_requests"],
+          "engine_steps": stats["engine_steps"], "launches": counts,
+          "metrics_parsed": len(parsed), "cached_pages_cleared": held, "pages_leaked": 0,
+          "card": card})
+    del be
+    torch.cuda.empty_cache()
+    return counts
+
+
 def llama3_8b_phases(torch, smoke, card):
     """llama3-8b at full width in bf16: the engine's own loader over weights
     made on the card, the four kernels' bf16 modes against their twins at
@@ -1076,14 +1453,26 @@ def llama3_8b_phases(torch, smoke, card):
     gen_counts, limit = generate_vs_plain(torch, "llama3-8b", eng, prompt, 32, E8B_ENVELOPE,
                                           card, dtype="bfloat16")
     emit(profile_phase(torch, "llama3-8b", eng, prompt, card))
+    # Sampled generation: the decode kernel, the plain logits, the sampler.
+    s_counts = sampled_vs_plain(torch, "llama3-8b", eng, prompt, 32, card, dtype="bfloat16")
 
     # Serving: bf16 pools at quanta 1 and 4, against capacity-1 streams.
     workload = serve_workload(args.vocab_size)
     served = serve_vs_solo(torch, "llama3-8b", eng, workload, (("q1", 1), ("q4", 4)), limit,
                            card, dtype="bfloat16")
-    paths = {name: {"generate": n, **{"serve_" + run: c[name] for run, c in served.items()}}
+    paths = {name: {"generate": n, "sampled_generate": s_counts[name],
+                    **{"serve_" + run: c[name] for run, c in served.items()}}
              for name, n in gen_counts.items()}
     emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card))
+    sampled_step_phase(torch, "llama3-8b", eng, workload, card)
+
+    # The serving front end: the prefix cache (bf16 pools, then int8), and
+    # the HTTP server around a prefix-caching engine.
+    p_counts = prefix_phase(torch, eng, limit, card)
+    p8_counts = prefix_phase(torch, eng, limit, card, kv_quant="int8")
+    h_counts = server_phase(torch, eng, limit, card)
+    for name in ("flash_prefill", "paged_attention"):
+        paths[name].update(prefix=p_counts[name], server=h_counts[name])
 
     # Serving with int8 KV (int8 pools under the bf16 q) at quanta 1 and 4,
     # against capacity-1 int8-KV streams; the pools' bytes a token and the
@@ -1092,7 +1481,8 @@ def llama3_8b_phases(torch, smoke, card):
     i8 = serve_vs_solo(torch, "llama3-8b", eng, workload, (("q1", 1), ("q4", 4)), limit,
                        card, kv_quant="int8", dtype="bfloat16", kv="int8")
     paths["paged_attention_i8"] = {"serve_q1": i8["q1"]["paged_attention"],
-                                   "serve_q4": i8["q4"]["paged_attention"]}
+                                   "serve_q4": i8["q4"]["paged_attention"],
+                                   "prefix": p8_counts["paged_attention"]}
     emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card, kv_quant="int8"))
     del eng
     torch.cuda.empty_cache()
@@ -1876,6 +2266,9 @@ def main() -> int:
     logits_k = torch.from_numpy(t_eng(prompt, 0))  # ragged L=500 prefill
     k_stats = timed_generate(t_eng, prompt, 64)[1]
     emit(profile_phase(torch, "tinyllama-1.1b", t_eng, prompt, card))
+    # Sampled generation through the decode kernel, against the plain path.
+    t_sampled = sampled_vs_plain(torch, "tinyllama-1.1b", t_eng, prompt, n_tok, card,
+                                 dtype="float32")
     del t_eng
     torch.cuda.empty_cache()
 
@@ -1948,6 +2341,7 @@ def main() -> int:
               "run": run, **st, "launches": counts,
               "streams_equal_solo": len(streams), "pages_leaked": 0, "card": card})
     emit(serve_profile_phase(torch, "tinyllama-1.1b", v_eng, workload, card))
+    sampled_step_phase(torch, "tinyllama-1.1b", v_eng, workload, card)
     del v_eng
     torch.cuda.empty_cache()
 
@@ -1997,6 +2391,7 @@ def main() -> int:
     # generation for decode_layers and argmax_head; the int8 and bf16 modes'
     # own runs), and the count in each path.
     by_path = {name: {"generate": main_counts[name],
+                      "sampled_generate": t_sampled[name],
                       "serve_q1": served["q1"]["launches"][name],
                       "serve_q4": served["q4"]["launches"][name]}
                for name in sources}

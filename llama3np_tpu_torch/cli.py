@@ -5,8 +5,9 @@ Mirrors `llama3np_tpu.cli`: the same streamed text and the same final
 prefill/decode split on stderr.  It runs on the card unless `--device cpu`
 is given; `--dtype bfloat16` or `--dtype float16` runs the kernels' 16-bit
 modes there.  `--quant int8` runs int8 weights under any of the three
-dtypes (int4 exits with the ROADMAP message).  Trace, debug and sampling
-flags wait for later slices.
+dtypes (int4 exits with the ROADMAP message).  `--temperature` above 0
+samples (with `--top-k`, `--top-p` and `--seed`): the JAX CLI's tokens
+for the same seed.  Trace and debug flags wait for later slices.
 """
 
 from __future__ import annotations
@@ -36,6 +37,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant", default=None, choices=[None, "int8", "int4"],
                    help="weight-only quantization (int8 per-output-channel "
                         "scales; int4 is still to port)")
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="sampling temperature (0 = greedy, the reference behavior)")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; raises if there is no card)")
     p.add_argument("--fixed-decode", action="store_true",
@@ -50,6 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     from . import Tokenizer, preset, synthetic_weights
+    from .generate import Sampling
     from .models.llama import Llama
     from .observability import timed_generate
 
@@ -78,7 +85,11 @@ def main(argv=None) -> int:
     n_new = min(n_new, margs.max_seq_len - ids.shape[1])
 
     print(f"\n{args_ns.prompt}", end="")
-    toks, stats = timed_generate(model, ids, n_new)
+    policy = None
+    if args_ns.temperature > 0:
+        policy = Sampling(temperature=args_ns.temperature, top_k=args_ns.top_k,
+                          top_p=args_ns.top_p, seed=args_ns.seed)
+    toks, stats = timed_generate(model, ids, n_new, sampling=policy)
     toks = toks.cpu().numpy()[0]
 
     emitted = 0

@@ -1,24 +1,32 @@
-"""Greedy generation: one bucket-padded prefill, then a decode loop that
-keeps each token on the device.
+"""Generation: one bucket-padded prefill, then a decode loop that keeps
+each token on the device; greedy, or sampled under a `Sampling` policy.
 
 Counterpart of `llama3np_tpu.generate`.  The JAX package ran the decode
 loop as one `lax.scan`; here it is a Python loop whose position `pos` is a
 host integer and whose token never leaves the device, so the loop has no
 host sync per token: the tokens come back in one transfer at the end, as
-the scan's did.  On the card, batch-1 greedy decode runs the fused decode
-kernel and the greedy head (`kernel_decode_steps`); elsewhere the plain
-forward (`decode_steps`).
+the scan's did.  On the card, batch-1 decode runs the fused decode kernel,
+then the greedy head (`kernel_decode_steps`) or the plain logits and the
+sampler (`kernel_sampled_decode_steps`); elsewhere the plain forward
+(`decode_steps`, `sampled_decode_steps`).
+
+Sampled tokens are the JAX package's for the same seed: `decode_keys`
+replays its key schedule (a split for the first token, then per decode
+segment of `plan_decode_segments` a fold_in and a split a step) and
+`sample_token` its masks and Gumbel draw (`prng`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from . import prng
 from .models.llama import (StaticConfig, embed_tokens, forward,
-                           forward_hidden, lm_logits)
+                           forward_hidden, lm_logits, top_k_mask, top_p_mask)
 from .ops import core as ops
 from .ops.kernels.decode_step import decode_layers
 from .ops.kernels.greedy_head import argmax_head
@@ -65,6 +73,18 @@ def decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
     return torch.stack(toks, dim=1), cache
 
 
+def _kernel_hidden(params, tok: torch.Tensor, p: int, kc, vc, cos, sin,
+                   cfg: StaticConfig):
+    """One batch-1 token through every layer in the fused decode kernel,
+    then the final norm: h [1, D]; the caches kc/vc are written at row p."""
+    x = embed_tokens(params, tok)  # [1, D]
+    x, kc, vc = decode_layers(
+        params["layers"], x, p, kc, vc, cos[p : p + 1], sin[p : p + 1],
+        n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+        head_dim=cfg.head_dim, norm_eps=cfg.norm_eps)
+    return ops.rms_norm(x, params["norm"], cfg.norm_eps)
+
+
 def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
                         cfg: StaticConfig, num_steps: int):
     """`decode_steps` with every layer of a token in the fused decode kernel
@@ -80,13 +100,7 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
     vc = cache["v"][:, 0]
     toks = []
     for i in range(num_steps):
-        p = pos + i
-        x = embed_tokens(params, tok)  # [1, D]
-        x, kc, vc = decode_layers(
-            params["layers"], x, p, kc, vc, cos[p : p + 1], sin[p : p + 1],
-            n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
-            head_dim=cfg.head_dim, norm_eps=cfg.norm_eps)
-        h = ops.rms_norm(x, params["norm"], cfg.norm_eps)
+        h = _kernel_hidden(params, tok, pos + i, kc, vc, cos, sin, cfg)
         if "lm_head_scale" in params:
             tok = torch.argmax(lm_logits(params, h), dim=-1)  # [1]
         else:
@@ -116,6 +130,126 @@ def pad_prompt(input_ids: np.ndarray, args) -> Tuple[np.ndarray, int]:
     return padded, L
 
 
+DECODE_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def plan_decode_segments(rest: int, L: int, M: int,
+                         buckets=DECODE_BUCKETS) -> list:
+    """The JAX package's decode segments for `rest` steps after an L-token
+    prompt in an M-row cache: a greedy binary decomposition over the
+    buckets, the last segment rounded up to 16 steps and clamped so that
+    the total stays within M - L - 1 (513 -> [512, 16]).  The port's loop
+    runs no segments; the sampled key schedule folds in the segment index
+    (`decode_keys`)."""
+    cap = M - L - 1
+    if rest > cap:
+        raise ValueError(f"{rest} decode steps exceed the cache's {cap} "
+                         f"(prompt {L}, max_seq_len {M})")
+    segments = []
+    consumed = 0
+    for b in sorted(buckets, reverse=True):
+        while rest - consumed >= b and consumed + b <= cap:
+            segments.append(b)
+            consumed += b
+    if consumed < rest:
+        segments.append(min(-(-(rest - consumed) // 16) * 16, cap - consumed))
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# Sampling
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Sampling:
+    """Token-sampling policy, as the JAX package's.  temperature == 0 is
+    greedy."""
+    temperature: float = 1.0
+    top_k: int = 0        # 0 = disabled
+    top_p: float = 1.0    # 1.0 = disabled
+    seed: int = 0
+
+
+def sample_scores(logits: torch.Tensor, key: torch.Tensor,
+                  sampling: Sampling) -> torch.Tensor:
+    """The perturbed logits whose argmax a sampled token is: logits /
+    temperature (a division, as JAX rounds it), the top-k and top-p masks,
+    plus the Gumbel noise of `key` (`prng.gumbel_scores`).  Their top-2
+    margin is how near a draw is to a tie."""
+    scaled = logits.float() / sampling.temperature
+    if sampling.top_k:
+        scaled = top_k_mask(scaled, sampling.top_k)
+    if sampling.top_p < 1.0:
+        scaled = top_p_mask(scaled, sampling.top_p)
+    return prng.gumbel_scores(key, scaled)
+
+
+def sample_token(logits: torch.Tensor, key: torch.Tensor,
+                 sampling: Sampling) -> torch.Tensor:
+    """One token per row of f32 logits [B, VS] under one key [2] (the JAX
+    package's `sample_token`); temperature 0 is the argmax."""
+    if sampling.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(sample_scores(logits, key, sampling), dim=-1)
+
+
+def _host_split(key):
+    """`prng.split` of a key held as two Python ints (no device work)."""
+    return [prng.threefry2x32(key[0], key[1], 0, i) for i in range(2)]
+
+
+def decode_keys(sampling: Sampling, rest: int, L: int, M: int) -> torch.Tensor:
+    """The JAX package's generation keys for one prefill token and `rest`
+    decode steps: [1 + rest, 2] int64 on the CPU.  Key 0 samples the
+    first token: split(PRNGKey(seed)) -> (rng, key 0).  Decode segment i
+    (`plan_decode_segments`) starts from fold_in(rng, i) and splits once a
+    step, each step sampling with the second half.  Computed on the host
+    in Python integers (a few microseconds a key); the caller moves the
+    whole array to its device once."""
+    rng, first = _host_split((0, int(sampling.seed) & prng.MASK32))
+    keys, left = [first], rest
+    for i, S in enumerate(plan_decode_segments(rest, L, M)):
+        k = prng.threefry2x32(rng[0], rng[1], 0, i)  # fold_in(rng, i)
+        for _ in range(min(S, left)):
+            k, sub = _host_split(k)
+            keys.append(sub)
+        left -= min(S, left)
+    return torch.tensor(keys, dtype=torch.int64)
+
+
+def sampled_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos,
+                         sin, keys: torch.Tensor, cfg: StaticConfig,
+                         num_steps: int, sampling: Sampling):
+    """`decode_steps` with step i's token drawn by `sample_token` under
+    keys[i] (keys [num_steps, 2] on the cache's device)."""
+    toks = []
+    for i in range(num_steps):
+        logits, cache = forward(params, tok[:, None], pos + i, cache, cos,
+                                sin, cfg, first_chunk=False)
+        tok = sample_token(logits[:, -1, :], keys[i], sampling)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), cache
+
+
+def kernel_sampled_decode_steps(params, tok: torch.Tensor, pos: int, cache,
+                                cos, sin, keys: torch.Tensor,
+                                cfg: StaticConfig, num_steps: int,
+                                sampling: Sampling):
+    """`sampled_decode_steps` through the fused decode kernel: each token's
+    layers in `decode_layers`, then the final norm, the plain `lm_logits`
+    (post-scaled for an int8 head) and `sample_token`.  The greedy head
+    gives no logits, so it stays on the greedy path.  Batch 1 only, as
+    `kernel_decode_steps`; the caches are updated in place."""
+    kc = cache["k"][:, 0]
+    vc = cache["v"][:, 0]
+    toks = []
+    for i in range(num_steps):
+        h = _kernel_hidden(params, tok, pos + i, kc, vc, cos, sin, cfg)
+        tok = sample_token(lm_logits(params, h), keys[i], sampling)
+        toks.append(tok)
+    return torch.stack(toks, dim=1), cache
+
+
 class Generator:
     """Prefill padding/bucketing and the choice of decode loop."""
 
@@ -125,8 +259,8 @@ class Generator:
         self.cfg = engine.cfg
 
     def use_kernels(self, batch: int) -> bool:
-        """The fused decode kernel runs batch-1 greedy decode on the card,
-        float32, bf16, float16 or int8 weights alike (attn_impl
+        """The fused decode kernel runs batch-1 decode on the card, greedy
+        or sampled, float32, bf16, float16 or int8 weights alike (attn_impl
         "auto"/"pallas"; the engine refuses "pallas" elsewhere, and refuses
         on the card what no kernel takes)."""
         return self.cfg.kernels and self.cfg.rope_split and batch == 1
@@ -139,19 +273,27 @@ class Generator:
             return loop(params, tok, pos, cache, cos, sin, self.cfg, num_steps)
         return run
 
+    def sampled_decode_fn(self, num_steps: int, sampling: Sampling,
+                          batch: int = 1):
+        """(params, tok, pos, cache, cos, sin, keys) -> (tokens, cache)."""
+        loop = (kernel_sampled_decode_steps if self.use_kernels(batch)
+                else sampled_decode_steps)
+
+        def run(params, tok, pos, cache, cos, sin, keys):
+            return loop(params, tok, pos, cache, cos, sin, keys, self.cfg,
+                        num_steps, sampling)
+        return run
+
     def generate(self, params, input_ids: np.ndarray, cache: Dict,
-                 num_tokens: int, sampling=None
+                 num_tokens: int, sampling: "Sampling | None" = None
                  ) -> Tuple[torch.Tensor, Dict]:
-        """Decode `num_tokens` greedy tokens after the prompt.  `sampling`,
-        a policy with a `temperature` (as the JAX package's `Sampling`),
-        must be greedy: sampled decoding is still to port.
+        """Decode `num_tokens` tokens after the prompt: greedy by default,
+        drawn under a `Sampling` policy with a temperature above 0 (the
+        JAX package's tokens for the same seed).
 
         input_ids: host int array [B, L].  Returns ([B, num_tokens] on the
         engine's device, cache).  Requires L + num_tokens <= max_seq_len.
         """
-        if sampling is not None and sampling.temperature > 0.0:
-            raise NotImplementedError("sampling is still to port; the port "
-                                      "decodes greedily (see ROADMAP.md)")
         eng = self.engine
         B, L = input_ids.shape
         M = self.args.max_seq_len
@@ -161,10 +303,22 @@ class Generator:
         if num_tokens == 0:
             return torch.zeros((B, 0), dtype=torch.long, device=eng.device), cache
         padded, L = pad_prompt(input_ids, self.args)
-        tok0, cache = prefill_step(params, torch.as_tensor(padded, device=eng.device),
-                                   L, cache, eng.cos, eng.sin, self.cfg)
+        ids = torch.as_tensor(padded, device=eng.device)
+        stochastic = sampling is not None and sampling.temperature > 0.0
+        if stochastic:
+            keys = decode_keys(sampling, num_tokens - 1, L, M).to(eng.device)
+            logits0, cache = prefill_logits(params, ids, L, cache, eng.cos,
+                                            eng.sin, self.cfg)
+            tok0 = sample_token(logits0, keys[0], sampling)
+        else:
+            tok0, cache = prefill_step(params, ids, L, cache, eng.cos, eng.sin,
+                                       self.cfg)
         if num_tokens == 1:
             return tok0[:, None], cache
-        toks, cache = self.decode_fn(num_tokens - 1, B)(
-            params, tok0, L, cache, eng.cos, eng.sin)
+        if stochastic:
+            toks, cache = self.sampled_decode_fn(num_tokens - 1, sampling, B)(
+                params, tok0, L, cache, eng.cos, eng.sin, keys[1:])
+        else:
+            toks, cache = self.decode_fn(num_tokens - 1, B)(
+                params, tok0, L, cache, eng.cos, eng.sin)
         return torch.cat([tok0[:, None], toks], dim=1), cache

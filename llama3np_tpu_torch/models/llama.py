@@ -35,6 +35,7 @@ from ..checkpoint import (build_param_tree, fuse_param_tree, load_parameters,
                           params_to_device, permute_rope_layout,
                           quantize_param_tree)
 from ..config import ModelArgs
+from .. import prng
 from ..kvcache import init_cache
 from ..ops import core as ops
 from ..ops.kernels.flash_prefill import flash_prefill
@@ -329,6 +330,36 @@ def commit_window(cache: Dict, win: Dict, pos0: torch.Tensor, block_table,
     return ops.commit_window_dense(cache, win, pos0, num_steps)
 
 
+def _ragged_quantum(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
+                    cache: Dict, cos, sin, cfg: StaticConfig, num_steps: int,
+                    block_table, num_logprobs: Optional[int], pick):
+    """The quantum loop of `ragged_decode_steps` and
+    `sampled_ragged_decode_steps`; `pick(logits, s)` chooses step s's
+    tokens [B]."""
+    pos0 = pos
+    scale_rows = None
+    if block_table is not None and "k_s" in cache and not cfg.kernels:
+        scale_rows = (ops.gather_page_scales_all(cache["k_s"], block_table),
+                      ops.gather_page_scales_all(cache["v_s"], block_table))
+    win = init_decode_window(cache, tokens.shape[0], num_steps)
+    tok, toks, lps = tokens, [], []
+    for s in range(num_steps):
+        logits, rows = forward_ragged_decode(
+            params, tok, pos0 + s, cache, cos, sin, cfg, block_table,
+            pos0=pos0, win=win, win_count=s, commit=False,
+            scale_rows=scale_rows)
+        insert_window_rows(win, rows, s)
+        tok = pick(logits, s)
+        toks.append(tok)
+        if num_logprobs is not None:
+            lps.append(token_logprobs(logits, tok, num_logprobs))
+    cache = commit_window(cache, win, pos0, block_table, num_steps)
+    toks = torch.stack(toks, dim=1)
+    if num_logprobs is None:
+        return toks, cache
+    return toks, tuple(torch.stack(x, dim=1) for x in zip(*lps)), cache
+
+
 def ragged_decode_steps(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                         cache: Dict, cos, sin, cfg: StaticConfig,
                         num_steps: int, block_table=None,
@@ -348,28 +379,81 @@ def ragged_decode_steps(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     the block tables to cover positions pos .. pos + num_steps - 1.
     """
     _refuse_unported(lora, adapter_ids)
-    pos0 = pos
-    scale_rows = None
-    if block_table is not None and "k_s" in cache and not cfg.kernels:
-        scale_rows = (ops.gather_page_scales_all(cache["k_s"], block_table),
-                      ops.gather_page_scales_all(cache["v_s"], block_table))
-    win = init_decode_window(cache, tokens.shape[0], num_steps)
-    tok, toks, lps = tokens, [], []
-    for s in range(num_steps):
-        logits, rows = forward_ragged_decode(
-            params, tok, pos0 + s, cache, cos, sin, cfg, block_table,
-            pos0=pos0, win=win, win_count=s, commit=False,
-            scale_rows=scale_rows)
-        insert_window_rows(win, rows, s)
-        tok = torch.argmax(logits, dim=-1)
-        toks.append(tok)
-        if num_logprobs is not None:
-            lps.append(token_logprobs(logits, tok, num_logprobs))
-    cache = commit_window(cache, win, pos0, block_table, num_steps)
-    toks = torch.stack(toks, dim=1)
-    if num_logprobs is None:
-        return toks, cache
-    return toks, tuple(torch.stack(x, dim=1) for x in zip(*lps)), cache
+    return _ragged_quantum(params, tokens, pos, cache, cos, sin, cfg,
+                           num_steps, block_table, num_logprobs,
+                           lambda logits, s: torch.argmax(logits, dim=-1))
+
+
+def fold_row_keys(base_key, rids, ctrs) -> np.ndarray:
+    """Per-row keys fold_in(fold_in(base, request_id), token_index) (the
+    JAX package's `fold_row_keys`), computed on the host: base_key a key
+    [2] (a host tensor or array), rids and ctrs integer arrays that
+    broadcast together -> int64 keys [..., 2] for the caller to move to
+    its device at once.  A request's stream is a pure function of (engine
+    seed, request id, token index), whatever its co-tenants, admission
+    time or quantum.  The threefry runs as numpy vector ops on the rows
+    (a few hundred on arrays of B entries) instead of a few hundred device
+    launches a step."""
+    k = np.asarray(base_key, np.int64)
+    r, c = np.broadcast_arrays(np.asarray(rids, np.int64) & prng.MASK32,
+                               np.asarray(ctrs, np.int64) & prng.MASK32)
+    a0, a1 = prng.threefry2x32(k[0], k[1], np.zeros_like(r), r)
+    return np.stack(prng.threefry2x32(a0, a1, np.zeros_like(c), c), axis=-1)
+
+
+def top_k_mask(scaled: torch.Tensor, k: int) -> torch.Tensor:
+    """-inf below the k-th largest entry of each row (entries equal to it
+    stay)."""
+    kth = torch.topk(scaled, k, dim=-1).values[..., -1:]
+    return torch.where(scaled < kth, -torch.inf, scaled)
+
+
+def top_p_mask(scaled: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus mask, in JAX's op order: sort descending, the exclusive
+    cumsum of the softmax (exp(x - max) / sum), the cutoff by index, -inf
+    below the cutoff's value."""
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    e = torch.exp(sorted_logits - sorted_logits[..., :1])
+    probs = e / e.sum(dim=-1, keepdim=True)
+    cum = torch.cumsum(probs, dim=-1) - probs  # exclusive cumsum
+    cutoff_idx = (cum < top_p).sum(dim=-1, keepdim=True) - 1
+    cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
+    return torch.where(scaled < cutoff, -torch.inf, scaled)
+
+
+def sample_rows(logits: torch.Tensor, keys: torch.Tensor, temps: torch.Tensor,
+                top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """Per-row sampling for batched serving (the JAX package's
+    `sample_rows`): logits [B, VS] f32, keys [B, 2] (`fold_row_keys`),
+    temps [B] f32 (0 keeps that row greedy); top_k / top_p engine-wide.
+    Each row divides by max(temp, 1e-6), takes the masks and its own
+    Gumbel draw (`prng.categorical` under its key)."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits.float() / torch.clamp_min(temps.float(), 1e-6)[:, None]
+    if top_k:
+        scaled = top_k_mask(scaled, top_k)
+    if top_p < 1.0:
+        scaled = top_p_mask(scaled, top_p)
+    return torch.where(temps > 0, prng.categorical(keys, scaled), greedy)
+
+
+def sampled_ragged_decode_steps(params: Dict, tokens: torch.Tensor,
+                                pos: torch.Tensor, cache: Dict, cos, sin,
+                                keys: torch.Tensor, temps: torch.Tensor,
+                                cfg: StaticConfig, num_steps: int,
+                                top_k: int = 0, top_p: float = 1.0,
+                                block_table=None,
+                                num_logprobs: Optional[int] = None):
+    """`ragged_decode_steps` with per-row sampling (temps[b] == 0 keeps
+    row b greedy): step s draws row b under keys[b, s] ([B, num_steps, 2]
+    on the cache's device; the JAX package's fold_row_keys(base_key,
+    rids[b], ctrs[b] + s), `fold_row_keys` made on the host for the whole
+    quantum).  Log-probabilities, when asked for, are of the drawn token
+    under the raw (untempered) distribution."""
+    return _ragged_quantum(
+        params, tokens, pos, cache, cos, sin, cfg, num_steps, block_table,
+        num_logprobs,
+        lambda logits, s: sample_rows(logits, keys[:, s], temps, top_k, top_p))
 
 
 def resolve_device(device) -> torch.device:
@@ -470,8 +554,9 @@ class Llama:
 
     # -- generation ---------------------------------------------------------
 
-    def generate(self, input_ids, max_new_tokens: int):
-        """Greedy generator yielding [B, 1] int arrays, one per token.
+    def generate(self, input_ids, max_new_tokens: int, sampling=None):
+        """Generator yielding [B, 1] int arrays, one per token: greedy, or
+        drawn under a `generate.Sampling` policy.
 
         Count-compatible with the reference: `max_new_tokens` bounds the
         *total* length, so this yields `max_new_tokens - L` tokens (quirk
@@ -480,15 +565,16 @@ class Llama:
         ids = np.asarray(input_ids)
         L = ids.shape[1]
         steps = min(max(max_new_tokens - L, 0), self.args.max_seq_len - L)
-        toks = self.generate_tokens(ids, steps)
+        toks = self.generate_tokens(ids, steps, sampling=sampling)
         for t in toks.cpu().numpy().T:  # [steps, B] -> per-step [B]
             yield t[:, None]
 
     def generate_tokens(self, input_ids, num_tokens: int,
                         sampling=None) -> torch.Tensor:
-        """Decode exactly `num_tokens` new tokens greedily; returns them as
-        [B, num_tokens] int64 on the engine's device.  `sampling` (a policy
-        with a `temperature`) must be greedy in this slice."""
+        """Decode exactly `num_tokens` new tokens; returns them as [B,
+        num_tokens] int64 on the engine's device.  Greedy by default; a
+        `generate.Sampling` policy draws them with temperature / top-k /
+        top-p, the JAX package's tokens for the same seed."""
         from ..generate import Generator
         if self._gen is None:
             self._gen = Generator(self)

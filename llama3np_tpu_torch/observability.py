@@ -46,11 +46,15 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
-def timed_generate(engine, input_ids, num_tokens: int) -> tuple:
+def timed_generate(engine, input_ids, num_tokens: int, sampling=None) -> tuple:
     """Run prefill and decode separately, each fenced by a device sync;
     returns (tokens [B, num_tokens], GenerationStats).  As in the JAX
-    package, decode_s covers the num_tokens - 1 tokens after the first."""
-    from .generate import Generator, pad_prompt, prefill_step
+    package, decode_s covers the num_tokens - 1 tokens after the first.
+    A `generate.Sampling` policy with a temperature above 0 draws the
+    tokens as `Generator.generate` does (its keys are made before the
+    clock starts)."""
+    from .generate import (Generator, decode_keys, pad_prompt, prefill_logits,
+                           prefill_step, sample_token)
 
     ids = np.asarray(input_ids)
     B, L = ids.shape
@@ -64,18 +68,31 @@ def timed_generate(engine, input_ids, num_tokens: int) -> tuple:
         return torch.zeros((B, 0), dtype=torch.long, device=engine.device), stats
 
     padded, L = pad_prompt(ids, engine.args)
+    ids_t = torch.as_tensor(padded, device=engine.device)
+    stochastic = sampling is not None and sampling.temperature > 0.0
+    if stochastic:
+        keys = decode_keys(sampling, num_tokens - 1, L,
+                           engine.args.max_seq_len).to(engine.device)
     t0 = time.perf_counter()
-    tok0, cache = prefill_step(engine.params,
-                               torch.as_tensor(padded, device=engine.device),
-                               L, cache, engine.cos, engine.sin, gen.cfg)
+    if stochastic:
+        logits0, cache = prefill_logits(engine.params, ids_t, L, cache,
+                                        engine.cos, engine.sin, gen.cfg)
+        tok0 = sample_token(logits0, keys[0], sampling)
+    else:
+        tok0, cache = prefill_step(engine.params, ids_t, L, cache, engine.cos,
+                                   engine.sin, gen.cfg)
     _sync(engine.device)
     stats.prefill_s = time.perf_counter() - t0
 
     if num_tokens == 1:
         return tok0[:, None], stats
     t0 = time.perf_counter()
-    toks, cache = gen.decode_fn(num_tokens - 1, B)(
-        engine.params, tok0, L, cache, engine.cos, engine.sin)
+    if stochastic:
+        toks, cache = gen.sampled_decode_fn(num_tokens - 1, sampling, B)(
+            engine.params, tok0, L, cache, engine.cos, engine.sin, keys[1:])
+    else:
+        toks, cache = gen.decode_fn(num_tokens - 1, B)(
+            engine.params, tok0, L, cache, engine.cos, engine.sin)
     _sync(engine.device)
     stats.decode_s = time.perf_counter() - t0
     engine.cache = cache

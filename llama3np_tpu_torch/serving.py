@@ -27,9 +27,19 @@ the next admission.
     its 16-bit q; on the card its paged steps run the paged kernel's mode
     for that pool and q.
 
-Still to port, each raising NotImplementedError: sampling (`temperature >
-0`, ROADMAP A1), the prefix cache (`prefix_cache`, with `gather_pool_row`,
-A2), multi-LoRA (`adapters`, A7) and tensor-parallel serving (A9).
+  * Sampling (`temperature > 0` a request): token j of request r is drawn
+    under fold_in(fold_in(PRNGKey(sampling_seed), r), j), the JAX
+    engine's schedule, so a sampled stream is the JAX engine's and does
+    not depend on co-tenants, admission time or quantum.
+  * The prefix cache (`prefix_cache=True`, paged): admission looks up the
+    prompt's full pages in a `prefix.PrefixRegistry`, shares the hit
+    pages into the slot's block table, gathers their K/V into the row
+    cache (`gather_pool_row`) and prefills only the suffix; finished
+    conversations stay registered for the next turn, and cached pages
+    evict LRU under pool pressure.
+
+Still to port, each raising NotImplementedError: multi-LoRA (`adapters`,
+ROADMAP A7) and tensor-parallel serving (A9).
 """
 
 from __future__ import annotations
@@ -44,9 +54,13 @@ import torch
 from .checkpoint import torch_dtype
 from .generate import _last_logits, pad_prompt
 from .kvcache import PageAllocator, init_cache, init_paged_cache
-from .models.llama import (forward_hidden, forward_ragged_decode,
-                           ragged_decode_steps, token_logprobs)
+from .models.llama import (fold_row_keys, forward_hidden,
+                           forward_ragged_decode, ragged_decode_steps,
+                           sample_rows, sampled_ragged_decode_steps,
+                           token_logprobs)
 from .ops.core import quantize_kv_rows
+from .prefix import PrefixRegistry
+from .prng import prng_key
 
 
 def _row_cache(cache, M: int, row_dtype=None):
@@ -110,6 +124,29 @@ def admission_prefill_paged(params, padded, true_len: int,
     return logits[:, -1, :], scatter_row_paged(row, page_idx, cache)
 
 
+def gather_pool_row(cache, idx: torch.Tensor, row_dtype):
+    """Gather pool pages `idx` ([max_pages], 0 = the null page) into a row
+    cache [NL, 1, KVH, M, HD] of `row_dtype`: the prefix-cache admission
+    copies a shared prefix's K/V from the pool instead of recomputing it.
+    int8 pools dequantize here, (k.float() * scale) rounded to
+    `row_dtype` as the JAX package rounds it; the suffix prefill then
+    attends the values decode attention reconstructs."""
+    nl, _, kvh, page, hd = cache["k"].shape
+    idx = idx.long()
+
+    def to_row(c):  # [NL, n, KVH, page, HD] -> [NL, 1, KVH, n*page, HD]
+        return c.transpose(1, 2).reshape(nl, kvh, idx.shape[0] * page,
+                                         hd)[:, None].contiguous()
+
+    row = {}
+    for name in ("k", "v"):
+        c = cache[name][:, idx]
+        if "k_s" in cache:
+            c = c.float() * cache[name + "_s"][:, idx][..., None]
+        row[name] = to_row(c.to(row_dtype))
+    return row
+
+
 def prefill_row_chunk(params, chunk_ids, start: int, chunk_len: int, row,
                       cos, sin, cfg, first_chunk: bool):
     """One chunk of a chunked admission against the request's row cache.
@@ -131,7 +168,7 @@ class Request:
     prompt_ids: List[int]
     max_new_tokens: int
     stop_ids: tuple = (1, 2)  # bos/eos, the reference's stop set (quirk Q6)
-    temperature: float = 0.0  # 0 = greedy (the only policy ported)
+    temperature: float = 0.0  # 0 = greedy
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     slot: Optional[int] = None
@@ -142,6 +179,10 @@ class Request:
     logprobs: Optional[int] = None
     token_logprobs: List[float] = dataclasses.field(default_factory=list)
     top_logprobs: List[List[tuple]] = dataclasses.field(default_factory=list)
+
+    @property
+    def text_ids(self) -> List[int]:
+        return list(self.prompt_ids) + self.generated
 
     def _record_logprob(self, lp: float, ids, lps) -> None:
         self.token_logprobs.append(float(lp))
@@ -162,10 +203,18 @@ class BatchEngine:
 
     kv_quant="int8" (or the model's `args.kv_quant`) stores the cache as
     int8 rows with f32 scales (kvcache.init_cache / init_paged_cache).
+
+    A request's temperature (submit) picks greedy (0) or sampled decoding
+    for its row; top_k, top_p and sampling_seed are engine-wide.
+    prefix_cache=True (paged only) shares full KV pages across requests
+    with a common prompt prefix and keeps finished conversations for
+    follow-up turns (`prefix.PrefixRegistry`); cached pages count as free
+    for admission and evict LRU when the pool needs them.
     """
 
     def __init__(self, engine, capacity: int = 8, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
+                 top_k: int = 0, top_p: float = 1.0, sampling_seed: int = 0,
                  kv_quant: Optional[str] = None,
                  admit_chunk: Optional[int] = None,
                  prefix_cache: bool = False,
@@ -184,10 +233,12 @@ class BatchEngine:
         # int8 caches: admission prefills in the activation dtype and its
         # rows quantize once, at the copy into the cache.
         self._row_dt = torch_dtype(self.args.dtype) if kv_quant else None
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache is still to port "
-                                      "(ROADMAP A2)")
+        if prefix_cache and not paged:
+            # Sharing is block-table indirection; the dense layout has none.
+            raise ValueError("prefix_cache requires paged=True")
         if adapters:
+            # Prefix caching never composes with LoRA either: a prefix's
+            # K/V depends on the adapter that prefilled it.
             raise NotImplementedError("multi-LoRA serving is still to port "
                                       "(ROADMAP A7)")
         if self.args.mesh_tp > 1 or self.args.mesh_dp > 1:
@@ -221,8 +272,19 @@ class BatchEngine:
         else:
             self.cache = init_cache(self.args, capacity, quant=kv_quant,
                                     device=self.device)
+        self._registry = PrefixRegistry(page_size) if prefix_cache else None
         self.pos = np.zeros(capacity, np.int32)     # next write position
         self.tokens = np.zeros(capacity, np.int32)  # last token per slot
+        # Per-slot temperature (0 = greedy), request id and tokens drawn so
+        # far: the sampling keys' inputs.
+        self.temps = np.zeros(capacity, np.float32)
+        self.rids = np.zeros(capacity, np.int32)
+        self.sample_ctr = np.zeros(capacity, np.int32)
+        self.top_k = top_k
+        self.top_p = top_p
+        # The keys are made on the host (fold_row_keys) and reach the device
+        # once a step.
+        self._base_key = prng_key(sampling_seed)
         self.slots: List[Optional[Request]] = [None] * capacity
         self._ids = itertools.count()
         self._queue: List[Request] = []
@@ -236,15 +298,20 @@ class BatchEngine:
         """A copy of host state on the engine's device."""
         return torch.tensor(a, device=self.device)
 
+    def _sample_impl(self, logits, rids, ctrs, temps) -> torch.Tensor:
+        """Each row's token under its key fold_row_keys(base, rid, ctr)."""
+        keys = self._dev(fold_row_keys(self._base_key, rids, ctrs))
+        return sample_rows(logits, keys, self._dev(temps), self.top_k,
+                           self.top_p)
+
+    def _sampling_active(self) -> bool:
+        return bool((self.temps > 0).any())
+
     # -- admission -----------------------------------------------------------
 
     def submit(self, prompt_ids, max_new_tokens: int, stop_ids=(1, 2),
                temperature: float = 0.0, logprobs: Optional[int] = None,
                adapter: Optional[int] = None) -> Request:
-        if temperature > 0:
-            raise NotImplementedError("sampled serving is still to port "
-                                      "(ROADMAP A1); the port serves greedy "
-                                      "requests")
         if adapter is not None:
             raise NotImplementedError("multi-LoRA serving is still to port "
                                       "(ROADMAP A7)")
@@ -260,7 +327,7 @@ class BatchEngine:
                                  "(BatchEngine(..., logprobs=K))")
             if not 0 <= logprobs <= self.logprobs_k:
                 raise ValueError(f"logprobs must be in [0, {self.logprobs_k}]"
-                                 f" (the engine's top-K)")
+                                 f" (the engine's static top-K)")
         if len(req.prompt_ids) + req.max_new_tokens > self.args.max_seq_len:
             raise ValueError(
                 f"request exceeds max_seq_len: prompt {len(req.prompt_ids)} "
@@ -282,12 +349,23 @@ class BatchEngine:
     def _reservation_fits(self, req: Request) -> bool:
         """Admission-time worst-case page reservation: every active request's
         not-yet-allocated tail pages count against the pool, so
-        `_ensure_pages` never meets an exhausted pool mid-step."""
+        `_ensure_pages` never meets an exhausted pool mid-step.  Pages only
+        the prefix cache holds count as available: they evict on demand
+        (`_alloc`)."""
         n_needed = min(-(-(len(req.prompt_ids) + 1) // self.page_size),
                        self.max_pages)
         outstanding = int(sum(self._future_pages))
-        return (self.allocator.available - outstanding
-                >= max(self._worst_case_pages(req), n_needed))
+        avail = self.allocator.available
+        if self._registry is not None:
+            avail += self._registry.evictable_pages(self.allocator)
+        return avail - outstanding >= max(self._worst_case_pages(req), n_needed)
+
+    def _alloc(self, n: int) -> list:
+        """Allocate pages, evicting LRU prefix-cache entries when the free
+        list alone cannot cover them (the reservation counted them)."""
+        if self._registry is not None and self.allocator.available < n:
+            self._registry.evict(n - self.allocator.available, self.allocator)
+        return self.allocator.alloc(n)
 
     def _admit(self):
         if self._in_admission:
@@ -301,31 +379,59 @@ class BatchEngine:
                 return  # backpressure: admit again once pages free up
             self._prefill_into(slot, self._queue.pop(0))
 
-    def _admit_row(self, slot: int, req: Request, padded, L: int):
-        """Chunked admission: prefill the prompt in chunks against a row
-        cache, with a decode step for the co-tenants between chunks, then
-        copy the row into the slot's pages.  The slot is reserved
-        (req.admitting) with an all-zero block table: interleaved decode
-        writes for it land on the null page and its tokens are discarded, so
-        live state is untouched until the final copy."""
+    def _admit_row(self, slot: int, req: Request, padded, L: int,
+                   n_hit: int = 0, shared: Optional[list] = None):
+        """Row-cache admission: prefill the prompt in chunks against a row
+        cache, then copy the row into the slot's pages.  It serves two
+        features:
+
+        * chunked admission (admit_chunk set): a decode step for the
+          co-tenants between chunks;
+        * the prefix cache (n_hit > 0): the first `n_hit` pages' K/V is
+          gathered from the pool (`shared`, computed by an earlier
+          request) and only tokens from n_hit * page on are prefilled.
+          Shared pages enter the slot's block table and are never
+          rewritten: decode writes start at pos = L, past them.
+
+        The slot is reserved (req.admitting) with an all-zero block table:
+        interleaved decode writes for it land on the null page and its
+        tokens are discarded, so live state is untouched until the final
+        copy."""
         eng = self.engine
         page = self.page_size
+        shared = list(shared or [])
         n_needed = min(-(-(L + 1) // page), self.max_pages)
-        pages = self.allocator.alloc(n_needed)
+        # Share before allocating: _alloc may evict registry leaves, and the
+        # prefix pages just looked up must not be among them.
+        self.allocator.share(shared)
+        try:
+            fresh = self._alloc(n_needed - n_hit)
+        except MemoryError:
+            self.allocator.free(shared)
+            raise
+        pages = shared + fresh
         self._pages[slot] = pages
         self._future_pages[slot] = self._worst_case_pages(req) - n_needed
         self.block_tables[slot] = 0  # parked
         req.slot = slot
         req.admitting = True
         self.slots[slot] = req  # reserve: queued admissions skip this slot
+        self.temps[slot] = 0.0
         self.pos[slot] = 0
         M = self.max_pages * page
-        row = _row_cache(self.cache, M, self._row_dt)
+        row_dt = self._row_dt or self.cache["k"].dtype
+        if n_hit:
+            idx = np.zeros(self.max_pages, np.int64)
+            idx[:n_hit] = shared
+            row = gather_pool_row(self.cache, self._dev(idx), row_dt)
+        else:
+            row = _row_cache(self.cache, M, self._row_dt)
+        base = self.admit_chunk or 512
         self._in_admission = True
         try:
-            logits0, start = None, 0
+            logits0, start = None, n_hit * page
             while start < L:
-                A = min(self.admit_chunk, M - start)  # never past M
+                A = min(base, M - start)  # never past M
                 clen = min(A, L - start)
                 cids = np.zeros((1, A), np.int64)
                 cids[0, :clen] = padded[0, start : start + clen]
@@ -333,13 +439,13 @@ class BatchEngine:
                     eng.params, self._dev(cids), start, clen, row, eng.cos,
                     eng.sin, self.cfg, first_chunk=start == 0)
                 start += clen
-                if start < L and any(r is not None and not r.admitting
-                                     for r in self.slots):
+                if self.admit_chunk and start < L and any(
+                        r is not None and not r.admitting for r in self.slots):
                     self.step()  # co-tenants advance between chunks
         finally:
             self._in_admission = False
         idx = np.zeros(self.max_pages, np.int64)
-        idx[:n_needed] = pages
+        idx[n_hit:n_needed] = fresh  # shared prefix pages are never rewritten
         self.cache = scatter_row_paged(row, self._dev(idx), self.cache)
         self.block_tables[slot, :n_needed] = pages
         req.admitting = False
@@ -349,14 +455,20 @@ class BatchEngine:
         eng = self.engine
         padded, L = pad_prompt(np.asarray([req.prompt_ids], np.int64),
                                self.args)
-        if self.paged and self.admit_chunk and L > self.admit_chunk:
-            logits0 = self._admit_row(slot, req, padded, L)
+        n_hit, shared = 0, []
+        if self._registry is not None and L > self.page_size:
+            # Cap the hit so that one suffix token at least remains:
+            # admission runs a real forward for tok0's logits.
+            n_hit, shared = self._registry.lookup(
+                req.prompt_ids, max_pages=(L - 1) // self.page_size)
+        if self.paged and (n_hit or (self.admit_chunk and L > self.admit_chunk)):
+            logits0 = self._admit_row(slot, req, padded, L, n_hit, shared)
         elif self.paged:
             # Pages covering the prompt and tok0's upcoming write (L + 1 <=
             # max_seq_len, as submit validated); the worst-case tail stays
             # reserved as future pages.
             n_needed = min(-(-(L + 1) // self.page_size), self.max_pages)
-            pages = self.allocator.alloc(n_needed)
+            pages = self._alloc(n_needed)
             self._pages[slot] = pages
             self._future_pages[slot] = self._worst_case_pages(req) - n_needed
             self.block_tables[slot] = 0
@@ -370,16 +482,30 @@ class BatchEngine:
             logits0, self.cache = admission_prefill_dense(
                 eng.params, self._dev(padded), L, slot, self.cache, eng.cos,
                 eng.sin, self.cfg, self._row_dt)
-        tok0 = torch.argmax(logits0, dim=-1)
+        if req.temperature > 0:  # token index 0 of the request's stream
+            tok0 = self._sample_impl(
+                logits0, np.asarray([req.request_id], np.int32),
+                np.zeros(1, np.int32),
+                np.asarray([req.temperature], np.float32))
+        else:
+            tok0 = torch.argmax(logits0, dim=-1)
         first = int(tok0[0])
         req.slot = slot
         self.slots[slot] = req
+        self.temps[slot] = req.temperature
+        self.rids[slot] = req.request_id
+        self.sample_ctr[slot] = 1  # tok0 took token index 0
         req.generated.append(first)
         if req.logprobs is not None:
             l1, i1, v1 = token_logprobs(logits0, tok0, self.logprobs_k)
             req._record_logprob(float(l1[0]), i1[0].tolist(), v1[0].tolist())
         self.tokens[slot] = first
         self.pos[slot] = L  # `first`'s own position; written by the next step
+        if self._registry is not None:
+            # Cache the prompt's full pages for later admissions (entries
+            # already registered are recognized and skipped).
+            self._registry.register(req.prompt_ids, self._pages[slot],
+                                    self.allocator)
         self._maybe_finish(req, first)
 
     # -- stepping ------------------------------------------------------------
@@ -405,7 +531,7 @@ class BatchEngine:
             need = min(need, self.max_pages - 1)
             have = len(self._pages[slot])
             while have <= need:
-                (pid,) = self.allocator.alloc(1)  # covered by the admission reservation
+                (pid,) = self._alloc(1)  # covered by the admission reservation
                 self._pages[slot].append(pid)
                 self.block_tables[slot, have] = pid
                 self._future_pages[slot] = max(self._future_pages[slot] - 1, 0)
@@ -424,21 +550,35 @@ class BatchEngine:
             bt = self._dev(self.block_tables)
         eng = self.engine
         tokens, pos = self._dev(self.tokens), self._dev(self.pos)
+        sampled = self._sampling_active()
         lp = None  # (chosen_lp [B, q], top_ids [B, q, K], top_lps [B, q, K])
         if quantum == 1:
             logits, self.cache = forward_ragged_decode(
                 eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
                 self.cfg, block_table=bt)
-            nxt = torch.argmax(logits, dim=-1)
+            if sampled:
+                nxt = self._sample_impl(logits, self.rids, self.sample_ctr,
+                                        self.temps)
+            else:
+                nxt = torch.argmax(logits, dim=-1)
             toks = nxt[:, None]
             if self.logprobs_k is not None:
                 lp = tuple(x[:, None] for x in
                            token_logprobs(logits, nxt, self.logprobs_k))
         else:
-            out = ragged_decode_steps(
-                eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
-                self.cfg, quantum, block_table=bt,
-                num_logprobs=self.logprobs_k)
+            if sampled:
+                keys = fold_row_keys(self._base_key, self.rids[:, None],
+                                     self.sample_ctr[:, None] + np.arange(quantum))
+                out = sampled_ragged_decode_steps(
+                    eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
+                    self._dev(keys), self._dev(self.temps), self.cfg, quantum,
+                    self.top_k, self.top_p, block_table=bt,
+                    num_logprobs=self.logprobs_k)
+            else:
+                out = ragged_decode_steps(
+                    eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
+                    self.cfg, quantum, block_table=bt,
+                    num_logprobs=self.logprobs_k)
             if self.logprobs_k is not None:
                 toks, lp, self.cache = out
             else:
@@ -460,6 +600,9 @@ class BatchEngine:
                 if self._maybe_finish(req, tok):
                     finished.append(req)
                     break
+            else:
+                # The next token index of the request's sampled stream.
+                self.sample_ctr[slot] = len(req.generated)
         self._admit()
         return finished
 
@@ -481,10 +624,19 @@ class BatchEngine:
         """Finish `req` and return its slot (and pages) to the engine."""
         req.done = True
         self.slots[req.slot] = None
+        self.temps[req.slot] = 0.0
         # An idle row still flows through each step: at position 0 its
         # paged attention reads one null page, not its old length.
         self.pos[req.slot] = 0
         if self.paged:
+            if self._registry is not None:
+                # Cache the conversation (prompt + generated) for a
+                # follow-up turn.  The last generated token's K/V was never
+                # written (it was not fed back), so only the first L+G-1
+                # positions are valid.
+                n_valid = len(req.prompt_ids) + len(req.generated) - 1
+                self._registry.register(req.text_ids[:n_valid],
+                                        self._pages[req.slot], self.allocator)
             self.allocator.free(self._pages[req.slot])
             self._pages[req.slot] = []
             self._future_pages[req.slot] = 0
@@ -509,6 +661,11 @@ class BatchEngine:
         self._release_slot(req)
         self._admit()  # the freed slot can seat a queued request now
         return True
+
+    @property
+    def prefix_stats(self) -> Optional[dict]:
+        """Prefix-cache counters (None when prefix_cache is off)."""
+        return None if self._registry is None else self._registry.stats()
 
     def run_to_completion(self, max_steps: int = 100000) -> None:
         for _ in range(max_steps):

@@ -1017,3 +1017,150 @@ def test_card_16bit_int8_kv_batch_engine(cuda, dtype, quantum):
     assert paged_attention.launches == before + args.n_layers * steps
     assert [len(g) for g in got] == [10, 10, 10]
     assert [g[0] for g in got] == [g[0] for g in serve("cpu")[0]]
+
+
+# -- the serving front end: shared pages, sampling ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window2"])
+def test_paged_attention_kernel_over_shared_pages(cuda, dtype, mode):
+    """The prefix cache's block tables: rows name the same page ids for
+    their shared prefix (one row the whole prefix, one a part, one none),
+    then pages of their own; the kernel only reads the pool, so each row
+    matches the twin, and a sharing row matches itself alone (whose chunk
+    plan may differ: within the tolerance)."""
+    B, NH, KVH, HD, page, maxp, NL = 4, 8, 2, 64, 16, 12, 2
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, 3, seed=5)
+    shared = [3, 9, 4, 11, 7]  # a five-page prefix
+    bt = torch.zeros(B, maxp, dtype=torch.int32)
+    bt[0, :5] = torch.tensor(shared)
+    bt[0, 5:8] = torch.tensor([20, 21, 22])
+    bt[1, :5] = torch.tensor(shared)
+    bt[1, 5:6] = 30
+    bt[2, :3] = torch.tensor(shared[:3])
+    bt[2, 3:5] = torch.tensor([40, 41])
+    bt[3, :2] = torch.tensor([44, 45])
+    bt = bt.to(cuda)
+    pos = torch.tensor([5 * page + 40, 5 * page + 3, 3 * page + 20, 25],
+                       dtype=torch.int32, device=cuda)
+    kp, vp, q = a["kp"], a["vp"], a["q"]
+    kw = {}
+    if dtype is torch.int8:
+        kp, kw["k_scale"] = quantize_kv_rows(kp)
+        vp, kw["v_scale"] = quantize_kv_rows(vp)
+    elif dtype is torch.bfloat16:
+        kp, vp, q = kp.to(dtype), vp.to(dtype), q.to(dtype)
+    if mode == "plain":
+        kp, vp = kp[1].contiguous(), vp[1].contiguous()
+        kw = {k: v[1].contiguous() for k, v in kw.items()}
+    else:
+        cur = (a["ck"], a["cv"])
+        if dtype is torch.bfloat16:
+            cur = tuple(c.to(dtype) for c in cur)
+        if dtype is torch.int8:
+            (ck, cks), (cv, cvs) = quantize_kv_rows(cur[0]), quantize_kv_rows(cur[1])
+            kw.update(cur_k=ck, cur_v=cv, cur_ks=cks, cur_vs=cvs)
+        else:
+            kw.update(cur_k=cur[0], cur_v=cur[1])
+        kw["layer"] = 1
+        if mode == "window2":
+            wk, wv = a["wk"], a["wv"]
+            if dtype is torch.int8:
+                (wk, wks), (wv, wvs) = quantize_kv_rows(wk), quantize_kv_rows(wv)
+                kw.update(win_ks=wks, win_vs=wvs)
+            elif dtype is torch.bfloat16:
+                wk, wv = wk.to(dtype), wv.to(dtype)
+            kw.update(win_k=wk, win_v=wv, win_count=2)
+    before = paged_attention.launches
+    got = paged_attention(q, kp, vp, bt, pos, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1
+    want = paged_attention_plain(q, kp, vp, bt, pos, **kw)
+    tol = BF16_TOL if dtype is torch.bfloat16 else dict(rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    # a sharing row alone: the same output as in the batch
+    alone = {k: (v[1:2] if torch.is_tensor(v) and v.dim() and v.shape[0] == B else v)
+             for k, v in kw.items()}
+    one = paged_attention(q[1:2], kp, vp, bt[1:2], pos[1:2], **alone)
+    torch.testing.assert_close(one.float(), got[1:2].float(), **tol)
+
+
+def test_prng_on_the_card_equals_the_cpu(cuda):
+    from llama3np_tpu_torch import prng
+
+    for seed in (0, 7, 2**31 - 1):
+        kc, kg = prng.prng_key(seed), prng.prng_key(seed, cuda)
+        assert torch.equal(kg.cpu(), kc)
+        rids = torch.tensor([0, 3, 17, 400])
+        assert torch.equal(prng.fold_in(kg, rids.to(cuda)).cpu(), prng.fold_in(kc, rids))
+        assert torch.equal(prng.split(kg, 3).cpu(), prng.split(kc, 3))
+        keys = prng.fold_in(kc, rids)
+        for shape in ((1000,), (3, 128256)):
+            assert torch.equal(prng.random_bits(keys.to(cuda), shape).cpu(),
+                               prng.random_bits(keys, shape))
+            assert torch.equal(prng.uniform(keys.to(cuda), shape, 1e-30).cpu(),
+                               prng.uniform(keys, shape, 1e-30))
+            torch.testing.assert_close(prng.gumbel(keys.to(cuda), shape).cpu(),
+                                       prng.gumbel(keys, shape), rtol=0, atol=1e-6)
+        logits = torch.randn(4, 128256, generator=torch.Generator().manual_seed(seed)) * 3
+        assert torch.equal(prng.categorical(keys.to(cuda), logits.to(cuda)).cpu(),
+                           prng.categorical(keys, logits))
+
+
+@pytest.mark.parametrize("pol", [dict(temperature=0.8, top_p=0.9, seed=0),
+                                 dict(temperature=1.0, top_k=50, seed=3),
+                                 dict(temperature=0.6, seed=11)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_sampled_decode_steps_matches_plain(cuda, pol, dtype):
+    """Sampled batch-1 decode through the fused decode kernel (then the
+    plain logits and the sampler) against the plain sampled loop on the
+    same card; fp32 also against the CPU engine.  Equal streams (these
+    seeds and weights give no near-tie), the decode kernel launched once a
+    token, the greedy head never."""
+    from llama3np_tpu_torch.generate import Sampling
+
+    args = preset("test-tiny", dtype=dtype, max_seq_len=256)
+    w = synthetic_weights(args, seed=7)
+    ids = [[1, 7, 30, 41, 5]]
+    eng = Llama(w, args, device=cuda)
+    s = Sampling(**pol)
+    before = decode_layers.launches, argmax_head.launches
+    got = eng.generate_tokens(ids, 40, sampling=s).cpu()
+    assert (decode_layers.launches - before[0], argmax_head.launches - before[1]) == (39, 0)
+    plain = Llama(w, args.replace(attn_impl="xla"), device=cuda)
+    assert got.tolist() == plain.generate_tokens(ids, 40, sampling=s).cpu().tolist()
+    if dtype == "float32":
+        cpu = Llama(w, args, device="cpu")
+        assert got.tolist() == cpu.generate_tokens(ids, 40, sampling=s).tolist()
+    assert torch.equal(eng.generate_tokens(ids, 40, sampling=s).cpu(), got)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+@pytest.mark.parametrize("quantum", [1, 3])
+def test_card_prefix_cache_and_sampling_match_cpu_engine(cuda, quantum, kv_quant):
+    """Paged serving with the prefix cache and sampled requests on the
+    card: the same streams, hits and page accounting as the CPU engine."""
+    args = preset("test-tiny")
+    w = synthetic_weights(args, seed=23)
+    rng = np.random.default_rng(2)
+    head = rng.integers(3, args.vocab_size, size=24).tolist()
+    work = [(head + rng.integers(3, args.vocab_size, size=n).tolist(), b, t)
+            for n, b, t in ((3, 9, 0.0), (5, 7, 0.8), (1, 8, 0.0), (9, 6, 1.1))]
+
+    def serve(device):
+        be = BatchEngine(Llama(w, args, device=device), capacity=2, paged=True,
+                         page_size=8, prefix_cache=True, kv_quant=kv_quant,
+                         sampling_seed=4, top_p=0.9)
+        reqs = []
+        for p, b, t in work:
+            reqs.append(be.submit(p, b, stop_ids=(), temperature=t))
+            be.step(quantum)
+        while be.num_active or be._queue:
+            be.step(quantum)
+        return ([r.generated for r in reqs], be.prefix_stats, be.allocator.available,
+                len(be._registry))
+
+    before = paged_attention.launches
+    got = serve(cuda)
+    assert paged_attention.launches > before and got[1]["hits"] >= 2
+    assert got == serve("cpu")

@@ -185,11 +185,15 @@ def test_unported_options_raise(kw):
         Llama(w, preset("test-tiny", **kw), device="cpu")
 
 
-def test_sampling_raises_but_temperature_zero_is_greedy(rng):
-    _, _, teng = engines("test-tiny")
+def test_sampling_matches_jax_and_temperature_zero_is_greedy(rng):
+    """The JAX package's policy object drives the port's sampler (the same
+    fields): the port draws the JAX engine's stream; temperature 0 is the
+    greedy stream."""
+    _, jeng, teng = engines("test-tiny")
     ids = rng.integers(3, 512, size=(1, 4)).astype(np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teng.generate_tokens(ids, 4, sampling=Sampling(temperature=0.8))
+    pol = Sampling(temperature=0.8, seed=4)
+    assert teng.generate_tokens(ids, 8, sampling=pol)[0].tolist() == \
+        np.asarray(jeng.generate_tokens(ids, 8, sampling=pol))[0].tolist()
     greedy = teng.generate_tokens(ids, 4)[0].tolist()
     assert teng.generate_tokens(ids, 4, sampling=Sampling(temperature=0.0))[0].tolist() == greedy
 

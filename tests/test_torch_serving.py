@@ -365,8 +365,10 @@ def test_seeded_soak(setup):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(prefix_cache=True), "A2"), (dict(adapters=[{}]), "A7")])
+    (dict(prefix_cache=True, adapters=[{}]), "A7"), (dict(adapters=[{}]), "A7")])
 def test_unported_engine_options_raise(setup, kw, item):
+    """Multi-LoRA serving is refused, alone and with the prefix cache (the
+    two never compose: a prefix's K/V depends on its adapter)."""
     _, _, teng = setup
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         BatchEngine(teng, paged=True, **kw)
@@ -386,9 +388,10 @@ def test_kv_quant_engine_option(setup, paged):
             BE(eng, capacity=1, paged=paged, kv_quant="int4")
 
 
-@pytest.mark.parametrize("kw,item", [(dict(temperature=0.7), "A1"),
+@pytest.mark.parametrize("kw,item", [(dict(temperature=0.7, adapter=0), "A7"),
                                      (dict(adapter=0), "A7")])
 def test_unported_request_options_raise(setup, kw, item):
+    """A request naming an adapter is refused, greedy or sampled."""
     _, _, teng = setup
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         BatchEngine(teng, capacity=1).submit([5, 6, 7], 4, **kw)
