@@ -48,8 +48,21 @@ sampled requests, /stats and /metrics); then llama3-8b with
 int8 weights under bf16 activations at full width and depth (the decode
 kernel's int8/bf16 mode against its twin, greedy generation against the
 plain path by the same rules, a trace with the plain int8 head's share,
-serving with int8 KV); last, the fp16 kernel modes alone at llama3-8b's
-shapes.  The greedy head is also re-timed against torch.matmul +
+serving with int8 KV), and greedy speculative decoding of the loaded
+bf16 llama3-8b with that int8 engine as its self-draft (k = 4: the
+draft's steps through the decode kernel's int8/bf16 mode, one plain
+verify forward a round; the stream against the target's own kernel
+stream by the near-tie rule, exact launch counts, tokens / rounds /
+accept rate, a round split into draft steps, verify and the host read,
+and traced); last, the fp16 kernel modes alone at llama3-8b's shapes.
+Before the CLI, tinyllama-1.1b at full width and depth also runs
+speculation (fp32 target, int8 self-draft, the same checks), the split
+layout in fp32 (its stream against the fused kernel stream), int4 weights
+on int4-grid weights (stream and logits against the fp32 split engine,
+weight bytes, prefill ms and decode tok/s, a trace), int4 serving over
+int8 pools at quanta 1 and 4 against capacity-1 streams, a quantized
+checkpoint's round trip and a mixed-bit tree (int4 layers, int8 head).
+The greedy head is also re-timed against torch.matmul +
 torch.argmax in alternation (tinyllama-1.1b fp32 and fp16, llama3-8b bf16),
 and fp32 flash prefill against scaled_dot_product_attention (stories15M
 L=16 and 100, tinyllama-1.1b L=512).  It prints one JSON line
@@ -801,16 +814,18 @@ def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: i
             "card": card}
 
 
-def grid_weights(torch, weights):
-    """Weights snapped onto an int8 grid per output channel (the rule of
-    tests/test_quant.py:27-41), computed on the card: quantization then
-    round-trips, so the int8 engine computes the fp32 engine's numbers."""
+def grid_weights(torch, weights, qmax: int = 127):
+    """Weights snapped onto an int8 grid (qmax 127; int4: 7) per output
+    channel (the rule of tests/test_quant.py:27-41 and
+    tests/test_int4.py:27-39), computed on the card: quantization then
+    round-trips, so the int8 or int4 engine computes the fp32 engine's
+    numbers."""
     out = {}
     for k, v in weights.items():
         if v.ndim == 2:
             w = torch.from_numpy(v).to("cuda")
-            sc = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-12)
-            v = (torch.clamp(torch.round(w / sc), -127, 127) * sc).cpu().numpy()
+            sc = torch.clamp(w.abs().amax(dim=-1, keepdim=True) / qmax, min=1e-12)
+            v = (torch.clamp(torch.round(w / sc), -qmax, qmax) * sc).cpu().numpy()
         out[k] = v
     return out
 
@@ -1484,9 +1499,8 @@ def llama3_8b_phases(torch, smoke, card):
                                    "serve_q4": i8["q4"]["paged_attention"],
                                    "prefix": p8_counts["paged_attention"]}
     emit(serve_profile_phase(torch, "llama3-8b", eng, workload, card, kv_quant="int8"))
-    del eng
     torch.cuda.empty_cache()
-    return rows, paths
+    return rows, paths, eng, limit
 
 
 def int8_phases(torch, smoke, args, weights, prompt, workload, card):
@@ -1983,7 +1997,7 @@ def kernel_ab(torch, parent_dir: str, card: str, rounds: int = 4):
     return rows
 
 
-def llama3_8b_int8_phases(torch, smoke, card):
+def llama3_8b_int8_phases(torch, smoke, card, target, limit):
     """llama3-8b with int8 weights under bf16 activations (quant="int8",
     dtype bfloat16) at full width and depth: the engine's own loader over
     weights made on the card, the decode kernel's int8/bf16 mode against
@@ -1992,19 +2006,21 @@ def llama3_8b_int8_phases(torch, smoke, card):
     argmax) against the plain path (attn_impl="xla"): logits within the
     bf16 envelope with top-1 equal, the stream equal or parted at a
     near-tie; prefill ms and decode tok/s of both, and a trace that shows
-    the plain head's share.  Returns the kernel row and the launch
-    counts."""
+    the plain head's share.  The engine is `quantized_draft` of the same
+    seeded weights, the int8 self-draft of the bf16 `target` (the loaded
+    bf16 engine, kept alive): last, speculation of the target guided by
+    it (k = 4; `limit`: the bf16 near-tie limit).  Returns the kernel row
+    and the launch counts."""
     import resource
 
     import numpy as np
 
-    from llama3np_tpu_torch import preset
-    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch import preset, quantized_draft
 
     args = preset("llama3-8b", quant="int8")
     nl = args.n_layers
     t0 = time.perf_counter()
-    eng = Llama(CardWeights(torch, args), args, device="cuda")
+    eng = quantized_draft(CardWeights(torch, target.args), target.args)
     torch.cuda.synchronize()
     import gc
     gc.collect()
@@ -2022,8 +2038,8 @@ def llama3_8b_int8_phases(torch, smoke, card):
 
     prompt = np.random.default_rng(0).integers(3, args.vocab_size, size=(1, 500))
     # The main path: int8 greedy generation through the kernels.
-    counts, limit = generate_vs_plain(torch, "llama3-8b", eng, prompt, 32, E8B_ENVELOPE,
-                                      card, quant="int8", dtype="bfloat16")
+    counts, q_limit = generate_vs_plain(torch, "llama3-8b", eng, prompt, 32, E8B_ENVELOPE,
+                                        card, quant="int8", dtype="bfloat16")
     prof = profile_phase(torch, "llama3-8b-int8", eng, prompt, card)
     dec = prof["decode"]["device_ms_by_kind"]
     total = sum(dec.values()) or 1.0
@@ -2034,11 +2050,270 @@ def llama3_8b_int8_phases(torch, smoke, card):
     emit(prof)
     # Serving with int8 weights and int8 KV under bf16 activations, quantum 1.
     i8 = serve_vs_solo(torch, "llama3-8b", eng, serve_workload(args.vocab_size), (("q1", 1),),
-                       limit, card, kv_quant="int8", quant="int8", dtype="bfloat16", kv="int8")
+                       q_limit, card, kv_quant="int8", quant="int8", dtype="bfloat16", kv="int8")
+    torch.cuda.empty_cache()
+    spec = speculative_phase(torch, "llama3-8b", target, eng, prompt, 64, limit, card,
+                             dtype="bfloat16", draft_quant="int8")
     del eng
     torch.cuda.empty_cache()
-    return row, {"decode_layers": {"generate": counts["decode_layers"]},
+    return row, {"decode_layers": {"generate": counts["decode_layers"],
+                                   "speculative": spec["decode_layers"]},
+                 "flash_prefill": {"speculative": spec["flash_prefill"]},
                  "paged_attention_i8": {"serve_q1_int8_weights": i8["q1"]["paged_attention"]}}
+
+
+def speculative_phase(torch, model: str, target, draft, prompt, n_tok: int, limit: float,
+                      card, k: int = 4, rounds: int = 6, **tags):
+    """Greedy speculative decoding (`SpeculativeGenerator`, k proposals a
+    round) of `target` guided by `draft`, against the target's own greedy
+    stream through the kernels and against the plain path's: equal, or
+    first parted at a near-tie of the plain path's logits under `limit`
+    (the verify pass's (k+1)-row products against the decode kernel's
+    GEMVs, or the plain path's one-row products); exact launch counts
+    (flash once a layer for each engine's prefill, the decode kernel k+1
+    times a round for the draft's steps, no greedy head: the int8 draft's
+    head and the verify's logits are plain); tokens, rounds, accept rate,
+    host reads a round; decode tok/s (that run's fenced time less a fenced
+    prefill) against the target-only greedy rate; `rounds` rounds timed
+    part by part (draft steps, verify, the host
+    read), and one traced, its device time by kind.  Returns the launch
+    counts."""
+    import numpy as np
+
+    from llama3np_tpu_torch import SpeculativeGenerator
+    from llama3np_tpu_torch.generate import pad_prompt
+    from llama3np_tpu_torch.observability import timed_generate
+
+    nl = target.args.n_layers
+    want = target.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    t_stats = timed_generate(target, prompt, n_tok)[1]
+    spec = SpeculativeGenerator(target, draft, k=k)
+    spec.generate_tokens(prompt, 2 * k)  # warm
+    reset_counters()  # the main path: speculative generation through the kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = spec.generate_tokens(prompt, n_tok)[0].tolist()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts, st = counters(), dict(spec.last_stats)
+    expect = {"flash_prefill": 2 * nl, "decode_layers": st["rounds"] * (k + 1),
+              "paged_attention": 0, "argmax_head": 0}
+    if counts != expect:
+        raise AssertionError(f"{model} speculative launch counts {counts}, expected {expect}")
+    if st["host_reads"] != st["rounds"]:
+        raise AssertionError(f"{model} speculative host reads {st}")
+    twin = plain_twin(target)
+
+    def plain_margin(i):  # the plain path's top-2 margin before token i
+        ctx = np.array([prompt[0].tolist() + want[:i]])
+        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
+        return float(top[0] - top[1])
+
+    rule = near_tie(got, want, plain_margin, limit, f"{model} {tags} speculative stream")
+    # The verify's logits are the plain path's: the stream against the
+    # plain path's own greedy stream too, by the same rule.
+    plain = twin.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+
+    def plain_margin_own(i):
+        ctx = np.array([prompt[0].tolist() + plain[:i]])
+        top = torch.from_numpy(twin(ctx, 0))[0, -1].float().topk(2).values
+        return float(top[0] - top[1])
+
+    rule_plain = near_tie(got, plain, plain_margin_own, limit,
+                          f"{model} {tags} speculative stream vs the plain path")
+    del twin
+    padded, L = pad_prompt(prompt, target.args)
+    ids = torch.as_tensor(padded, device=target.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cur, t_cache, d_cache = spec.prefill(ids, L)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pos, parts = L, {"draft_ms": [], "verify_ms": [], "read_ms": []}
+
+    def one_round(cur, pos, split=True):
+        t0 = time.perf_counter()
+        props = spec.propose(cur, pos, d_cache)
+        if split:
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = spec.verify(cur, props, pos, t_cache)
+        if split:
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        vals = torch.cat([cur, props, g]).tolist()
+        t3 = time.perf_counter()
+        p, gg = vals[1 : k + 1], vals[k + 1 :]
+        a = next((i for i in range(k) if p[i] != gg[i]), k)
+        return g[a : a + 1], pos + a + 1, ((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3)
+
+    for _ in range(rounds):
+        cur, pos, ms = one_round(cur, pos)
+        for name, v in zip(parts, ms):
+            parts[name].append(v)
+    _, win, rows = trace(torch, lambda: one_round(cur, pos, split=False), top=8)
+    split = by_kind(rows)
+    emit({"phase": "e2e", "model": model, "path": "speculative", **tags, "k": k,
+          "prompt_tokens": int(prompt.shape[1]), "tokens": n_tok, "launches": counts,
+          "stats": st,
+          "host_reads_per_round": st["host_reads"] / max(st["rounds"], 1),
+          "stream_vs_target": rule, "stream_vs_plain": rule_plain, "near_tie_limit": limit,
+          "spec": {"prefill_ms": prefill_s * 1e3, "total_s": total_s,
+                   "decode_tok_s": (n_tok - 1) / (total_s - prefill_s)},
+          "target_only": {"prefill_ms": t_stats.prefill_ms,
+                          "decode_tok_s": t_stats.decode_tok_s},
+          "round_ms": {name: sum(v) / len(v) for name, v in parts.items()},
+          "round_ms_each": parts,
+          "traced_round": {**win, "device_ms_by_kind": split}, "card": card})
+    del t_cache, d_cache
+    torch.cuda.empty_cache()
+    return counts
+
+
+def weight_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in
+               [*params["layers"].values(), *(v for k, v in params.items() if k != "layers")])
+
+
+def split_int4_phases(torch, t_eng, weights, prompt, toks_k, logits_k, limit, workload,
+                      card):
+    """tinyllama-1.1b (`t_eng`: the fp32 fused engine on the kernels) at
+    full width and depth, ROADMAP A4-A5: speculation with an int8
+    self-draft (k = 4); the split layout in fp32 (its greedy stream
+    against the fused kernel stream `toks_k`, logits within 1e-3 of
+    `logits_k`); int4 on int4-grid weights (its stream equal to the fp32
+    split engine's on the same weights, logits within 1e-3; weight bytes,
+    prefill ms, decode tok/s, a trace); int4 serving over int8 pools at
+    quanta 1 and 4 against capacity-1 streams (strict); a quantized
+    checkpoint's round trip and a mixed-bit tree (bits=4, head_bits=8,
+    quantized on the card).  Returns each path's launch counts."""
+    from llama3np_tpu_torch import quantized_draft
+    from llama3np_tpu_torch.checkpoint import quantize_param_tree, save_quantized_npz
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+
+    import numpy as np
+
+    model, args = "tinyllama-1.1b", t_eng.args
+    nl, n_tok = args.n_layers, 32
+    draft = quantized_draft(weights, args)
+    paths = {"speculative": speculative_phase(torch, model, t_eng, draft, prompt, 64, limit,
+                                              card, dtype="float32", draft_quant="int8")}
+    del draft
+    torch.cuda.empty_cache()
+    plain_gen = {"flash_prefill": nl, "decode_layers": 0, "paged_attention": 0,
+                 "argmax_head": 0}
+
+    def generate(eng, what):
+        reset_counters()  # a split tree decodes on the plain path
+        toks = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+        if counters() != plain_gen:
+            raise AssertionError(f"{what} launch counts {counters()}, expected {plain_gen}")
+        logits = torch.from_numpy(eng(prompt, 0))
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"non-finite {what} logits")
+        return toks, logits
+
+    # The split layout in fp32 against the fused engine's kernel stream.
+    split_args = args.replace(fuse_matmuls=False)
+    s_eng = Llama(weights, split_args, device="cuda")
+    toks_s, logits_s = generate(s_eng, "tinyllama split fp32")
+    s_abs, s_rel = compare(torch, logits_s, logits_k, 1e-3, 1e-3,
+                           "tinyllama split vs fused logits")
+
+    def split_margin(i):
+        ctx = np.array([prompt[0].tolist() + toks_k[:i]])
+        top = torch.from_numpy(s_eng(ctx, 0))[0, -1].topk(2).values
+        return float(top[0] - top[1])
+
+    rule = near_tie(toks_s, toks_k, split_margin, limit, "tinyllama split stream")
+    s_stats = timed_generate(s_eng, prompt, 64)[1]
+    emit({"phase": "e2e", "model": model, "layout": "split", "dtype": "float32",
+          "launches": plain_gen, "stream_vs_fused_kernels": rule, "near_tie_limit": limit,
+          "logits_max_abs_err": s_abs, "logits_max_rel_err": s_rel,
+          "logits_tol": {"rtol": 1e-3, "atol": 1e-3},
+          "prefill_ms": s_stats.prefill_ms, "decode_tok_s": s_stats.decode_tok_s,
+          "timed_tokens": 64, "card": card})
+    del s_eng
+    torch.cuda.empty_cache()
+
+    # int4 on int4-grid weights against the fp32 split engine on them.
+    g4 = grid_weights(torch, weights, qmax=7)
+    f_eng = Llama(g4, split_args, device="cuda")
+    toks_f, logits_f = generate(f_eng, "tinyllama split fp32 (int4 grid)")
+    f_bytes = weight_bytes(f_eng.params)
+    q_args = split_args.replace(quant="int4")
+    t0 = time.perf_counter()
+    q_eng = Llama(g4, q_args, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    toks_q, logits_q = generate(q_eng, "tinyllama int4")
+    if toks_q != toks_f:
+        raise AssertionError("tinyllama int4 stream on int4-grid weights diverges from the "
+                             f"fp32 split stream at token {first_diff(toks_q, toks_f)}")
+    q_abs, q_rel = compare(torch, logits_q, logits_f, 1e-3, 1e-3,
+                           "tinyllama int4 vs fp32 logits (int4 grid)")
+    q_stats = timed_generate(q_eng, prompt, 64)[1]
+    q_bytes = weight_bytes(q_eng.params)
+    payload = sum(t.numel() for t in q_eng.params["layers"].values() if t.dtype == torch.uint8)
+    emit({"phase": "e2e", "model": model, "quant": "int4", "layout": "split",
+          "load_s": load_s, "launches": plain_gen, "greedy_tokens_equal_fp32": n_tok,
+          "logits_max_abs_err": q_abs, "logits_max_rel_err": q_rel,
+          "logits_tol": {"rtol": 1e-3, "atol": 1e-3},
+          "weight_bytes": {"int4": q_bytes, "fp32": f_bytes, "ratio": q_bytes / f_bytes,
+                           "packed_layer_payload": payload},
+          "prefill_ms": q_stats.prefill_ms, "decode_tok_s": q_stats.decode_tok_s,
+          "timed_tokens": 64, "card": card})
+    emit(profile_phase(torch, "tinyllama-1.1b-int4", q_eng, prompt, card))
+
+    # int4 serving over int8 pools, against capacity-1 streams (strict).
+    served = serve_vs_solo(torch, model, q_eng, workload, (("q1", 1), ("q4", 4)), 0.0, card,
+                           kv_quant="int8", quant="int4", kv="int8")
+    emit(serve_profile_phase(torch, "tinyllama-1.1b-int4", q_eng, workload, card,
+                             kv_quant="int8"))
+    paths.update(int4_serve_q1=served["q1"], int4_serve_q4=served["q4"])
+
+    # A quantized checkpoint: save, boot, the same stream.
+    ckpt = os.path.join(REPO, "build", "smoke", "tinyllama-int4.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    t0 = time.perf_counter()
+    save_quantized_npz(q_eng.params, ckpt)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b_eng = Llama.from_quantized(ckpt, q_args, device="cuda")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    toks_b, _ = generate(b_eng, "tinyllama int4 from_quantized")
+    if toks_b != toks_q:
+        raise AssertionError("the int4 checkpoint's stream diverges at token "
+                             f"{first_diff(toks_b, toks_q)}")
+    file_bytes = os.path.getsize(ckpt)
+    del b_eng, q_eng
+    os.remove(ckpt)
+    torch.cuda.empty_cache()
+
+    # Mixed bits: int4 layers under an int8 head, quantized on the card
+    # from the fp32 split engine's tree (built, permuted) on the same weights.
+    mixed = quantize_param_tree(f_eng.params, bits=4, head_bits=8, device="cuda")
+    del f_eng
+    save_quantized_npz(mixed, ckpt)
+    del mixed
+    m_eng = Llama.from_quantized(ckpt, q_args, device="cuda")
+    toks_m, _ = generate(m_eng, "tinyllama mixed bits")
+    toks_m2, _ = generate(m_eng, "tinyllama mixed bits, again")
+    if toks_m != toks_m2 or m_eng.params["lm_head"].dtype != torch.int8:
+        raise AssertionError("the mixed-bit engine is not deterministic or not mixed")
+    emit({"phase": "e2e", "model": model, "path": "quantized_checkpoint",
+          "int4": {"file_bytes": file_bytes, "save_s": save_s, "boot_s": boot_s,
+                   "stream_equal": True},
+          "mixed_bits": {"bits": 4, "head_bits": 8, "file_bytes": os.path.getsize(ckpt),
+                         "stream_repeats": True,
+                         "greedy_tokens_equal_int4": first_diff(toks_m, toks_q)},
+          "card": card})
+    del m_eng
+    os.remove(ckpt)
+    torch.cuda.empty_cache()
+    return paths
 
 
 def fp16_phases(torch, smoke, args, weights, prompt, workload, card):
@@ -2269,7 +2544,6 @@ def main() -> int:
     # Sampled generation through the decode kernel, against the plain path.
     t_sampled = sampled_vs_plain(torch, "tinyllama-1.1b", t_eng, prompt, n_tok, card,
                                  dtype="float32")
-    del t_eng
     torch.cuda.empty_cache()
 
     x_eng = Llama(t_weights, t_args.replace(attn_impl="xla"), device="cuda")
@@ -2295,6 +2569,13 @@ def main() -> int:
                     "decode_tok_s": x_stats.decode_tok_s},
           "timed_tokens": 64, "card": card})
 
+    # ---- speculation, the split layout and int4 (ROADMAP A4-A5) -------------
+    workload = serve_workload(t_args.vocab_size)
+    a45_paths = split_int4_phases(torch, t_eng, t_weights, prompt, toks_k, logits_k,
+                                  2 * l_abs, workload, card)
+    del t_eng
+    torch.cuda.empty_cache()
+
     # ---- the CLI ------------------------------------------------------------
     vocab = synthetic_vocab(os.path.join(REPO, "build", "smoke", "vocab.json"),
                             preset("stories15M").vocab_size)
@@ -2316,7 +2597,6 @@ def main() -> int:
         "tinyllama-1.1b", 8, t_args.n_heads, t_args.kv_heads, t_args.head_dim, 16,
         t_args.max_seq_len // 16, [0, 15, 16, 255, 500, 1023, 1500, 2047])
     v_eng = Llama(t_weights, t_args, device="cuda")
-    workload = serve_workload(t_args.vocab_size)
     solo = solo_streams(v_eng, workload)
     served = {}
     for run, quantum, chunk in (("q1", 1, None), ("q4", 4, None), ("chunked", 1, 512)):
@@ -2368,11 +2648,14 @@ def main() -> int:
     gc.collect()
 
     # ---- llama3-8b in bf16 at full width and depth -------------------------
-    b_rows, b_paths = llama3_8b_phases(torch, smoke, card)
+    b_rows, b_paths, b_eng, b_limit = llama3_8b_phases(torch, smoke, card)
     gc.collect()
 
-    # ---- llama3-8b with int8 weights under bf16 activations ----------------
-    q8_row, q8_paths = llama3_8b_int8_phases(torch, smoke, card)
+    # ---- llama3-8b with int8 weights under bf16 activations, and speculation
+    # with the bf16 engine as target and the int8 engine as its draft --------
+    q8_row, q8_paths = llama3_8b_int8_phases(torch, smoke, card, b_eng, b_limit)
+    del b_eng
+    torch.cuda.empty_cache()
 
     # ---- the fp16 kernel modes at llama3-8b's shapes ------------------------
     fp16_8b_shapes(torch, smoke)
@@ -2397,6 +2680,22 @@ def main() -> int:
                for name in sources}
     main_path = {"flash_prefill": "serve_q1", "decode_layers": "generate",
                  "paged_attention": "serve_q1", "argmax_head": "generate"}
+    # Speculation (ROADMAP A4): each engine's prefill through flash, the
+    # int8 draft's steps through the decode kernel's int8 (tinyllama) or
+    # int8/bf16 (8B) mode, never the greedy head; int4 serving (A5): flash
+    # for the float32 admissions, the paged kernel's int8 mode.
+    spec_t = a45_paths["speculative"]
+    by_path["flash_prefill"].update(
+        speculative=spec_t["flash_prefill"],
+        int4_serve_q1=a45_paths["int4_serve_q1"]["flash_prefill"],
+        int4_serve_q4=a45_paths["int4_serve_q4"]["flash_prefill"])
+    by_path["argmax_head"]["speculative"] = spec_t["argmax_head"]
+    i8_paths["decode_layers"]["speculative"] = spec_t["decode_layers"]
+    i8_paths["paged_attention"].update(
+        int4_serve_q1=a45_paths["int4_serve_q1"]["paged_attention"],
+        int4_serve_q4=a45_paths["int4_serve_q4"]["paged_attention"])
+    b_paths["flash_prefill"]["speculative"] = q8_paths["flash_prefill"]["speculative"]
+    b_paths["argmax_head"]["speculative"] = 0
     # The PR of each kernel mode's current design.
     design = {("flash_prefill", "fp32"): "pr8", ("flash_prefill", "bf16"): "pr5",
               ("decode_layers", "fp32"): "pr6", ("decode_layers", "int8"): "pr6",

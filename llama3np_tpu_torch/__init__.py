@@ -6,7 +6,11 @@ reference's public surface: `ModelArgs`, `Tokenizer`, `load_parameters`,
 and the `python -m llama3np_tpu_torch.cli "prompt"` entry point, and the
 continuous-batching engine `serving.BatchEngine` over the dense or paged
 KV cache, in float32 or bf16 (the Llama-3 presets, llama3-8b among them),
-with int8 weights (`quant="int8"`) and int8 KV (`kv_quant="int8"`).  The
+with int8 or int4 weights (`quant="int8"`, `quant="int4"` on the split
+layout of `fuse_matmuls=False`, quantized checkpoints in the JAX package's
+format) and int8 KV (`kv_quant="int8"`), and greedy speculative decoding
+(`SpeculativeGenerator`, with an int8 self-draft from `quantized_draft`).
+The
 kernels of these paths (flash prefill attention, the fused batch-1 decode
 step, the greedy lm_head + argmax and paged decode attention, each in
 float32 and bf16, the decode step and paged attention also int8) are
@@ -33,4 +37,13 @@ __all__ = [
     "load_parameters", "build_param_tree", "quantize_param_tree",
     "synthetic_weights", "save_npz",
     "init_cache", "Llama", "NumpyLlama", "params_from_jax", "argmax_head",
+    "SpeculativeGenerator", "quantized_draft",
 ]
+
+
+def __getattr__(name):
+    # Lazy, as in the JAX package: speculative pulls in the Generator.
+    if name in ("SpeculativeGenerator", "quantized_draft"):
+        from . import speculative
+        return getattr(speculative, name)
+    raise AttributeError(name)

@@ -18,9 +18,12 @@ matrices are stored pre-transposed to ``[in, out]``, so the forward is plain
 from neighbouring addresses.  The port runs the fused whole-layer layout
 (`fuse_param_tree`) in the split-halves RoPE column order
 (`permute_rope_layout`), which is the layout `llama3np_tpu`'s single-chip
-engine holds in `Llama.params`; `params_from_jax` carries such a tree over.
-`quantize_param_tree` makes its int8 form (int8 payloads beside f32
-`*_scale` leaves), as the JAX package's does.
+engine holds in `Llama.params`, or the split layout of
+`fuse_matmuls=False`; `params_from_jax` carries either over.
+`quantize_param_tree` makes their int8 and int4 forms (payloads beside f32
+`*_scale` leaves; int4 packed two a byte, `pack_int4`), as the JAX
+package's does, and `save_quantized_npz` / `load_quantized_npz` write and
+read quantized trees in the JAX package's file format.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from .config import ModelArgs
-from .ops.core import rope_split_permutation
+from .ops.core import rope_split_permutation, unpack_int4
 
 _TORCH_DTYPES = {
     "float32": torch.float32,
@@ -157,47 +160,180 @@ def fuse_param_tree(params: Dict) -> Dict:
     return {**params, "layers": fused}
 
 
-def quantize_param_tree(params: Dict, bits: int = 8) -> Dict:
-    """Weight-only int8 quantization of the fused whole-layer tree or of the
-    split tree (the numpy counterpart of `llama3np_tpu.checkpoint.
-    quantize_param_tree` for bits=8, giving the same payloads and scales).
+def pack_int4(w) -> torch.Tensor:
+    """int4 codes [..., n] (an int8 tensor or array) -> torch.uint8 [...,
+    ceil(n / 2)], two a byte along the last axis: value 2j in the low
+    nibble, 2j + 1 in the high one, each the low nibble of its byte (a
+    code in [-8, 7] in two's complement, or a JAX int4 file's byte).  An
+    odd n pads one zero nibble."""
+    t = torch.from_numpy(np.ascontiguousarray(w)) if isinstance(w, np.ndarray) else w
+    if t.shape[-1] % 2:
+        t = torch.cat([t, t.new_zeros(*t.shape[:-1], 1)], dim=-1)
+    u = t.to(torch.uint8)  # two's complement bytes; the low nibble is the code
+    return (u[..., 0::2] & 15) | ((u[..., 1::2] & 15) << 4)
+
+
+def int4_width(params: Dict, name: str) -> int:
+    """The unpacked length of packed leaf `name` ("lm_head",
+    "tok_embedding", or a layer weight "layers.wq"): a matmul weight's
+    output columns are its scale's, the embedding's row is the model
+    width."""
+    if name == "tok_embedding":
+        return params["norm"].shape[-1]
+    if name.startswith("layers."):
+        return params["layers"][name[len("layers."):] + "_scale"].shape[-1]
+    return params[name + "_scale"].shape[-1]
+
+
+def quantize_param_tree(params: Dict, bits: int = 8, head_bits: int = None,
+                        device=None) -> Dict:
+    """Weight-only quantization of the fused whole-layer tree or of the
+    split tree, the counterpart of `llama3np_tpu.checkpoint.
+    quantize_param_tree`, giving the same codes and scales.
 
     Matmul weights (wqkv/wo/wgu/w_down or wq/wk/wv/wo/w_gate/w_up/w_down,
     and lm_head) get per-output-column symmetric scales reduced over the
-    contraction (second-to-last) axis: s = max|w_col| / 127 (floored at
-    1e-12), w8 = clip(rint(w / s), -127, 127).  The scale commutes with the
-    matmul, x @ (w8 * s) == (x @ w8) * s, so consumers post-scale the
-    product and never dequantize a weight ahead of time.  The embedding
-    gets one scale per row, applied after the gather.  Norms stay as they
-    are."""
-    if bits != 8:
-        raise NotImplementedError("int4 and mixed-bit trees run the "
-                                  "split-weight layout, still to port "
-                                  "(ROADMAP A5)")
+    contraction (second-to-last) axis: s = max|w_col| / qmax (floored at
+    1e-12), w_q = clip(rint(w / s), -qmax, qmax), qmax 127 for bits=8 and 7
+    for bits=4.  The scale commutes with the matmul, x @ (w_q * s) ==
+    (x @ w_q) * s, so consumers post-scale the product and never dequantize
+    a weight ahead of time.  The embedding gets one scale per row, applied
+    after the gather.  Norms stay as they are.  int4 codes are stored two
+    a byte (`pack_int4`, along each weight's last axis), so their bytes are
+    half int8's; the JAX package's host tree holds one byte a value.
 
-    def q(w, axis):
-        w = np.asarray(w, np.float32)
-        s = np.max(np.abs(w), axis=axis, keepdims=True) / 127
-        s = np.maximum(s, 1e-12).astype(np.float32)
-        return np.clip(np.rint(w / s), -127, 127).astype(np.int8), s
+    head_bits (default: bits) quantizes lm_head and tok_embedding at their
+    own width: bits=4, head_bits=8 is the mixed tree, int4 layers under an
+    int8 head.  The host path runs numpy on a thread pool and returns numpy
+    leaves; `device` (a torch device) quantizes there instead and returns
+    tensors on it, the JAX package's `device=True`."""
+    head_bits = bits if head_bits is None else head_bits
+    for b in (bits, head_bits):
+        if b not in (8, 4):
+            raise ValueError(f"bits must be 8 or 4, not {b}")
 
+    def make_q(nbits):
+        qmax = 127 if nbits == 8 else 7
+
+        def finish(w8):
+            return pack_int4(w8) if nbits == 4 else w8
+
+        if device is not None:
+            def q(w, axis):
+                w = torch.as_tensor(w).to(device=device, dtype=torch.float32, copy=True)
+                # A tensor divisor: CUDA divides by a Python scalar as a
+                # multiply by its reciprocal, an ulp off numpy's quotient.
+                qm = torch.tensor(float(qmax), device=w.device)
+                s = torch.clamp(w.abs().amax(dim=axis, keepdim=True) / qm, min=1e-12)
+                # in place on the copy: one weight-sized temporary at a time
+                w8 = w.div_(s).round_().clamp_(-qmax, qmax).to(torch.int8)
+                return finish(w8), s
+        else:
+            def q(w, axis):
+                w = np.asarray(w, np.float32)
+                s = np.max(np.abs(w), axis=axis, keepdims=True) / qmax
+                s = np.maximum(s, 1e-12).astype(np.float32)
+                w8 = np.clip(np.rint(w / s), -qmax, qmax).astype(np.int8)
+                return (pack_int4(w8).numpy() if nbits == 4 else w8), s
+        return q
+
+    q, q_head = make_q(bits), make_q(head_bits)
     ly = dict(params["layers"])
     kinds = (("wqkv", "wo", "wgu", "w_down") if "wqkv" in ly
              else ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
     tasks = [(kind, partial(q, ly[kind], -2)) for kind in kinds]
-    tasks += [("lm_head", partial(q, params["lm_head"], -2)),
-              ("tok_embedding", partial(q, params["tok_embedding"], -1))]
-    done = _parallel_items(tasks)
+    tasks += [("lm_head", partial(q_head, params["lm_head"], -2)),
+              ("tok_embedding", partial(q_head, params["tok_embedding"], -1))]
+    done = ({name: thunk() for name, thunk in tasks} if device is not None
+            else _parallel_items(tasks))
     for kind in kinds:
         ly[kind], ly[kind + "_scale"] = done[kind]
-    head8, head_s = done["lm_head"]
-    emb8, emb_s = done["tok_embedding"]
+    head_q, head_s = done["lm_head"]
+    emb_q, emb_s = done["tok_embedding"]
     return {**params, "layers": ly,
-            "tok_embedding": emb8, "tok_embedding_scale": emb_s,
-            "lm_head": head8, "lm_head_scale": head_s}
+            "tok_embedding": emb_q, "tok_embedding_scale": emb_s,
+            "lm_head": head_q, "lm_head_scale": head_s}
+
+
+# ---------------------------------------------------------------------------
+# Quantized checkpoints, in the JAX package's file format
+# ---------------------------------------------------------------------------
+
+def _flat_items(params: Dict):
+    """(dotted key, leaf) of a parameter tree: "layers.wq", "lm_head"..."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            for kk, vv in v.items():
+                yield f"{k}.{kk}", vv
+        else:
+            yield k, v
+
+
+def save_quantized_npz(params: Dict, path: str, rope_split: bool = True):
+    """Write a quantized split tree (`build_param_tree` [+
+    `permute_rope_layout`] + `quantize_param_tree`, numpy leaves or tensors
+    on any device) as one .npz in the JAX package's format
+    (`llama3np_tpu.checkpoint.save_quantized_npz`), which either package
+    boots with `Llama.from_quantized`: dotted tree keys, a
+    `__rope_split__` marker, bfloat16 leaves as their uint16 bits listed
+    under `__bf16__`, and int4 leaves as one byte a value listed under
+    `__int4__`, the value's two's-complement low nibble in the low four
+    bits and zeros above (the bytes of an `ml_dtypes.int4` array)."""
+    flat = {"__rope_split__": np.asarray(int(rope_split))}
+    bf16_keys, int4_keys = [], []
+    for key, v in _flat_items(params):
+        if v.dtype in (torch.uint8, np.uint8):  # packed int4, the only uint8 leaves
+            codes = unpack_int4(torch.as_tensor(v).cpu(), int4_width(params, key))
+            v = (codes & 15).numpy()
+            int4_keys.append(key)
+        elif isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            v = v.cpu().view(torch.int16).numpy().view(np.uint16)
+            bf16_keys.append(key)
+        elif isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+        flat[key] = np.asarray(v)
+    flat["__bf16__"] = np.asarray(bf16_keys)
+    flat["__int4__"] = np.asarray(int4_keys)
+    np.savez(path, **flat)
+
+
+def load_quantized_npz(path: str):
+    """Load a quantized checkpoint of either package (`save_quantized_npz`);
+    returns (parameter tree of CPU tensors, rope_split).  An int4 byte
+    holds its value's low nibble (read back sign-extended, `unpack_int4`),
+    and the nibbles are packed two a byte; bfloat16 bits become
+    torch.bfloat16 through a view."""
+    npz = np.load(path)
+    bf16 = set(npz["__bf16__"].tolist()) if "__bf16__" in npz.files else set()
+    int4 = set(npz["__int4__"].tolist()) if "__int4__" in npz.files else set()
+
+    def get(k):
+        v = npz[k]
+        if k in int4:  # the low nibble is the code; packing keeps just that
+            return pack_int4(v.view(np.int8))
+        if k in bf16 or (v.dtype.kind == "V" and v.dtype.itemsize == 2):
+            # (a legacy file without the list stored bfloat16 as raw 2-byte
+            # void: the only 2-byte non-native dtype either package writes)
+            return torch.from_numpy(np.ascontiguousarray(v).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(v))
+
+    out: Dict = {"layers": {}}
+    rope_split = True
+    for k in npz.files:
+        if k == "__rope_split__":
+            rope_split = bool(int(npz[k]))
+        elif k in ("__bf16__", "__int4__"):
+            continue
+        elif k.startswith("layers."):
+            out["layers"][k[len("layers."):]] = get(k)
+        else:
+            out[k] = get(k)
+    return out, rope_split
 
 
 def _to_tensor(a, device, dtype) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype or a.dtype).contiguous()
     arr = np.asarray(a)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         # ml_dtypes.bfloat16 leaves (a bf16 JAX tree): widen losslessly, then
@@ -212,14 +348,15 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
 
 
 def params_to_device(tree: Dict, device, dtype=None) -> Dict:
-    """Copy a numpy parameter tree onto `device` as torch tensors, cast to
-    `dtype` (a `ModelArgs` dtype string or torch dtype; None keeps each
-    leaf's own).  int8 payloads stay torch.int8 and `*_scale` leaves
-    float32 whatever `dtype` is."""
+    """Copy a parameter tree (numpy leaves, or tensors) onto `device` as
+    torch tensors, cast to `dtype` (a `ModelArgs` dtype string or torch
+    dtype; None keeps each leaf's own).  int8 payloads stay torch.int8,
+    packed int4 torch.uint8, and `*_scale` leaves float32 whatever `dtype`
+    is."""
     dt = None if dtype is None else torch_dtype(dtype)
 
     def put(name, v):
-        if np.asarray(v).dtype == np.int8:
+        if v.dtype in (np.int8, np.uint8, torch.int8, torch.uint8):
             return _to_tensor(v, device, None)
         return _to_tensor(v, device, torch.float32 if name.endswith("_scale") else dt)
 
@@ -237,21 +374,30 @@ def params_from_jax(tree: Dict, device) -> Dict:
 
     `tree` is `llama3np_tpu.models.llama.Llama.params` with its leaves as
     numpy arrays: the fused, rope-split, whole-layer layout ("wqkv"
-    [NL,D,QD+2KVD], "wo", "wgu" [NL,D,2FD], "w_down", norms [NL,1,D]).
-    Returns the port's tensor tree on `device`, which both packages then
-    compute the same function with.  An int8 tree (`quant="int8"`) carries
-    over with its `*_scale` leaves.  The TPU-only FFN-blocked and
-    KV-head-grouped layouts are refused: their per-(block, column) scales
-    belong to a TPU VMEM plan."""
+    [NL,D,QD+2KVD], "wo", "wgu" [NL,D,2FD], "w_down", norms [NL,1,D]) or
+    the split layout of `fuse_matmuls=False` ("wq"/"wk"/"wv"/"wo",
+    "w_gate"/"w_up"/"w_down", norms [NL,D]).  Returns the port's tensor
+    tree on `device`, which both packages then compute the same function
+    with.  An int8 or int4 tree carries over with its `*_scale` leaves; an
+    int4 leaf (one `ml_dtypes.int4` value a byte) is cast to int8 by value
+    and packed two a byte.  The TPU-only FFN-blocked and KV-head-grouped
+    layouts are refused: their per-(block, column) scales belong to a TPU
+    VMEM plan."""
     ly = tree["layers"]
-    if "wqkv" not in ly:
-        raise ValueError("params_from_jax takes the fused tree "
-                         "(ModelArgs.fuse_matmuls=True)")
-    if np.ndim(ly["wqkv"]) != 3 or np.ndim(ly["wgu"]) != 3:
+    if "wqkv" in ly and (np.ndim(ly["wqkv"]) != 3 or np.ndim(ly["wgu"]) != 3):
         raise ValueError("only the whole-layer fused layout carries over; the "
                          "FFN-blocked / KV-head-grouped layouts are TPU VMEM "
                          "plans (pass pallas_ffn_block=0 to the JAX engine)")
-    return params_to_device(tree, device)
+    if "wqkv" not in ly and "wq" not in ly:
+        raise ValueError("params_from_jax takes the fused or the split tree")
+
+    def conv(v):
+        arr = np.asarray(v)
+        return pack_int4(arr.astype(np.int8)) if arr.dtype.name == "int4" else arr
+
+    host = {k: ({kk: conv(vv) for kk, vv in v.items()} if isinstance(v, dict) else conv(v))
+            for k, v in tree.items()}
+    return params_to_device(host, device)
 
 
 # ---------------------------------------------------------------------------

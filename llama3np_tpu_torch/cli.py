@@ -5,7 +5,8 @@ Mirrors `llama3np_tpu.cli`: the same streamed text and the same final
 prefill/decode split on stderr.  It runs on the card unless `--device cpu`
 is given; `--dtype bfloat16` or `--dtype float16` runs the kernels' 16-bit
 modes there.  `--quant int8` runs int8 weights under any of the three
-dtypes (int4 exits with the ROADMAP message).  `--temperature` above 0
+dtypes; `--quant int4` raises the engine's "unfused" ValueError on the
+fused default layout, as the JAX CLI does.  `--temperature` above 0
 samples (with `--top-k`, `--top-p` and `--seed`): the JAX CLI's tokens
 for the same seed.  Trace and debug flags wait for later slices.
 """
@@ -35,8 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=[None, "float32", "bfloat16", "float16"])
     p.add_argument("--attn-impl", default=None, choices=[None, "auto", "xla", "pallas"])
     p.add_argument("--quant", default=None, choices=[None, "int8", "int4"],
-                   help="weight-only quantization (int8 per-output-channel "
-                        "scales; int4 is still to port)")
+                   help="weight-only quantization (per-output-channel "
+                        "scales; int4 needs the split layout)")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="sampling temperature (0 = greedy, the reference behavior)")
     p.add_argument("--top-k", type=int, default=0)

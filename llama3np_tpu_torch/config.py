@@ -66,8 +66,9 @@ class ModelArgs:
     # Kernel selection: "auto", "xla" (plain PyTorch) or "pallas" (the
     # hand-written kernels); see the module docstring.
     attn_impl: str = "auto"
-    # Fuse Q|K|V and gate|up into one weight each (the port runs only the
-    # fused layout); layer_unroll is a TPU knob the port does not read.
+    # Fuse Q|K|V and gate|up into one weight each (the layout the decode
+    # kernel reads); False keeps the split weights (int4 needs them);
+    # layer_unroll is a TPU knob the port does not read.
     fuse_matmuls: bool = True
     layer_unroll: Optional[int] = None
     # Permute wq/wk columns at load so RoPE runs in split-halves layout
@@ -82,8 +83,9 @@ class ModelArgs:
     pallas_ffn_block: Optional[int] = None
     pallas_attn_group: bool = False
     pallas_stream: Optional[tuple] = None
-    # Weight-only quantization: None or "int8" (per-output-channel scales);
-    # "int4" needs the split-weight layout and is still to port.
+    # Weight-only quantization: None, "int8" or "int4" (per-output-channel
+    # symmetric scales; int4, qmax 7, packs two values a byte and runs the
+    # split layout, fuse_matmuls=False).
     quant: Optional[str] = None
     # KV-cache quantization for the serving engine: None or "int8".
     kv_quant: Optional[str] = None
@@ -114,10 +116,7 @@ class ModelArgs:
             raise ValueError(f"n_heads ({self.n_heads}) must divide dim ({self.dim})")
         if self.n_heads % self.kv_heads:
             raise ValueError(f"kv_heads ({self.kv_heads}) must divide n_heads ({self.n_heads}) (GQA)")
-        if self.quant == "int4":
-            raise NotImplementedError("quant='int4' runs the split-weight layout, "
-                                      "which is still to port (ROADMAP A5)")
-        if self.quant not in (None, "int8"):
+        if self.quant not in (None, "int8", "int4"):
             raise ValueError(f"unsupported quant {self.quant!r}")
         if self.kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {self.kv_quant!r}")

@@ -262,8 +262,11 @@ class Generator:
         """The fused decode kernel runs batch-1 decode on the card, greedy
         or sampled, float32, bf16, float16 or int8 weights alike (attn_impl
         "auto"/"pallas"; the engine refuses "pallas" elsewhere, and refuses
-        on the card what no kernel takes)."""
-        return self.cfg.kernels and self.cfg.rope_split and batch == 1
+        on the card what no kernel takes).  It reads the fused tree only: a
+        split tree (int4 among them) decodes on the plain path, as in the
+        JAX package."""
+        return (self.cfg.kernels and self.cfg.fused and self.cfg.rope_split
+                and batch == 1)
 
     def decode_fn(self, num_steps: int, batch: int = 1):
         """(params, tok, pos, cache, cos, sin) -> (tokens [B, num_steps], cache)."""

@@ -100,7 +100,7 @@ def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
 class PageAllocator:
     """Host-side refcounted free-list allocator over the page pool (page 0
     reserved).  A page returns to the free list when its last reference
-    drops; `share` adds references (the prefix cache's use, still to port)."""
+    drops; `share` adds references (the prefix cache's use)."""
 
     def __init__(self, num_pages: int):
         self.num_pages = num_pages

@@ -2,7 +2,8 @@
 plus the stateful engine with the reference's object API.
 
 Counterpart of `llama3np_tpu.models.llama`.  Parameters are the fused,
-rope-split tree of tensors (`checkpoint.fuse_param_tree`), the KV cache is
+rope-split tree of tensors (`checkpoint.fuse_param_tree`) or the split tree
+of `fuse_matmuls=False` (`_split_qkv`, `ops.swiglu`), the KV cache is
 the dense `[NL, B, KVH, M, HD]` pair updated in place, and the layer loop is
 a Python loop over the stacked weights.  First-chunk prefill attention goes
 through the flash kernel on the card; the greedy decode loop through the
@@ -14,7 +15,9 @@ loop (`ragged_decode_steps`) are here too; on the card a paged step runs
 the paged-attention kernel once per layer.
 
 int8 weights (`quant="int8"`) ride the same tree with `*_scale` leaves
-beside the int8 payloads: every consumer post-scales its product.  int8 KV
+beside the int8 payloads: every consumer post-scales its product.  int4
+weights (`quant="int4"`, the split tree only) are packed two a byte and
+unpacked by the plain products (`ops.core._dot`) and the embedding gather.  int8 KV
 caches carry "k_s"/"v_s" scales; new rows quantize once, when they are
 made.  A bf16 model (every Llama-3 preset) holds bf16 weights, activations
 and caches, and on the card runs the bf16 modes of the same kernels; a
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..checkpoint import (build_param_tree, fuse_param_tree, load_parameters,
+from ..checkpoint import (build_param_tree, fuse_param_tree,
+                          load_parameters, load_quantized_npz,
                           params_to_device, permute_rope_layout,
                           quantize_param_tree)
 from ..config import ModelArgs
@@ -52,6 +56,7 @@ class StaticConfig(NamedTuple):
     kv_block: int = 512          # blockwise-attention block (0 = always dense)
     kernels: bool = False        # CUDA kernels: flash prefill, fused decode,
                                  # paged attention
+    fused: bool = True           # wqkv / wgu instead of wq/wk/wv, w_gate/w_up
 
     @classmethod
     def from_args(cls, args: ModelArgs, device) -> "StaticConfig":
@@ -64,23 +69,48 @@ class StaticConfig(NamedTuple):
                              "need a CUDA device; use 'auto' or 'xla' on the CPU")
         return cls(args.n_heads, args.kv_heads, args.head_dim, args.norm_eps,
                    args.rope_split_layout, args.prefill_kv_block,
-                   kernels=impl in ("auto", "pallas") and on_cuda)
+                   kernels=impl in ("auto", "pallas") and on_cuda,
+                   fused=args.fuse_matmuls)
 
 
 def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding gather: ids [...] int64 -> [..., D]; an int8 row is
-    multiplied by its row scale after the gather."""
+    """Embedding gather: ids [...] int64 -> [..., D]; an int8 or int4 row
+    is multiplied by its row scale after the gather (a packed int4 row is
+    unpacked after it)."""
     s = params.get("tok_embedding_scale")
     if s is None:
         return F.embedding(ids, params["tok_embedding"])
-    h = params["tok_embedding"][ids].float() * s[:, 0][ids][..., None]
+    rows = params["tok_embedding"][ids]
+    if rows.dtype == torch.uint8:
+        rows = ops.unpack_int4(rows, params["norm"].shape[-1], torch.float32)
+    h = rows.float() * s[:, 0][ids][..., None]
     return h.to(params["norm"].dtype)
 
 
 def lm_logits(params: Dict, h: torch.Tensor) -> torch.Tensor:
-    """Final projection to vocab logits [.., VS] in f32 (an int8 lm_head
-    post-scales its columns)."""
+    """Final projection to vocab logits [.., VS] in f32 (an int8 or int4
+    lm_head post-scales its columns)."""
     return ops._scaled_dot(h, params["lm_head"], params.get("lm_head_scale"))
+
+
+def _split_qkv(x: torch.Tensor, lp: Dict, cfg: "StaticConfig"):
+    """Q/K/V projections on the split weights; each is post-scaled (int8 or
+    int4) and rounded to x's dtype, as the JAX package's `_split_qkv`."""
+    B, L = x.shape[:2]
+
+    def proj(name, heads):
+        out = ops._scaled_dot(x, lp[name], lp.get(name + "_scale"))
+        return out.to(x.dtype).reshape(B, L, heads, cfg.head_dim)
+
+    return (proj("wq", cfg.n_heads), proj("wk", cfg.kv_heads),
+            proj("wv", cfg.kv_heads))
+
+
+def _qkv(x: torch.Tensor, lp: Dict, cfg: "StaticConfig"):
+    if cfg.fused:
+        return ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads,
+                             cfg.head_dim, scale=lp.get("wqkv_scale"))
+    return _split_qkv(x, lp, cfg)
 
 
 def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
@@ -90,8 +120,7 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
     [B, KVH, M, HD], written at pos..pos+L-1 in place."""
     L = h.shape[1]
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads,
-                            cfg.head_dim, scale=lp.get("wqkv_scale"))
+    q, k, v = _qkv(x, lp, cfg)
     rope = ops.apply_rope_split if cfg.rope_split else ops.apply_rope
     q = rope(q, cos, sin)
     k = rope(k, cos, sin)
@@ -116,12 +145,16 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
         attn = ops.cache_attention(q, ck, cv, pos)
     h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    return h + _ffn(z, lp)
+    return h + _ffn(z, lp, cfg)
 
 
-def _ffn(z: torch.Tensor, lp: Dict) -> torch.Tensor:
-    return ops.fused_ffn(z, lp["wgu"], lp["w_down"], lp.get("wgu_scale"),
-                         lp.get("w_down_scale"))
+def _ffn(z: torch.Tensor, lp: Dict, cfg: StaticConfig) -> torch.Tensor:
+    if cfg.fused:
+        return ops.fused_ffn(z, lp["wgu"], lp["w_down"], lp.get("wgu_scale"),
+                             lp.get("w_down_scale"))
+    return ops.swiglu(z, lp["w_gate"], lp["w_up"], lp["w_down"],
+                      lp.get("w_gate_scale"), lp.get("w_up_scale"),
+                      lp.get("w_down_scale"))
 
 
 def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
@@ -136,7 +169,7 @@ def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
     h = embed_tokens(params, input_ids)
     cos_l, sin_l = cos[pos : pos + L], sin[pos : pos + L]
     layers = params["layers"]
-    for i in range(layers["wqkv"].shape[0]):
+    for i in range(layers["wo"].shape[0]):
         lp = {name: w[i] for name, w in layers.items()}
         h = _layer_step(cfg, first_chunk, pos, cos_l, sin_l, h, lp,
                         cache["k"][i], cache["v"][i])
@@ -230,8 +263,7 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     for li in range(NL):
         lp = {name: w[li] for name, w in layers.items()}
         x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = ops.fused_qkv(x, lp["wqkv"], cfg.n_heads, cfg.kv_heads, hd,
-                                scale=lp.get("wqkv_scale"))
+        q, k, v = _qkv(x, lp, cfg)
         q = rope_rows(q)
         k = rope_rows(k)
         if quant:
@@ -266,7 +298,7 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
                 v_scale=None if vs_all is None else vs_all[li], **cols)
         h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
         z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        h = h + _ffn(z, lp)
+        h = h + _ffn(z, lp, cfg)
         new_rows.append(cur)
     rows = tuple(torch.stack(r) for r in zip(*new_rows))  # [NL, B, KVH, ...]
     logits = lm_logits(params, ops.rms_norm(h[:, -1, :], params["norm"],
@@ -487,44 +519,80 @@ class Llama:
     """Stateful engine over the functional core (reference-compatible API).
 
     Runs on `device` ("cuda" by default; it raises if there is no card),
-    single-device, on the fused whole-layer layout.  dtype "float32",
-    "bfloat16" (the Llama-3 presets' default) or "float16": on the card
-    prefill runs the flash kernel, batch-1 greedy decode the fused decode
-    kernel and the greedy head, and paged serving the paged-attention
-    kernel, each in the model's dtype.  quant="int8" holds int8 weights
-    with per-output-channel scales (built, permuted, fused, then quantized,
-    as the JAX engine's whole-layer tree) under float32, bf16 or float16
-    activations, and on the card batch-1 decode runs the decode kernel's
-    int8 mode for that activation dtype.  kv_quant="int8" is read by
+    single-device.  dtype "float32", "bfloat16" (the Llama-3 presets'
+    default) or "float16": on the card prefill runs the flash kernel,
+    batch-1 greedy decode the fused decode kernel and the greedy head, and
+    paged serving the paged-attention kernel, each in the model's dtype.
+    quant="int8" holds int8 weights with per-output-channel scales (built,
+    permuted, fused, then quantized, as the JAX engine's whole-layer tree)
+    under float32, bf16 or float16 activations, and on the card batch-1
+    decode runs the decode kernel's int8 mode for that activation dtype.
+    fuse_matmuls=False keeps the split weights (built, permuted, then
+    quantized at quant's width): prefill and serving still run their
+    kernels, decode the plain forward, since the decode kernel reads the
+    fused tree.  quant="int4" (weights packed two a byte) runs only that
+    split layout, as in the JAX package.  kv_quant="int8" is read by
     `serving.BatchEngine`: int8 pools under any of the three activation
     dtypes.  On the card's kernel path a KV dtype other than the
     activations' (`kv_dtype`) raises NotImplementedError naming its
-    ROADMAP item; attn_impl="xla" runs it plainly."""
+    ROADMAP item; attn_impl="xla" runs it plainly.  `from_quantized` boots
+    from a quantized checkpoint of either package."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
                  device="cuda"):
         self.args = args.validate()
+        fused = args.fuse_matmuls
+        if args.quant == "int4" and fused:
+            raise ValueError(
+                "quant='int4' runs the unfused split layout (the fused "
+                "decode kernel consumes int8 blocks only); set "
+                "fuse_matmuls=False")
         self.device = resolve_device(device)
-        if not args.fuse_matmuls:
-            raise NotImplementedError("the port runs the fused layout only "
-                                      "(fuse_matmuls=True)")
         self.cfg = StaticConfig.from_args(args, self.device)
         if self.cfg.kernels:
             _refuse_unported_kernel_modes(args)
-        if self.device.type == "cuda" and args.dtype == "float32":
-            # fp32 parity: the JAX path accumulates in full f32, and TF32
-            # keeps only ~3 decimal digits, so both switches go off.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         weights = (load_parameters(model_source)
                    if isinstance(model_source, str) else model_source)
         tree = build_param_tree(weights, args)
         if args.rope_split_layout:
             tree = permute_rope_layout(tree, args)
-        tree = fuse_param_tree(tree)
-        if args.quant == "int8":
-            tree = quantize_param_tree(tree)
-        self.params = params_to_device(tree, self.device, args.dtype)
+        if fused:
+            tree = fuse_param_tree(tree)
+        if args.quant:
+            # On the card the weights quantize there (the JAX package's
+            # `device=True` path: the same codes and scales, at HBM speed
+            # instead of minutes of host numpy at 8B).
+            tree = quantize_param_tree(
+                tree, bits=4 if args.quant == "int4" else 8,
+                device=self.device if self.device.type == "cuda" else None)
+        self._finish_init(params_to_device(tree, self.device, args.dtype))
+
+    @classmethod
+    def from_quantized(cls, path: str, args: ModelArgs, device="cuda") -> "Llama":
+        """Boot from a quantized checkpoint (`checkpoint.save_quantized_npz`,
+        or the JAX package's file of the same name): the tree loads as it
+        is, each leaf in its own dtype (no float32 staging, no
+        re-quantization), and runs the split layout's paths, as the JAX
+        package's single-device `from_quantized`."""
+        params, rope_split = load_quantized_npz(path)
+        self = cls.__new__(cls)
+        self.args = args.validate()
+        self.device = resolve_device(device)
+        self.cfg = StaticConfig.from_args(args, self.device)._replace(
+            rope_split=rope_split, fused="wqkv" in params["layers"])
+        if self.cfg.kernels:
+            _refuse_unported_kernel_modes(args)
+        self._finish_init(params_to_device(params, self.device))
+        return self
+
+    def _finish_init(self, params: Dict):
+        args = self.args
+        if self.device.type == "cuda" and args.dtype == "float32":
+            # fp32 parity: the JAX path accumulates in full f32, and TF32
+            # keeps only ~3 decimal digits, so both switches go off.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.params = params
         self.cos, self.sin = ops.rope_tables(
             args.head_dim, args.max_seq_len, args.rope_theta, torch.float32,
             scaling=args.rope_scaling, device=self.device)

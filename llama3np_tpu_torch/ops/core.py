@@ -16,11 +16,12 @@ integer tensors on the device, and update caches and pools in place (the
 JAX package returns new arrays); each commit is one advanced-index
 assignment into the pool.
 
-int8 weights (`checkpoint.quantize_param_tree`) enter the projections as
-per-output scales that post-multiply the f32 product (`scale`,
-`scale_gu`, `scale_down`, `s_gate`/`s_up`/`s_down`); the product itself is
-`torch.matmul` on the int8 weight converted to f32, as XLA computed it
-outside any Pallas kernel.  int8 KV (`quantize_kv_rows`) carries a scale
+int8 and int4 weights (`checkpoint.quantize_param_tree`) enter the
+projections as per-output scales that post-multiply the f32 product
+(`scale`, `scale_gu`, `scale_down`, `s_gate`/`s_up`/`s_down`); the product
+itself is `torch.matmul` on the weight converted to f32 (an int4 weight,
+packed two a byte, unpacked first), as XLA computed it outside any Pallas
+kernel.  int8 KV (`quantize_kv_rows`) carries a scale
 per (token, KV head): K scales post-multiply the score columns, V scales
 fold into the probabilities, and no dequantized row is kept.
 """
@@ -35,9 +36,31 @@ import torch
 import torch.nn.functional as F
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+_INT4_PAIRS: Dict = {}  # (device, dtype) -> the [256, 2] byte -> (lo, hi) table
+
+
+def unpack_int4(p: torch.Tensor, n: Optional[int] = None,
+                dtype: torch.dtype = torch.int8) -> torch.Tensor:
+    """Packed int4 (torch.uint8 [..., m], two values a byte along the last
+    axis, the even one in the low nibble) -> its values [..., n] (n
+    defaults to 2m) as `dtype`, each nibble sign-extended: one lookup of
+    every byte in a 256-row table of its two values."""
+    key = (p.device, dtype)
+    if key not in _INT4_PAIRS:
+        b = torch.arange(256)
+        pairs = torch.stack([((b & 15) ^ 8) - 8, ((b >> 4) ^ 8) - 8], dim=-1)
+        _INT4_PAIRS[key] = pairs.to(device=p.device, dtype=dtype)
+    out = _INT4_PAIRS[key][p.int()].reshape(*p.shape[:-1], -1)
+    return out if n is None or n == out.shape[-1] else out[..., :n]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     """a @ b accumulated and returned in float32 (the JAX package's
-    `preferred_element_type=jnp.float32`)."""
+    `preferred_element_type=jnp.float32`).  A packed int4 `b` (torch.uint8,
+    `checkpoint.pack_int4`, n output columns) is unpacked straight to f32
+    first (exact), as XLA computed the int4 product."""
+    if b.dtype == torch.uint8:
+        b = unpack_int4(b, n, torch.float32)
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     return torch.matmul(a.float(), b.float())
@@ -52,9 +75,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 def _scaled_dot(a: torch.Tensor, w: torch.Tensor, s=None) -> torch.Tensor:
     """a @ w in f32, post-multiplied by the per-output scale `s` of an int8
-    weight (None for a float weight)."""
-    out = _dot(a, w)
-    return out if s is None else out * s
+    or packed int4 weight (None for a float weight; an int4 weight's
+    columns are its scale's)."""
+    if s is None:
+        return _dot(a, w)
+    return _dot(a, w, s.shape[-1]) * s
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

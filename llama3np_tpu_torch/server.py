@@ -635,9 +635,6 @@ def main(argv=None) -> int:
     if args.adapter:
         raise NotImplementedError("--adapter: multi-LoRA serving is still to "
                                   "port (ROADMAP A7)")
-    if args.quant == "int4":
-        raise NotImplementedError("--quant int4 runs the split-weight layout, "
-                                  "which is still to port (ROADMAP A5)")
 
     from . import Tokenizer, preset, synthetic_weights
     from .models.llama import Llama
@@ -648,6 +645,8 @@ def main(argv=None) -> int:
         overrides["quant"] = args.quant
     if args.dtype:
         overrides["dtype"] = args.dtype
+    if args.quant == "int4":
+        overrides["fuse_matmuls"] = False  # int4 runs the split layout
     margs = preset(args.preset, **overrides)
     source = (synthetic_weights(margs, seed=0) if args.synthetic
               else args.model)

@@ -26,6 +26,9 @@ the next admission.
     follows `kv_dtype`), or with `kv_quant="int8"` from int8 pools under
     its 16-bit q; on the card its paged steps run the paged kernel's mode
     for that pool and q.
+  * Any weight tree the engine holds serves: fused or split
+    (`fuse_matmuls=False`), float, int8 or int4; only the forward's
+    projections differ.
 
   * Sampling (`temperature > 0` a request): token j of request r is drawn
     under fold_in(fold_in(PRNGKey(sampling_seed), r), j), the JAX

@@ -1164,3 +1164,123 @@ def test_card_prefix_cache_and_sampling_match_cpu_engine(cuda, quantum, kv_quant
     got = serve(cuda)
     assert paged_attention.launches > before and got[1]["hits"] >= 2
     assert got == serve("cpu")
+
+
+def test_unpack_int4_on_the_card_equals_the_cpu(cuda):
+    from llama3np_tpu_torch.checkpoint import pack_int4
+    from llama3np_tpu_torch.ops.core import unpack_int4
+
+    for shape in ((2048, 5632), (22, 64, 33), (7,)):
+        codes = torch.randint(-8, 8, shape, generator=torch.Generator().manual_seed(1),
+                              dtype=torch.int8)
+        packed = pack_int4(codes)
+        assert torch.equal(pack_int4(codes.to(cuda)).cpu(), packed)
+        got = unpack_int4(packed.to(cuda), shape[-1])
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), codes)
+
+
+def test_int4_product_at_tinyllama_width_matches_f32(cuda):
+    """A tinyllama-width int4 product (D=2048 -> 5632, packed) against the
+    f32 product of its grid-snapped weight, on the card."""
+    from llama3np_tpu_torch.checkpoint import pack_int4
+    from llama3np_tpu_torch.ops.core import _scaled_dot
+
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(2048, 5632, generator=g) * 0.02
+    s = torch.clamp(w.abs().amax(dim=0, keepdim=True) / 7, min=1e-12)
+    codes = torch.clamp(torch.round(w / s), -7, 7).to(torch.int8)
+    packed = pack_int4(codes.to(cuda))
+    assert packed.shape == (2048, 2816) and packed.dtype == torch.uint8
+    x = torch.randn(5, 2048, generator=g).to(cuda)
+    got = _scaled_dot(x, packed, s.to(cuda))
+    want = x @ (codes.float() * s).to(cuda)  # the f32 product on the grid weight
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_draft_kernel_steps_propose_the_plain_drafts_tokens(cuda, dtype):
+    """The int8 draft's steps through the decode kernel propose the plain
+    draft's tokens (or part at a near-tie of the plain draft's logits, in
+    bf16), and the speculative stream is the target's own greedy stream;
+    the decode kernel runs (k+1) times a round, the greedy head never."""
+    from llama3np_tpu_torch import SpeculativeGenerator, quantized_draft
+    from llama3np_tpu_torch.generate import pad_prompt
+
+    args = preset("test-tiny", dtype=dtype, max_seq_len=256)
+    w = synthetic_weights(args, seed=7)
+    target = Llama(w, args, device=cuda)
+    draft = quantized_draft(w, args, device=cuda)
+    plain = quantized_draft(w, args.replace(attn_impl="xla"), device=cuda)
+    ids = np.array([[1, 7, 30, 41, 5, 9]])
+    k = 4
+    spec = SpeculativeGenerator(target, draft, k=k)
+    before = decode_layers.launches, argmax_head.launches
+    got = spec.generate_tokens(ids, 40)
+    rounds = spec.last_stats["rounds"]
+    assert (decode_layers.launches - before[0], argmax_head.launches - before[1]) == \
+        (rounds * (k + 1), 0)
+    plain_spec = SpeculativeGenerator(target, plain, k=k)
+    assert plain_spec.generate_tokens(ids, 40).tolist() == got.tolist()
+    if dtype == "float32":
+        assert got.tolist() == target.generate_tokens(ids, 40).cpu().tolist()
+    padded, L = pad_prompt(ids, args)
+    cur, _, dk = spec.prefill(torch.as_tensor(padded, device=cuda), L)
+    _, _, dp = plain_spec.prefill(torch.as_tensor(padded, device=cuda), L)
+    pk = spec.propose(cur, L, dk).tolist()
+    pp = plain_spec.propose(cur, L, dp).tolist()
+    i = next((j for j, (a, b) in enumerate(zip(pk, pp)) if a != b), None)
+    if i is not None:
+        assert dtype == "bfloat16", (pk, pp)
+        ctx = np.array([ids[0].tolist() + [int(cur)] + pp[:i]])
+        top = torch.from_numpy(plain(ctx, 0))[0, -1].float().topk(2).values
+        assert float(top[0] - top[1]) < 0.05, (i, pk, pp)
+
+
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_card_split_engine_matches_cpu_and_never_runs_the_decode_kernel(cuda, quant):
+    """A split engine (float32 or int4) on the card: flash prefill once a
+    layer, the plain decode (no decode kernel, no greedy head), the CPU
+    engine's stream and logits, and paged int4 serving equal to its
+    capacity-1 streams."""
+    args = preset("test-tiny", fuse_matmuls=False, quant=quant, max_seq_len=256)
+    w = synthetic_weights(args, seed=9)
+    eng = Llama(w, args, device=cuda)
+    cpu = Llama(w, args, device="cpu")
+    ids = np.array([[1, 7, 30, 41, 5]])
+    before = decode_layers.launches, argmax_head.launches, flash_prefill.launches
+    got = eng.generate_tokens(ids, 20).cpu()
+    assert (decode_layers.launches - before[0], argmax_head.launches - before[1],
+            flash_prefill.launches - before[2]) == (0, 0, args.n_layers)
+    assert got.tolist() == cpu.generate_tokens(ids, 20).tolist()
+    torch.testing.assert_close(torch.from_numpy(eng(ids, 0)), torch.from_numpy(cpu(ids, 0)),
+                               rtol=1e-4, atol=1e-4)
+    prompts = [[1, 5, 9, 14], [3, 8, 2, 44, 19, 7, 30]]
+
+    def serve(capacity, ps):
+        be = BatchEngine(eng, capacity=capacity, paged=True, page_size=8, kv_quant="int8")
+        reqs = [be.submit(p, 10, stop_ids=()) for p in ps]
+        while be.num_active or be._queue:
+            be.step(3)
+        return [r.generated for r in reqs]
+
+    assert serve(2, prompts) == [serve(1, [p])[0] for p in prompts]
+
+
+@pytest.mark.parametrize("kw", [dict(quant="int8"), dict(quant="int8", dtype="bfloat16"),
+                                dict(quant="int4", fuse_matmuls=False)])
+def test_card_engine_quantizes_on_the_card_as_the_host_does(cuda, kw):
+    """On the card `Llama` quantizes its weights there
+    (`quantize_param_tree(device=...)`): every leaf equals the CPU
+    engine's, whose weights quantize in host numpy."""
+    args = preset("test-tiny", **kw)
+    w = synthetic_weights(args, seed=5)
+    card, cpu = Llama(w, args, device=cuda), Llama(w, args, device="cpu")
+    for part in ("layers", None):
+        a = card.params[part] if part else {k: v for k, v in card.params.items()
+                                            if k != "layers"}
+        b = cpu.params[part] if part else {k: v for k, v in cpu.params.items()
+                                           if k != "layers"}
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype, k
+            assert torch.equal(a[k].cpu(), b[k]), k

@@ -223,22 +223,56 @@ def _port_files():
 def test_port_never_imports_jax(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
-        assert root != "jax" and root not in ("jaxlib", "llama3np_tpu"), \
+        assert root not in ("jax", "jaxlib", "llama3np_tpu", "ml_dtypes"), \
             f"{path.relative_to(REPO)} imports {mod}"
 
 
 def test_port_modules_import_without_jax():
-    """Import every module of the port in a fresh interpreter with jax and
-    the JAX package made unimportable."""
+    """Import every module of the port in a fresh interpreter with jax,
+    the JAX package and ml_dtypes (which the card's machine lacks) made
+    unimportable."""
     mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
                    .removesuffix(".__init__") for p in PORT.rglob("*.py")})
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'llama3np_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_port_int4_and_speculative_run_without_ml_dtypes(tmp_path):
+    """int4 quantization, a quantized checkpoint's save and load, a bf16
+    split engine and speculative decoding, run in a fresh interpreter with
+    jax, the JAX package and ml_dtypes unimportable."""
+    code = f"""
+import sys
+for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes'):
+    sys.modules[name] = None
+import numpy as np
+import torch
+from llama3np_tpu_torch import (Llama, SpeculativeGenerator, preset,
+                                quantized_draft, synthetic_weights)
+from llama3np_tpu_torch.checkpoint import save_quantized_npz
+args = preset('test-tiny', quant='int4', fuse_matmuls=False, dtype='bfloat16')
+w = synthetic_weights(args, seed=0)
+eng = Llama(w, args, device='cpu')
+save_quantized_npz(eng.params, {str(tmp_path / 'q.npz')!r})
+booted = Llama.from_quantized({str(tmp_path / 'q.npz')!r}, args, device='cpu')
+ids = np.array([[1, 5, 9, 14]])
+assert booted.generate_tokens(ids, 6).tolist() == eng.generate_tokens(ids, 6).tolist()
+t_args = preset('test-tiny')
+spec = SpeculativeGenerator(Llama(w, t_args, device='cpu'),
+                            quantized_draft(w, t_args, device='cpu'))
+assert spec.generate_tokens(ids, 9).shape == (1, 9)
+assert 'ml_dtypes' not in sys.modules or sys.modules['ml_dtypes'] is None
+print('ok')
+"""
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr

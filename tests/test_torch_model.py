@@ -180,9 +180,20 @@ def test_pallas_impl_raises_on_cpu():
 
 @pytest.mark.parametrize("kw", [dict(quant="int4"), dict(fuse_matmuls=False)])
 def test_unported_options_raise(kw):
+    """Options the port once refused now behave as in the JAX engine:
+    int4 on the fused default layout raises JAX's "unfused" ValueError;
+    the split layout builds and computes the JAX engine's logits."""
     w = jsynth(jpreset("test-tiny"), seed=1)
-    with pytest.raises(NotImplementedError):
-        Llama(w, preset("test-tiny", **kw), device="cpu")
+    try:
+        want = JLlama(w, jpreset("test-tiny", attn_impl="xla", **kw))
+    except ValueError as e:
+        with pytest.raises(ValueError, match="unfused"):
+            Llama(w, preset("test-tiny", **kw), device="cpu")
+        assert "unfused" in str(e)
+        return
+    got = Llama(w, preset("test-tiny", **kw), device="cpu")
+    ids = np.array([[1, 5, 9, 14]])
+    assert_logits_match(got(ids, 0), np.asarray(want(ids.astype(np.int32), 0)))
 
 
 def test_sampling_matches_jax_and_temperature_zero_is_greedy(rng):

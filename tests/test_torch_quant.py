@@ -105,9 +105,15 @@ def test_quantize_param_tree_equals_jax(name, layout):
 
 
 def test_quantize_param_tree_refuses_int4():
+    """int4 is ported (tests/test_torch_int4.py); widths other than 8 and 4
+    are refused, the JAX function's qmax table has no entry for them."""
     tree = tckpt.build_param_tree(jsynth(jpreset("test-tiny"), 0), tpreset("test-tiny"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tckpt.quantize_param_tree(tree, bits=4)
+    assert tckpt.quantize_param_tree(tree, bits=4)["layers"]["wq"].dtype == np.uint8
+    with pytest.raises(ValueError, match="bits must be 8 or 4"):
+        tckpt.quantize_param_tree(tree, bits=2)
+    with pytest.raises(KeyError):
+        jckpt.quantize_param_tree(jckpt.build_param_tree(jsynth(jpreset("test-tiny"), 0),
+                                                         jpreset("test-tiny")), bits=2)
 
 
 def test_int8_memory_is_a_quarter():
@@ -356,8 +362,7 @@ def test_decode_layers_int8_refuses_missing_scales():
 
 def test_config_quant_values():
     assert tpreset("test-tiny", quant="int8", kv_quant="int8").quant == "int8"
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        tpreset("test-tiny", quant="int4")
+    assert tpreset("test-tiny", quant="int4").quant == "int4"
     with pytest.raises(ValueError, match="unsupported quant"):
         tpreset("test-tiny", quant="fp8")
     with pytest.raises(ValueError, match="unsupported kv_quant"):
@@ -409,5 +414,5 @@ def test_cli_quant_int8_on_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "Token count:" in out
     assert '"generated_tokens": 8' in out.splitlines()[-1]
-    assert main(base + ["--quant", "int4"]) == 2
-    assert "ROADMAP A5" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="unfused"):  # as the JAX CLI
+        main(base + ["--quant", "int4"])
