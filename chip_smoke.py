@@ -11,10 +11,10 @@ main path gives it (stories15M, tinyllama-1.1b and llama3-8b widths; the
 decode kernel in its float32, int8, bf16, fp16, int8/bf16 and int8/fp16
 modes, the paged-attention kernel over float32, bf16, fp16 and int8 pools,
 int8 under a float32, bf16 or fp16 q, flash prefill and the greedy head in
-float32, bf16 and fp16), drives greedy generation end to end through the
-port's entry points (stories15M against the port's NumPy oracle;
-tinyllama-1.1b at full width and depth against the plain path on the same
-card), traces each model's prefill and a few decode tokens with
+float32, bf16 and fp16, and the kv_dtype override's modes), drives greedy
+generation end to end through the port's entry points (stories15M against
+the port's NumPy oracle; tinyllama-1.1b at full width and depth against
+the plain path on the same card), traces each model's prefill and a few decode tokens with
 torch.profiler (device time by kernel, device busy share), runs the CLI in
 float32 and bfloat16, then drives continuous-batching serving of
 tinyllama-1.1b at full width and depth over the paged KV cache (12
@@ -61,7 +61,18 @@ layout in fp32 (its stream against the fused kernel stream), int4 weights
 on int4-grid weights (stream and logits against the fp32 split engine,
 weight bytes, prefill ms and decode tok/s, a trace), int4 serving over
 int8 pools at quanta 1 and 4 against capacity-1 streams, a quantized
-checkpoint's round trip and a mixed-bit tree (int4 layers, int8 head).
+checkpoint's round trip and a mixed-bit tree (int4 layers, int8 head),
+then the host tooling on checkpoints the script writes from seeded
+weights: stories15M as a llama2.c `.bin` and tinyllama-1.1b as a bf16
+safetensors HuggingFace directory, each converted and booted on the card
+against the same weights handed over directly, a generation saved and
+resumed over a bf16 cache, a profiler trace naming the kernels and the
+debug tensor-stats replay against the kernel stream.  After tinyllama
+serving, the kv_dtype override: for every (activation, cache) pair of
+different float dtypes the decode kernel (float and int8 weights) and the
+paged kernel against their twins at tinyllama shapes, then fp32
+activations over a bf16 cache at full width (generation against the plain
+path, serving at quanta 1 and 4 against capacity-1 streams).
 The greedy head is also re-timed against torch.matmul +
 torch.argmax in alternation (tinyllama-1.1b fp32 and fp16, llama3-8b bf16),
 and fp32 flash prefill against scaled_dot_product_attention (stories15M
@@ -190,14 +201,18 @@ def half_tol(dtype):
     return {"bf16": (1e-2, 1e-2), "fp16": (2e-3, 2e-3)}.get(dtype_name(dtype), (1e-4, 1e-5))
 
 
-def decode_mode(layers) -> str:
+def decode_mode(layers, cache_dtype=None) -> str:
     """The decode kernel's mode for a layer tree: fp32, int8 (under f32
     activations), bf16 or fp16, int8-bf16 or int8-fp16 (int8 weights under
-    16-bit ones)."""
+    16-bit ones); over a cache of another dtype (the kv_dtype override)
+    with "-kv-<cache>" after it."""
     act = dtype_name(layers["attn_norm"].dtype)
     if "wqkv_scale" in layers:
-        return "int8" if act == "fp32" else f"int8-{act}"
-    return act
+        mode = "int8" if act == "fp32" else f"int8-{act}"
+    else:
+        mode = act
+    kv = dtype_name(cache_dtype or layers["attn_norm"].dtype)
+    return mode if kv == act else f"{mode}-kv-{kv}"
 
 
 def queue_reps(reps: int, launches_per_call: int, queue: int = 900) -> int:
@@ -292,12 +307,16 @@ class Smoke:
         emit(row)
         return row
 
-    def decode_phase(self, model: str, layers, args, pos: int):
+    def decode_phase(self, model: str, layers, args, pos: int, cache_dtype=None,
+                     reps: int = None):
         """The decode kernel against its plain twin; `layers` holds float32,
         bf16 or fp16 weights, or int8 weights with their scales (the int8
         mode under float32 norms, the int8/bf16 or int8/fp16 mode under
-        16-bit norms).  `ms` is
-        the device time per call queued behind a spin kernel
+        16-bit norms); `cache_dtype` another float dtype for the caches (the
+        kv_dtype override, held normwise as the 16-bit modes: an element of
+        q or P may round to the other side of the twin's where the f32
+        values it rounds differ by an ulp).  `ms` is the device time per
+        call queued behind a spin kernel
         (`queued_ms`: where the host's enqueue of a call's launches takes
         longer than the card, back-to-back events time the host);
         `event_ms` the CUDA-event time of back-to-back calls."""
@@ -307,9 +326,10 @@ class Smoke:
 
         nl, kvh, M, hd = args.n_layers, args.kv_heads, args.max_seq_len, args.head_dim
         dt = layers["attn_norm"].dtype  # the activations' dtype
+        ct = cache_dtype or dt
         half = dt != torch.float32
-        kc = self.randn(nl, kvh, M, hd, dtype=dt)
-        vc = self.randn(nl, kvh, M, hd, dtype=dt)
+        kc = self.randn(nl, kvh, M, hd, dtype=ct)
+        vc = self.randn(nl, kvh, M, hd, dtype=ct)
         x = self.randn(1, args.dim, scale=0.5, dtype=dt)
         ang = torch.rand(1, hd // 2, generator=self.g).to("cuda") * pos
         cos, sin = ang.cos(), ang.sin()
@@ -320,7 +340,7 @@ class Smoke:
         got, _, _ = decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)
         torch.cuda.synchronize()
         want, _, _ = decode_layers_plain(layers, x, pos, k2, v2, cos, sin, **kw)
-        if half:
+        if half or ct != dt:
             # The twin rounds at the same points, but an f32 sum taken in
             # another order may round the other way at any of them, and the
             # 1-ulp flips compound through the layers (`by_depth` prints the
@@ -328,9 +348,11 @@ class Smoke:
             # modes are held normwise: kernel vs twin within 5e-2, and the kernel
             # no farther (within 25 %) from the f32 function of the same
             # weights and inputs (no bf16 rounding inside; int8 weights
-            # dequantized by their scales) than the twin.
+            # dequantized by their scales) than the twin.  float32
+            # activations over a 16-bit cache round only q and P in
+            # attention: within 1e-2.
             rtol, atol = None, None
-            tol = {"normwise": 5e-2, "vs_f32_ratio": 1.25}
+            tol = {"normwise": 5e-2 if half else 1e-2, "vs_f32_ratio": 1.25}
             ref = decode_layers_plain({n: t.float() for n, t in layers.items()},
                                       x.float(), pos, kc.float(), vc.float(), cos, sin,
                                       **kw)[0]
@@ -372,21 +394,24 @@ class Smoke:
         if not (torch.equal(k1[:, :, others], kc[:, :, others])
                 and torch.equal(v1[:, :, others], vc[:, :, others])):
             raise AssertionError("decode_layers changed cache rows other than pos")
-        reps = 200 if nl * args.dim < 10000 else 20
+        reps = reps or (200 if nl * args.dim < 10000 else 20)
 
         def call():
             return decode_layers(layers, x, pos, k1, v1, cos, sin, **kw)
 
-        ms = queued_ms(torch, call, queue_reps(reps, 5 * nl + 1))  # 5 launches a layer
+        # 5 launches a layer, 6 with the max pass of the override
+        ms = queued_ms(torch, call, queue_reps(reps, (5 if ct == dt else 6) * nl + 1))
         event_ms = time_ms(torch, call, reps)
         plain_ms = time_ms(torch, lambda: decode_layers_plain(
             layers, x, pos, k2, v2, cos, sin, **kw), min(reps, 20))
         decode_layers.launches = launches  # comparison launches do not count
-        mode = decode_mode(layers)
+        mode = decode_mode(layers, ct)
         w_elems = sum(layers[n].numel() for n in ("wqkv", "wo", "wgu", "w_down"))
+        # weights, x in and out, the cache rows < pos read and row pos
+        # written (in the cache's dtype), the cos/sin rows
         nbytes = (sum(t.numel() * t.element_size() for t in layers.values())
-                  + kc.element_size() * (2 * args.dim + 2 * nl * kvh * hd * (pos + 1))
-                  + 4.0 * hd)
+                  + x.element_size() * 2 * args.dim
+                  + kc.element_size() * 2 * nl * kvh * hd * (pos + 1) + 4.0 * hd)
         flops = 2.0 * w_elems + 4.0 * nl * args.n_heads * hd * (pos + 1)
         bound_ms, bound_by = bound(nbytes, flops, BF16_FLOP_S if half else FP32_FLOP_S)
         row = {"phase": "kernel", "kernel": "decode_layers", "mode": mode, "model": model,
@@ -403,7 +428,8 @@ class Smoke:
 
     def paged_phase(self, model: str, B, NH, KVH, HD, page, maxp, pos_list,
                     Q: int = 4, NL: int = 8, layer: int = 1, over_row: int = 3,
-                    quant: bool = False, dtype=None, case: str = "skewed"):
+                    quant: bool = False, dtype=None, case: str = "skewed",
+                    kv_dtype=None):
         """The paged-attention kernel against its plain twin in its three
         modes (plain, stacked with the current column, window at win_count
         0, 1 and Q), on shuffled block tables with null-page padding, and
@@ -420,7 +446,9 @@ class Smoke:
         the host's enqueue bounds; `bound_share` bound_ms over ms;
         `profiled_us_per_call` the traced device time of the chunk walk and
         of the merge in stacked mode.  `case` names the row lengths (skewed,
-        or equal: imbalance apart from staging)."""
+        or equal: imbalance apart from staging).  `kv_dtype`: float pools
+        and rows of another dtype than q's (the kv_dtype override),
+        compared at the tolerance of q's dtype."""
         torch = self.torch
         from llama3np_tpu_torch.ops.core import quantize_kv_rows
         from llama3np_tpu_torch.ops.kernels.paged_attention import (
@@ -434,11 +462,12 @@ class Smoke:
         bt = bt.to("cuda")
         pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
         dt = dtype or torch.float32
+        pt = kv_dtype or dt  # the pools' and rows' dtype
         q = self.randn(B, 1, NH, HD, dtype=dt)
-        kp = self.randn(NL, P, KVH, page, HD, dtype=dt)
-        vp = self.randn(NL, P, KVH, page, HD, dtype=dt)
-        ck, cv = self.randn(B, KVH, HD, dtype=dt), self.randn(B, KVH, HD, dtype=dt)
-        wk, wv = self.randn(B, KVH, Q, HD, dtype=dt), self.randn(B, KVH, Q, HD, dtype=dt)
+        kp = self.randn(NL, P, KVH, page, HD, dtype=pt)
+        vp = self.randn(NL, P, KVH, page, HD, dtype=pt)
+        ck, cv = self.randn(B, KVH, HD, dtype=pt), self.randn(B, KVH, HD, dtype=pt)
+        wk, wv = self.randn(B, KVH, Q, HD, dtype=pt), self.randn(B, KVH, Q, HD, dtype=pt)
         sc = {}
         if quant:
             (kp, ks), (vp, vs) = quantize_kv_rows(kp), quantize_kv_rows(vp)
@@ -540,6 +569,8 @@ class Smoke:
         mode = dtype_name(dt)
         if quant:
             mode = "int8" if mode == "fp32" else f"int8-{mode}"
+        elif pt != dt:
+            mode = f"{dtype_name(pt)}-q-{mode}"
         row = {"phase": "kernel", "kernel": "paged_attention", "mode": mode, "model": model,
                "case": case,
                "shape": {"B": B, "NH": NH, "KVH": KVH, "HD": HD, "page": page,
@@ -965,12 +996,13 @@ def pool_capacity(torch, eng, card, max_len: int = 8192):
 
 
 def serve_vs_solo(torch, model: str, eng, workload, runs, limit, card, kv_quant=None,
-                  **tags):
+                  timings=None, **tags):
     """Paged serving of `workload` (`serve`) at each (run, quantum) of
     `runs`, every stream against its capacity-1 stream (`solo_serve`) by
-    the near-tie rule under `limit`; exact launch counts (flash once a
-    layer an admission, the paged kernel once a layer a decode step), all
-    pages back.  Returns each run's launch counts."""
+    the near-tie rule under `limit` (0: equal streams); exact launch
+    counts (flash once a layer an admission, the paged kernel once a layer
+    a decode step), all pages back.  Returns each run's launch counts;
+    `timings`, a dict, takes each run's counts and times."""
     nl = eng.args.n_layers
     solo, gaps = solo_serve(eng, workload, kv_quant, margins=True)
     out = {}
@@ -987,6 +1019,8 @@ def serve_vs_solo(torch, model: str, eng, workload, runs, limit, card, kv_quant=
             raise AssertionError(f"{what} launch counts {counts}, expected {expect} "
                                  f"({st['admissions']} admissions)")
         out[run] = counts
+        if timings is not None:
+            timings[run] = st
         emit({"phase": "e2e", "model": model, "path": "serving", **tags, "run": run, **st,
               "launches": counts,
               "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
@@ -2392,6 +2426,226 @@ def fp16_8b_shapes(torch, smoke):
     torch.cuda.empty_cache()
 
 
+# The kv_dtype override (ROADMAP B11): every ordered pair of float dtypes
+# (activations, cache) with the two different.
+KV_PAIRS = [("float32", "bfloat16"), ("float32", "float16"), ("bfloat16", "float32"),
+            ("bfloat16", "float16"), ("float16", "float32"), ("float16", "bfloat16")]
+
+
+def kv_override_phases(torch, smoke, args, weights, prompt, workload, card, fp32):
+    """The kv_dtype override at tinyllama-1.1b's shapes (ROADMAP B11): for
+    every pair, the decode kernel (float weights in the activation dtype,
+    and int8 weights) and the paged kernel (float pools under a q of
+    another dtype) against their twins; then fp32 activations over a bf16
+    cache at full width and depth: greedy generation through flash, the
+    decode kernel's override mode and the greedy head against the plain
+    path (the fp16 envelope, 0.02 x max(1, max |logits|): only attention's
+    rounding points differ, at a bf16 ulp; near-tie rule), exact launch
+    counts, paged serving over bf16 pools at quanta 1 and 4 with every
+    stream equal to its capacity-1 stream and every page back, decode
+    tok/s, prefill ms and ms a step beside the fp32-cache numbers of this
+    run (`fp32`).  Returns the kernel rows and their launches."""
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+
+    model, dt = "tinyllama-1.1b", lambda n: getattr(torch, n)
+    shape = (args.n_heads, args.kv_heads, args.head_dim)
+    skewed = [0, 15, 16, 255, 500, 1023, 1500, 2047]
+    rows, mode_of = {}, {"float32": "fp32", "bfloat16": "bf16", "float16": "fp16"}
+    for act in ("float32", "bfloat16", "float16"):
+        a_args = args.replace(dtype=act, kv_dtype=None)
+        for int8 in (False, True):
+            mode = mode_of[act] if not int8 else (
+                "int8" if act == "float32" else f"int8-{mode_of[act]}")
+            layers = card_layers(torch, a_args, mode)
+            for a, kv in KV_PAIRS:
+                if a != act:
+                    continue
+                poses = (511, 0) if (act, kv, int8) == ("float32", "bfloat16", False) else (511,)
+                for pos in poses:
+                    row = smoke.decode_phase(model, layers, a_args, pos, cache_dtype=dt(kv),
+                                             reps=10)
+                    rows.setdefault(("decode_layers", row["mode"]), row)
+            del layers
+            torch.cuda.empty_cache()
+    for act, kv in KV_PAIRS:
+        row = smoke.paged_phase(model, 8, *shape, 16, args.max_seq_len // 16, skewed,
+                                NL=22, dtype=dt(act), kv_dtype=dt(kv))
+        rows[("paged_attention", row["mode"])] = row
+
+    o_args = args.replace(kv_dtype="bfloat16")
+    eng = Llama(weights, o_args, device="cuda")
+    assert eng.cache["k"].dtype == torch.bfloat16
+    gen, limit = generate_vs_plain(torch, model, eng, prompt, 32, F16_ENVELOPE, card,
+                                   dtype="float32", kv_dtype="bfloat16")
+    stats = timed_generate(eng, prompt, 64)[1]
+    steps = {}
+    served = serve_vs_solo(torch, model, eng, workload, (("q1", 1), ("q4", 4)), 0.0, card,
+                           timings=steps, dtype="float32", kv_dtype="bfloat16")
+    del eng
+    torch.cuda.empty_cache()
+    emit({"phase": "e2e", "model": model, "path": "kv_dtype override", "dtype": "float32",
+          "kv_dtype": "bfloat16",
+          "kv_bf16": {"prefill_ms": stats.prefill_ms, "decode_tok_s": stats.decode_tok_s,
+                      "ms_per_step_q1": steps["q1"]["ms_per_step"],
+                      "ms_per_step_q4": steps["q4"]["ms_per_step"]},
+          "kv_fp32": fp32, "card": card})
+    paths = {("decode_layers", "fp32-kv-bf16"): {"generate": gen["decode_layers"]},
+             ("paged_attention", "bf16-q-fp32"): {"serve_q1": served["q1"]["paged_attention"],
+                                                  "serve_q4": served["q4"]["paged_attention"]}}
+    return rows, paths, {"flash_prefill": gen["flash_prefill"] + served["q1"]["flash_prefill"],
+                         "argmax_head": gen["argmax_head"]}
+
+
+def write_llama2c_bin(path: str, w, args):
+    """A llama2.c v0 export (the 7-int32 header, then float32 tensors in
+    llama2.c's order, an untied classifier last) of HF-schema weights."""
+    import numpy as np
+
+    L, p = args.n_layers, "model.layers.{i}."
+    names = ["input_layernorm", "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+             "self_attn.o_proj", "post_attention_layernorm", "mlp.gate_proj",
+             "mlp.down_proj", "mlp.up_proj"]
+    with open(path, "wb") as f:
+        np.array([args.dim, args.hidden_dim, L, args.n_heads, args.kv_heads,
+                  -args.vocab_size, args.max_seq_len], np.int32).tofile(f)
+        np.asarray(w["model.embed_tokens.weight"], np.float32).tofile(f)
+        for n in names:
+            for i in range(L):
+                np.asarray(w[(p + n + ".weight").format(i=i)], np.float32).tofile(f)
+        np.asarray(w["model.norm.weight"], np.float32).tofile(f)
+        np.zeros(args.max_seq_len * args.head_dim, np.float32).tofile(f)  # RoPE tables
+        np.asarray(w["lm_head.weight"], np.float32).tofile(f)
+
+
+def write_hf_dir(torch, d: str, w, args):
+    """A HuggingFace directory: one bf16 `model.safetensors` (8-byte
+    little-endian header length, JSON header, raw data) with q/k rows in
+    HF's rotate-half layout, and a `config.json`."""
+    from llama3np_tpu_torch.ops.core import rope_split_permutation
+
+    os.makedirs(d, exist_ok=True)
+    perm = {"q_proj": rope_split_permutation(args.n_heads, args.head_dim),
+            "k_proj": rope_split_permutation(args.kv_heads, args.head_dim)}
+    header, off = {}, 0
+    for k in sorted(w):
+        header[k] = {"dtype": "BF16", "shape": list(w[k].shape),
+                     "data_offsets": [off, off + 2 * w[k].size]}
+        off += 2 * w[k].size
+    head = json.dumps(header).encode()
+    with open(os.path.join(d, "model.safetensors"), "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for k in sorted(w):
+            v = w[k][perm[k.split(".")[-2]]] if k.split(".")[-2] in perm else w[k]
+            f.write(torch.from_numpy(v).to(torch.bfloat16).view(torch.uint8).numpy().tobytes())
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump({"hidden_size": args.dim, "num_hidden_layers": args.n_layers,
+                   "num_attention_heads": args.n_heads, "num_key_value_heads": args.kv_heads,
+                   "vocab_size": args.vocab_size, "max_position_embeddings": args.max_seq_len,
+                   "rope_theta": args.rope_theta, "rms_norm_eps": args.norm_eps,
+                   "intermediate_size": args.hidden_dim, "torch_dtype": "bfloat16"}, f)
+
+
+def tooling_phases(torch, card, s_weights, s_args, s_stream, t_eng, t_weights, prompt,
+                   toks_k):
+    """The host tooling at full width (ROADMAP A6), on checkpoints this
+    script writes from seeded weights: stories15M as a llama2.c `.bin`,
+    converted and booted on the card (its greedy stream against the same
+    weights handed over directly, `s_stream`); tinyllama-1.1b as an HF
+    directory (bf16 safetensors, rotate-half q/k rows, config.json),
+    converted with `args_from_hf_config` and booted in bf16 (against the
+    direct bf16 engine's stream); a generation saved and resumed on the
+    card over a bf16 cache under fp32 activations (first + rest against
+    the uninterrupted stream, the rest through the decode kernel); a
+    profiler trace of greedy generation (the file names the port's
+    kernels); `debug_trace_generate`'s tokens against the fp32 kernel
+    stream `toks_k`.  Returns each step's seconds."""
+    import shutil
+
+    import numpy as np
+
+    from llama3np_tpu_torch import checkpoint as ck
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import debug_trace_generate, trace
+
+    root = os.path.join(REPO, "build", "smoke", "a6")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ids = np.array([PROMPT], np.int64)
+    out, t0 = {"card": card}, time.perf_counter()
+
+    write_llama2c_bin(os.path.join(root, "stories15M.bin"), s_weights, s_args)
+    cw, cargs = ck.convert_llama2c_bin(os.path.join(root, "stories15M.bin"))
+    got = Llama(cw, cargs, device="cuda").generate_tokens(ids, len(s_stream)).cpu()[0].tolist()
+    if got != s_stream:
+        raise AssertionError(f"stories15M from its llama2.c .bin diverges at token "
+                             f"{first_diff(got, s_stream)}")
+    out["llama2c"] = {"tokens_equal": len(got), "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    b_args = preset("tinyllama-1.1b", dtype="bfloat16")
+    want = Llama(t_weights, b_args, device="cuda").generate_tokens(prompt, 16).cpu()[0].tolist()
+    hf = os.path.join(root, "tinyllama-hf")
+    write_hf_dir(torch, hf, t_weights, b_args)
+    hw = ck.convert_hf_model(hf)
+    h_args = ck.args_from_hf_config(hf)
+    if h_args.dtype != "bfloat16" or (h_args.dim, h_args.n_layers, h_args.kv_heads) != (
+            b_args.dim, b_args.n_layers, b_args.kv_heads):
+        raise AssertionError(f"args_from_hf_config gave {h_args}")
+    got = Llama(hw, h_args, device="cuda").generate_tokens(prompt, 16).cpu()[0].tolist()
+    del hw
+    if got != want:
+        raise AssertionError(f"tinyllama from its HF directory diverges at token "
+                             f"{first_diff(got, want)}")
+    out["hf_safetensors_bf16"] = {"tokens_equal": len(got),
+                                  "file_gb": os.path.getsize(os.path.join(
+                                      hf, "model.safetensors")) / 1e9,
+                                  "s": time.perf_counter() - t0}
+    shutil.rmtree(hf)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    o_eng = Llama(t_weights, b_args.replace(dtype="float32", kv_dtype="bfloat16"),
+                  device="cuda")
+    full = o_eng.generate_tokens(prompt, 24).cpu()[0].tolist()
+    first = o_eng.generate_tokens(prompt, 8).cpu()[0].tolist()
+    state = os.path.join(root, "state.npz")
+    o_eng.save_generation_state(state)
+    o_eng.reset()
+    reset_counters()
+    rest = o_eng.resume_generate(state, 16).cpu()[0].tolist()
+    counts = counters()
+    del o_eng
+    if first + rest != full or counts["decode_layers"] != 16:
+        raise AssertionError(f"resume: first + rest parts from the stream at token "
+                             f"{first_diff(first + rest, full)}, launches {counts}")
+    out["resume"] = {"cache": "bfloat16", "first": 8, "rest": 16, "launches": counts,
+                     "state_mb": os.path.getsize(state) / 1e6, "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with trace(os.path.join(root, "trace")):
+        t_eng.generate_tokens(prompt, 8)
+    text = open(trace.last).read()
+    named = {k: k in text for k in ("decode_gemv_kernel", "decode_attn_kernel",
+                                    "flash_prefill", "argmax_head")}
+    if not all(named.values()):
+        raise AssertionError(f"the profiler trace misses the port's kernels: {named}")
+    out["trace"] = {"file_mb": os.path.getsize(trace.last) / 1e6, "names": named,
+                    "s": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    lines = []
+    toks = debug_trace_generate(t_eng, prompt, 8, emit=lines.append)[0].tolist()
+    if toks != toks_k[:8]:
+        raise AssertionError(f"debug_trace_generate's tokens {toks} differ from the "
+                             f"kernel stream {toks_k[:8]}")
+    out["debug_trace_generate"] = {"tokens_equal": 8, "lines": len(lines),
+                                   "s": time.perf_counter() - t0}
+    shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "tooling", "model": "stories15M, tinyllama-1.1b", **out})
+
+
 def synthetic_vocab(path: str, size: int, seed: int = 0):
     """A tokenizer model of `size` entries made from a seed: the markers,
     printable ASCII, then random merges of letters and spaces."""
@@ -2500,6 +2754,7 @@ def main() -> int:
         at = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
         raise AssertionError(f"stories15M greedy stream diverges from NumpyLlama "
                              f"at token {at}: {got[:8]} vs {want[:8]}")
+    s_stream = got
     if s_counts != {"flash_prefill": s_args.n_layers, "decode_layers": n_check - 1,
                     "paged_attention": 0, "argmax_head": n_check - 1}:
         raise AssertionError(f"stories15M launch counts {s_counts}")
@@ -2573,6 +2828,10 @@ def main() -> int:
     workload = serve_workload(t_args.vocab_size)
     a45_paths = split_int4_phases(torch, t_eng, t_weights, prompt, toks_k, logits_k,
                                   2 * l_abs, workload, card)
+
+    # ---- the host tooling: converted checkpoints, resume, traces (A6) -------
+    tooling_phases(torch, card, s_weights, s_args, s_stream, t_eng, t_weights, prompt,
+                   toks_k)
     del t_eng
     torch.cuda.empty_cache()
 
@@ -2637,6 +2896,13 @@ def main() -> int:
           "streams_equal_solo": sum(g == w for g, w in zip(x_streams, solo)),
           "card": card})
 
+    # ---- the kv_dtype override: fp32 activations over a bf16 cache (B11) ----
+    kv_rows, kv_paths, kv_other = kv_override_phases(
+        torch, smoke, t_args, t_weights, prompt, workload, card,
+        {"prefill_ms": k_stats.prefill_ms, "decode_tok_s": k_stats.decode_tok_s,
+         "ms_per_step_q1": served["q1"]["ms_per_step"],
+         "ms_per_step_q4": served["q4"]["ms_per_step"]})
+
     # ---- tinyllama-1.1b with int8 weights and int8 KV ----------------------
     decode_i8, paged_i8, i8_paths = int8_phases(torch, smoke, t_args, t_weights, prompt,
                                                 workload, card)
@@ -2696,6 +2962,11 @@ def main() -> int:
         int4_serve_q4=a45_paths["int4_serve_q4"]["paged_attention"])
     b_paths["flash_prefill"]["speculative"] = q8_paths["flash_prefill"]["speculative"]
     b_paths["argmax_head"]["speculative"] = 0
+    # The kv_dtype override (B11): flash (activation-dtype k/v) and the
+    # greedy head on its generation and serving; its own decode and paged
+    # modes below.
+    by_path["flash_prefill"]["kv_override"] = kv_other["flash_prefill"]
+    by_path["argmax_head"]["kv_override"] = kv_other["argmax_head"]
     # The PR of each kernel mode's current design.
     design = {("flash_prefill", "fp32"): "pr8", ("flash_prefill", "bf16"): "pr5",
               ("decode_layers", "fp32"): "pr6", ("decode_layers", "int8"): "pr6",
@@ -2707,6 +2978,7 @@ def main() -> int:
               ("paged_attention", "fp16"): "pr7", ("flash_prefill", "fp16"): "pr7",
               ("decode_layers", "fp16"): "pr7", ("decode_layers", "int8-fp16"): "pr7",
               ("argmax_head", "fp16"): "pr8"}
+    design.update({key: "kv_dtype override" for key in kv_rows})
 
     def stacked(row):  # the paged kernel's stacked mode stands for the row
         return {**row, **row["modes"]["stacked"], "paged_mode": "stacked"}
@@ -2730,15 +3002,17 @@ def main() -> int:
                        (h_rows["argmax_head"], h_paths["argmax_head"]),
                        (stacked(h_rows["paged_attention"]), h_paths["paged_attention"]),
                        (h_rows["decode_layers_i8"], h_paths["decode_layers_i8"]),
-                       (stacked(h_rows["paged_attention_i8"]), h_paths["paged_attention_i8"])):
+                       (stacked(h_rows["paged_attention_i8"]), h_paths["paged_attention_i8"]),
+                       *((stacked(r) if r["kernel"] == "paged_attention" else r,
+                          kv_paths.get(key, {})) for key, r in kv_rows.items())):
         name = row["kernel"]
         src, replaces = sources[name]
-        if name == "decode_layers" and row["mode"] != "fp32":
+        if name == "decode_layers" and row["mode"].split("-kv-")[0] != "fp32":
             replaces = "llama3np_tpu/ops/kernels/decode_step.py:793"  # the streamed layout
         kernels.append({
             "name": name, "mode": row["mode"], "route": "cuda",
             "design": design[name, row["mode"]], "source": src, "replaces": replaces,
-            "launches": paths[main_path[name]], "launches_by_path": paths,
+            "launches": paths.get(main_path[name], 0), "launches_by_path": paths,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -24,13 +24,21 @@ engine holds in `Llama.params`, or the split layout of
 `*_scale` leaves; int4 packed two a byte, `pack_int4`), as the JAX
 package's does, and `save_quantized_npz` / `load_quantized_npz` write and
 read quantized trees in the JAX package's file format.
+
+The converters (`convert_llama2c_bin`, `convert_hf_model` with
+`args_from_hf_config`) turn a llama2.c `.bin` export or a HuggingFace
+directory into the reference schema, as the JAX package's do, in numpy and
+the standard library: `.safetensors` files are read by the port's own
+reader (`read_safetensors`), `.bin` shards by `torch.load`.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import struct
 from functools import partial
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -127,6 +135,53 @@ def build_param_tree(weights, args: ModelArgs) -> Dict:
     }
 
 
+def load_param_tree(model_path: str, args: ModelArgs, dtype=None) -> Dict:
+    """Load a reference-schema .npz straight into the stacked tree: float32
+    numpy leaves, or with `dtype` (numpy has no bfloat16) CPU tensors of
+    that dtype."""
+    tree = build_param_tree(load_parameters(model_path), args)
+    return tree if dtype is None else params_to_device(tree, "cpu", dtype)
+
+
+def infer_args_from_weights(weights, base: Optional[ModelArgs] = None,
+                            n_heads: Optional[int] = None) -> ModelArgs:
+    """Derive structural hyperparameters (dim, n_layers, hidden_dim, vocab,
+    kv heads) from weight shapes; non-structural fields come from `base`.
+
+    `n_heads` is not recoverable from weight shapes (under MHA every head
+    count divides the same [dim, dim] projections), so it must come from
+    either the explicit `n_heads` argument or a `base` whose `dim` matches
+    the checkpoint; anything else raises rather than guessing."""
+    keys = list(_keys(weights))
+    n_layers = 1 + max(
+        int(k.split(".")[2]) for k in keys if k.startswith("model.layers."))
+    vs, dim = weights["model.embed_tokens.weight"].shape
+    hidden = weights["model.layers.0.mlp.gate_proj.weight"].shape[0]
+    kv_out = weights["model.layers.0.self_attn.k_proj.weight"].shape[0]
+    base = base or ModelArgs()
+    if n_heads is None:
+        if base.dim != dim:
+            raise ValueError(
+                f"cannot infer n_heads: checkpoint dim={dim} does not match "
+                f"base config dim={base.dim} (head counts are not recoverable "
+                f"from weight shapes — pass n_heads= explicitly or a matching "
+                f"base ModelArgs/preset)"
+            )
+        n_heads = base.n_heads
+    if dim % n_heads:
+        raise ValueError(f"n_heads={n_heads} does not divide dim={dim}")
+    head_dim = dim // n_heads
+    if kv_out % head_dim:
+        raise ValueError(
+            f"k_proj out dim {kv_out} is not a multiple of head_dim "
+            f"{head_dim} (dim={dim}, n_heads={n_heads})"
+        )
+    return base.replace(
+        dim=dim, n_layers=n_layers, vocab_size=vs, hidden_dim=hidden,
+        n_heads=n_heads, n_kv_heads=(kv_out // head_dim) if kv_out != dim else None,
+    )
+
+
 def permute_rope_layout(params: Dict, args: ModelArgs) -> Dict:
     """Permute wq/wk output columns from interleaved RoPE pairs to the
     split-halves layout (`ops.core.rope_split_permutation`).  Exact: Q and K
@@ -186,7 +241,7 @@ def int4_width(params: Dict, name: str) -> int:
 
 
 def quantize_param_tree(params: Dict, bits: int = 8, head_bits: int = None,
-                        device=None) -> Dict:
+                        device=None, dtype=None) -> Dict:
     """Weight-only quantization of the fused whole-layer tree or of the
     split tree, the counterpart of `llama3np_tpu.checkpoint.
     quantize_param_tree`, giving the same codes and scales.
@@ -206,8 +261,17 @@ def quantize_param_tree(params: Dict, bits: int = 8, head_bits: int = None,
     own width: bits=4, head_bits=8 is the mixed tree, int4 layers under an
     int8 head.  The host path runs numpy on a thread pool and returns numpy
     leaves; `device` (a torch device) quantizes there instead and returns
-    tensors on it, the JAX package's `device=True`."""
+    tensors on it, the JAX package's `device=True`.
+
+    `dtype` (a `ModelArgs` dtype string or torch dtype; bf16 or float16)
+    first rounds each weight to that dtype (a cast there and back, one
+    weight at a time, on the host or on `device`): the JAX engine casts its
+    tree to `args.dtype` before it quantizes, so a 16-bit engine's codes
+    and scales are those of the rounded weights."""
     head_bits = bits if head_bits is None else head_bits
+    rt = None if dtype is None else torch_dtype(dtype)
+    if rt == torch.float32:
+        rt = None
     for b in (bits, head_bits):
         if b not in (8, 4):
             raise ValueError(f"bits must be 8 or 4, not {b}")
@@ -221,6 +285,8 @@ def quantize_param_tree(params: Dict, bits: int = 8, head_bits: int = None,
         if device is not None:
             def q(w, axis):
                 w = torch.as_tensor(w).to(device=device, dtype=torch.float32, copy=True)
+                if rt is not None:
+                    w.copy_(w.to(rt))  # rounded in place: one f32 copy
                 # A tensor divisor: CUDA divides by a Python scalar as a
                 # multiply by its reciprocal, an ulp off numpy's quotient.
                 qm = torch.tensor(float(qmax), device=w.device)
@@ -231,6 +297,8 @@ def quantize_param_tree(params: Dict, bits: int = 8, head_bits: int = None,
         else:
             def q(w, axis):
                 w = np.asarray(w, np.float32)
+                if rt is not None:
+                    w = torch.from_numpy(np.ascontiguousarray(w)).to(rt).float().numpy()
                 s = np.max(np.abs(w), axis=axis, keepdims=True) / qmax
                 s = np.maximum(s, 1e-12).astype(np.float32)
                 w8 = np.clip(np.rint(w / s), -qmax, qmax).astype(np.int8)
@@ -442,3 +510,242 @@ def save_npz(weights: Dict[str, np.ndarray], path: str, compressed: bool = False
 def write_synthetic_checkpoint(path: str, args: ModelArgs, seed: int = 0) -> str:
     save_npz(synthetic_weights(args, seed), path)
     return path
+
+
+# ---------------------------------------------------------------------------
+# Converters (reference schema in, reference schema out)
+# ---------------------------------------------------------------------------
+
+def _host(v) -> np.ndarray:
+    """A leaf as a host numpy array (a bf16 tensor widened to float32,
+    exactly: numpy has no bfloat16)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return np.asarray(v)
+
+
+def param_tree_to_weights(params: Dict, args: ModelArgs) -> Dict[str, np.ndarray]:
+    """Inverse of `build_param_tree`: unstack a split tree (numpy leaves or
+    tensors) back into the reference HF-schema flat mapping, so that it
+    round-trips through `save_npz` and boots any engine, the NumPy oracle
+    included.
+
+    Requires the unpermuted interleaved-RoPE layout (`permute_rope_layout`
+    is a load-time transform)."""
+    ly = {k: _host(v) for k, v in params["layers"].items()}
+    if "wqkv" in ly or "wq_scale" in ly:
+        raise ValueError("fused or quantized trees cannot round-trip to the "
+                         "reference schema; export the fp32 split tree")
+    out = {
+        "model.embed_tokens.weight": _host(params["tok_embedding"]),
+        "model.norm.weight": _host(params["norm"]),
+        "lm_head.weight": np.ascontiguousarray(_host(params["lm_head"]).T),
+    }
+    fmt = {
+        "wq": "model.layers.{i}.self_attn.q_proj.weight",
+        "wk": "model.layers.{i}.self_attn.k_proj.weight",
+        "wv": "model.layers.{i}.self_attn.v_proj.weight",
+        "wo": "model.layers.{i}.self_attn.o_proj.weight",
+        "w_gate": "model.layers.{i}.mlp.gate_proj.weight",
+        "w_up": "model.layers.{i}.mlp.up_proj.weight",
+        "w_down": "model.layers.{i}.mlp.down_proj.weight",
+    }
+    for name, f in fmt.items():
+        for i in range(args.n_layers):
+            out[f.format(i=i)] = np.ascontiguousarray(ly[name][i].T)
+    for name, f in (("attn_norm", "model.layers.{i}.input_layernorm.weight"),
+                    ("ffn_norm",
+                     "model.layers.{i}.post_attention_layernorm.weight")):
+        for i in range(args.n_layers):
+            out[f.format(i=i)] = ly[name][i]
+    return out
+
+
+def convert_llama2c_bin(bin_path: str, out_path: Optional[str] = None):
+    """Convert a llama2.c ``.bin`` export (Karpathy format, v0 legacy
+    layout) to the reference .npz schema.  Returns (weights dict,
+    ModelArgs).
+
+    Layout: 7 int32 header [dim, hidden_dim, n_layers, n_heads, n_kv_heads,
+    vocab_size, seq_len]; a negative vocab_size flags an untied lm_head;
+    then float32 tensors in llama2.c order."""
+    with open(bin_path, "rb") as f:
+        header = np.fromfile(f, dtype=np.int32, count=7)
+        dim, hidden, n_layers, n_heads, n_kv_heads, vocab, seq_len = map(int, header)
+        shared_classifier = vocab > 0
+        vocab = abs(vocab)
+        head_dim = dim // n_heads
+
+        def rd(*shape):
+            n = int(np.prod(shape))
+            return np.fromfile(f, dtype=np.float32, count=n).reshape(shape)
+
+        emb = rd(vocab, dim)
+        rms_att = rd(n_layers, dim)
+        wq = rd(n_layers, n_heads * head_dim, dim)
+        wk = rd(n_layers, n_kv_heads * head_dim, dim)
+        wv = rd(n_layers, n_kv_heads * head_dim, dim)
+        wo = rd(n_layers, dim, n_heads * head_dim)
+        rms_ffn = rd(n_layers, dim)
+        w1 = rd(n_layers, hidden, dim)   # gate
+        w2 = rd(n_layers, dim, hidden)   # down
+        w3 = rd(n_layers, hidden, dim)   # up
+        rms_final = rd(dim)
+        # the legacy RoPE frequency tables, unused
+        np.fromfile(f, dtype=np.float32, count=seq_len * head_dim // 2)
+        np.fromfile(f, dtype=np.float32, count=seq_len * head_dim // 2)
+        wcls = emb if shared_classifier else rd(vocab, dim)
+
+    weights = {"model.embed_tokens.weight": emb,
+               "model.norm.weight": rms_final,
+               "lm_head.weight": wcls}
+    for i in range(n_layers):
+        p = f"model.layers.{i}"
+        weights[f"{p}.self_attn.q_proj.weight"] = wq[i]
+        weights[f"{p}.self_attn.k_proj.weight"] = wk[i]
+        weights[f"{p}.self_attn.v_proj.weight"] = wv[i]
+        weights[f"{p}.self_attn.o_proj.weight"] = wo[i]
+        weights[f"{p}.mlp.gate_proj.weight"] = w1[i]
+        weights[f"{p}.mlp.down_proj.weight"] = w2[i]
+        weights[f"{p}.mlp.up_proj.weight"] = w3[i]
+        weights[f"{p}.input_layernorm.weight"] = rms_att[i]
+        weights[f"{p}.post_attention_layernorm.weight"] = rms_ffn[i]
+
+    args = ModelArgs(
+        dim=dim, n_layers=n_layers, n_heads=n_heads,
+        n_kv_heads=None if n_kv_heads == n_heads else n_kv_heads,
+        vocab_size=vocab, max_seq_len=seq_len, hidden_dim=hidden,
+        tie_word_embeddings=shared_classifier,
+    )
+    if out_path:
+        save_npz(weights, out_path)
+    return weights, args
+
+
+_ST_DTYPES = {"F32": np.float32, "F16": np.float16, "BF16": np.uint16}
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """The tensors of one ``.safetensors`` file: an 8-byte little-endian
+    header length, a JSON header (dtype, shape, [begin, end) data offsets
+    of each tensor, and an optional "__metadata__"), then the raw
+    little-endian data.  F32 and F16 tensors come back as they are; a BF16
+    tensor's 2-byte payload is read as bf16 bits through a torch view and
+    widened to float32, exactly (numpy has no bfloat16; the JAX function
+    keeps an ml_dtypes bfloat16 array of the same values)."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = np.fromfile(f, dtype=np.uint8)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dt = _ST_DTYPES.get(info["dtype"])
+        if dt is None:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}; "
+                             f"the reader takes {sorted(_ST_DTYPES)}")
+        begin, end = info["data_offsets"]
+        # a copy: aligned, and owning its bytes
+        a = data[begin:end].copy().view(np.dtype(dt).newbyteorder("<"))
+        a = a.astype(a.dtype.newbyteorder("="), copy=False).reshape(info["shape"])
+        if info["dtype"] == "BF16":
+            a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).float().numpy()
+        out[name] = a
+    return out
+
+
+def convert_hf_model(model_dir: str, out_path: Optional[str] = None,
+                     permute_rope: bool = True):
+    """Convert a HuggingFace Llama-family checkpoint directory (safetensors
+    or torch .bin shards, in sorted order) to the reference .npz schema.
+
+    HF checkpoints store q_proj/k_proj rows pre-permuted for rotate-half
+    (split-halves) RoPE; the reference schema, and the loaders, expect
+    Meta's interleaved pairing.  With `permute_rope` (default) the inverse
+    permutation is applied per head, so attention is numerically correct
+    after conversion; pass False only for checkpoints already in
+    interleaved layout.  Head counts come from the directory's
+    config.json."""
+    weights: Dict[str, np.ndarray] = {}
+    st_files = sorted(f for f in os.listdir(model_dir) if f.endswith(".safetensors"))
+    if st_files:
+        for fname in st_files:
+            weights.update(read_safetensors(os.path.join(model_dir, fname)))
+    else:
+        bins = sorted(f for f in os.listdir(model_dir) if f.endswith(".bin"))
+        if not bins:
+            raise FileNotFoundError(f"no safetensors/bin files in {model_dir}")
+        for fname in bins:
+            sd = torch.load(os.path.join(model_dir, fname), map_location="cpu",
+                            weights_only=True)
+            weights.update({k: v.float().numpy() for k, v in sd.items()})
+
+    if permute_rope:
+        cfg_path = os.path.join(model_dir, "config.json")
+        if not os.path.exists(cfg_path):
+            raise FileNotFoundError(
+                "config.json required to undo the HF rotate-half layout "
+                "(pass permute_rope=False for interleaved checkpoints)"
+            )
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        n_heads = cfg["num_attention_heads"]
+        kv_heads = cfg.get("num_key_value_heads", n_heads)
+        head_dim = cfg.get("head_dim", cfg["hidden_size"] // n_heads)
+
+        def inverse(perm):
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size)
+            return inv
+
+        q_inv = inverse(rope_split_permutation(n_heads, head_dim))
+        k_inv = inverse(rope_split_permutation(kv_heads, head_dim))
+        for key in list(weights):
+            if key.endswith("self_attn.q_proj.weight"):
+                weights[key] = np.asarray(weights[key])[q_inv]
+            elif key.endswith("self_attn.k_proj.weight"):
+                weights[key] = np.asarray(weights[key])[k_inv]
+
+    if out_path:
+        save_npz(weights, out_path)
+    return weights
+
+
+def args_from_hf_config(model_dir: str, **overrides) -> ModelArgs:
+    """`ModelArgs` from a HuggingFace checkpoint directory's config.json:
+    head counts, FFN width, rope_theta, and the llama3.1 `rope_scaling`
+    remap (rope_type "llama3") when present; other remaps are refused.
+    Pairs with `convert_hf_model`.  `max_position_embeddings` becomes
+    max_seq_len unless overridden (the KV cache scales with it)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = json.load(f)
+    rs = cfg.get("rope_scaling") or None
+    if rs is not None:
+        kind = rs.get("rope_type", rs.get("type"))
+        if kind != "llama3":
+            raise ValueError(f"unsupported rope_scaling type {kind!r} "
+                             "(only the llama3.1 'llama3' remap)")
+        rs = dict(factor=rs["factor"],
+                  low_freq_factor=rs.get("low_freq_factor", 1.0),
+                  high_freq_factor=rs.get("high_freq_factor", 4.0),
+                  original_max_position_embeddings=rs.get(
+                      "original_max_position_embeddings", 8192))
+    kw = dict(
+        dim=cfg["hidden_size"],
+        n_layers=cfg["num_hidden_layers"],
+        n_heads=cfg["num_attention_heads"],
+        n_kv_heads=cfg.get("num_key_value_heads"),
+        vocab_size=cfg["vocab_size"],
+        max_seq_len=cfg.get("max_position_embeddings", 2048),
+        rope_theta=cfg.get("rope_theta", 10000.0),
+        norm_eps=cfg.get("rms_norm_eps", 1e-5),
+        hidden_dim=cfg.get("intermediate_size"),
+        tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+        rope_scaling=rs,
+        dtype="bfloat16" if cfg.get("torch_dtype") == "bfloat16"
+        else "float32",
+    )
+    kw.update(overrides)
+    return ModelArgs(**kw).validate()

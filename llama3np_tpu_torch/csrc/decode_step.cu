@@ -4,7 +4,11 @@
 // activations and caches; int8 weights with f32 scales under bf16
 // activations and caches; and the float16 counterparts of the last two
 // (float16 weights, activations and caches; int8 weights under float16
-// activations and caches).
+// activations and caches).  Each mode also runs over caches of either other
+// float type (the JAX engine's `kv_dtype` override, e.g. float32
+// activations over a bf16 cache): the cache is a template parameter of its
+// own, and attention over a 16-bit cache of another type than the
+// activations takes `_attend_head`'s rounding points (see Attn below).
 //
 // Replaces: llama3np_tpu/ops/kernels/decode_step.py, `decode_layers` (:917)
 // in its whole-layer form (`make_decode_kernel` :266, pallas_call at :992),
@@ -600,19 +604,29 @@ __global__ void __launch_bounds__(kThreads, 2) decode_gemv_kernel(const Gemv<T> 
 
 // ---- attention -----------------------------------------------------------
 
-template <typename T>
+// C: the caches' type.  With kRound (a 16-bit cache under activations of
+// another type: the kv_dtype override) attention takes the TPU kernel's
+// `_attend_head` rounding points: q rounded to C before the scores
+// (`decode_step.py:221`), the probabilities of the cache rows rounded to
+// C before P.V (:230), both relative to the max over every visible row and
+// the appended column; the appended column's score and value stay f32
+// (:224, :230).  A 16-bit cache under activations of its own type takes
+// the streamed layout's f32 attention (no rounding), and a float32 cache
+// rounds nowhere.
+template <typename C>
 struct Attn {
   const float* qkv;  // [QD + 2 KVD] finished QKV row
   int NH, KVH, HD, M, pos, chunk;
   float scale;
   const float* cos_row;
   const float* sin_row;
-  T* kc;             // this layer's caches [KVH][M][HD]
-  T* vc;
+  C* kc;             // this layer's caches [KVH][M][HD]
+  C* vc;
   float* out;        // [QD] attention output
   float* part_ml;    // [KVH][S][G][2] split (max, sum)
   float* part_acc;   // [KVH][S][G][HD] split unnormalized P.V
   unsigned* count;   // [KVH] arrival counters, zero between uses
+  float* part_max;   // kRound, S > 1: [KVH][S][G] split maxima of the max pass
 };
 
 // Attention of the G query heads of one KV head over one chunk of cache
@@ -621,9 +635,12 @@ struct Attn {
 // k_rot, v_new) and writes them into row pos.  With S == 1 it writes the
 // normalized output; otherwise its (max, sum, unnormalized P.V) partials,
 // and the last split of the KV head to arrive merges them (P.V in split
-// order).
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) {
+// order).  kMaxPass (kRound with S > 1 only): the launch before, which
+// scores the same rows and writes each split's per-head max, so that every
+// split of the main launch rounds its probabilities against the same max,
+// the TPU kernel's; the merge's weights are then all 1.
+template <typename C, bool kRound, bool kMaxPass>
+__global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<C> a) {
   extern __shared__ __align__(16) unsigned char smem_a[];
   const int kh = blockIdx.x, s = blockIdx.y, S = gridDim.y;
   const int G = a.NH / a.KVH, HD = a.HD;
@@ -631,9 +648,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
   const int qd = a.NH * HD, kvd = a.KVH * HD;
   const int qs = HD + 1;               // padded query row: no bank conflicts
   const int cw = a.chunk + 1;          // score row: chunk rows + appended column
-  const int rs = HD + 16 / (int)sizeof(T);  // staged row, padded by 16 bytes
-  T* ks = reinterpret_cast<T*>(smem_a);                    // [chunk][rs] K rows
-  T* vs = ks + (size_t)a.chunk * rs;                       // [chunk][rs] V rows
+  const int rs = HD + 16 / (int)sizeof(C);  // staged row, padded by 16 bytes
+  C* ks = reinterpret_cast<C*>(smem_a);                    // [chunk][rs] K rows
+  C* vs = ks + (size_t)a.chunk * rs;                       // [chunk][rs] V rows
   float* qv = reinterpret_cast<float*>(vs + (size_t)a.chunk * rs);  // [G][HD+1] rotated queries
   float* kv = qv + G * qs;             // [HD] rotated new key
   float* vv = kv + HD;                 // [HD] new value
@@ -641,22 +658,24 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
   float* red_l = red_m + G;            // [G] softmax sum
   float* sc = red_l + G;               // [G][chunk+1] scores, then probabilities
   float* mw = sc + G * cw;             // merge: [G][S] split weights, [G] 1/sum
+  float* qr = mw + G * (S + 1);        // kRound: [G][HD+1] queries rounded to C
   __shared__ int is_last;
   const int tid = threadIdx.x;
-  T* krow = a.kc + (size_t)kh * a.M * HD;
-  T* vrow = a.vc + (size_t)kh * a.M * HD;
+  C* krow = a.kc + (size_t)kh * a.M * HD;
+  C* vrow = a.vc + (size_t)kh * a.M * HD;
   const int j0 = s * a.chunk;
   const int n = max(0, min(a.pos, j0 + a.chunk) - j0);  // cache rows of this split
   const int n_all = n + (s == 0 ? 1 : 0);               // + the appended column
 
   // Stage this split's cache rows (rows < pos: no kernel of this call
-  // writes them) while the QKV GEMV still runs, in 8-byte pieces.
-  constexpr int P = 8 / (int)sizeof(T);
+  // writes them) while the QKV GEMV still runs, in 8-byte pieces; the max
+  // pass reads K only.
+  constexpr int P = 8 / (int)sizeof(C);
   const int pieces = HD / P;
   for (int e = tid; e < n * pieces; e += kThreads) {
     const int r = e / pieces, u = (e - r * pieces) * P;
     cp_async8(ks + (size_t)r * rs + u, krow + (size_t)(j0 + r) * HD + u);
-    cp_async8(vs + (size_t)r * rs + u, vrow + (size_t)(j0 + r) * HD + u);
+    if (!kMaxPass) cp_async8(vs + (size_t)r * rs + u, vrow + (size_t)(j0 + r) * HD + u);
   }
   cp_async_commit();
   grid_wait();
@@ -666,8 +685,13 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
     const float c = a.cos_row[j], sn = a.sin_row[j];
     const int col = (kh * G + g) * HD + j;
     const float x1 = __ldcg(a.qkv + col), x2 = __ldcg(a.qkv + col + half);
-    qv[g * qs + j] = x1 * c - x2 * sn;
-    qv[g * qs + j + half] = x1 * sn + x2 * c;
+    const float r1 = x1 * c - x2 * sn, r2 = x1 * sn + x2 * c;
+    qv[g * qs + j] = r1;
+    qv[g * qs + j + half] = r2;
+    if (kRound) {
+      qr[g * qs + j] = round_to<C>(r1);
+      qr[g * qs + j + half] = round_to<C>(r2);
+    }
   }
   for (int j = tid; j < half; j += kThreads) {
     const float c = a.cos_row[j], sn = a.sin_row[j];
@@ -680,7 +704,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
   cp_async_wait<0>();
   __syncthreads();
 
-  if (s == 0) {  // one writer per KV head; no block reads row pos
+  if (!kMaxPass && s == 0) {  // one writer per KV head; no block reads row pos
     for (int d = tid; d < HD; d += kThreads) {
       store_f(krow + (size_t)a.pos * HD + d, kv[d]);
       store_f(vrow + (size_t)a.pos * HD + d, vv[d]);
@@ -688,10 +712,11 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
   }
 
   // Scores: neighbouring threads take the G heads of one staged row.
+  const float* qsrc = kRound ? qr : qv;
   for (int e = tid; e < G * n; e += kThreads) {
     const int g = e % G, r = e / G;
-    const T* kr = ks + (size_t)r * rs;
-    const float* q = qv + g * qs;
+    const C* kr = ks + (size_t)r * rs;
+    const float* q = qsrc + g * qs;
     float acc = 0.f;
 #pragma unroll 4
     for (int i = 0; i < HD / 4; ++i) {
@@ -703,7 +728,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
     }
     sc[g * cw + r] = acc * a.scale;
   }
-  if (s == 0) {
+  if (s == 0) {  // the appended column: the f32 query, never rounded
     for (int g = tid; g < G; g += kThreads) {
       float acc = 0.f;
       for (int d = 0; d < HD; ++d) acc = fmaf(qv[g * qs + d], kv[d], acc);
@@ -714,14 +739,29 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Attn<T> a) 
 
   // Softmax of each head's row, one warp per head.
   const int warp = tid >> 5, lane = tid & 31;
+  if (kMaxPass) {
+    for (int g = warp; g < G; g += kWarps) {
+      float mx = -INFINITY;
+      for (int r = lane; r < n_all; r += 32) mx = fmaxf(mx, sc[g * cw + r]);
+      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane == 0) a.part_max[((size_t)kh * S + s) * G + g] = mx;
+    }
+    grid_release();
+    return;
+  }
   for (int g = warp; g < G; g += kWarps) {
     float mx = -INFINITY;
-    for (int r = lane; r < n_all; r += 32) mx = fmaxf(mx, sc[g * cw + r]);
+    if (kRound && S > 1) {  // the max over every split, from the max pass
+      for (int i = lane; i < S; i += 32)
+        mx = fmaxf(mx, __ldcg(a.part_max + ((size_t)kh * S + i) * G + g));
+    } else {
+      for (int r = lane; r < n_all; r += 32) mx = fmaxf(mx, sc[g * cw + r]);
+    }
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float sum = 0.f;
     for (int r = lane; r < n_all; r += 32) {
       const float e = expf(sc[g * cw + r] - mx);
-      sc[g * cw + r] = e;
+      sc[g * cw + r] = kRound && r < n ? round_to<C>(e) : e;  // the sum takes e unrounded
       sum += e;
     }
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -872,13 +912,14 @@ cudaError_t launch_gemv(Gemv<T> a, int sms, cudaStream_t st) {
 }
 
 // Every layer of one token; W = float, int8_t (with the per-column scales
-// s_* [NL][N]; null otherwise), bf16 or f16.  T: the type of the norms,
-// x_in/x_out and the caches (float, bf16 or f16).
-template <typename W, typename T>
+// s_* [NL][N]; null otherwise), bf16 or f16.  T: the type of the norms and
+// x_in/x_out (float, bf16 or f16); C: the caches' (T, or another of the
+// three: the kv_dtype override).
+template <typename W, typename T, typename C>
 int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
                   const float* s_qkv, const float* s_o, const float* s_gu,
                   const float* s_dn, const T* attn_norm, const T* ffn_norm,
-                  const T* x_in, T* x_out, T* k_cache, T* v_cache,
+                  const T* x_in, T* x_out, C* k_cache, C* v_cache,
                   const float* cos_row, const float* sin_row, float* scratch,
                   unsigned* counters, int nl, int d, int nh, int kvh, int hd, int fd,
                   int m, int pos, float eps, int device, void* stream) {
@@ -893,6 +934,9 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   if (qkvd % V != 0 || d % V != 0 || (2 * fd) % V != 0)
     return (int)cudaErrorInvalidValue;
   constexpr int kRound = kAct16<T>;  // 16-bit: the layer's end rounds
+  // A 16-bit cache under activations of another type: `_attend_head`'s
+  // rounding points, and a max pass before a split attention.
+  constexpr bool kRoundAttn = !std::is_same<T, C>::value && kAct16<C>;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int sms = num_sms(device);
 
@@ -908,6 +952,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   float* part = ss_ffn + d_tiles;    // [kMaxSplit][wide]
   float* at_ml = part + (size_t)kMaxSplit * wide;          // [KVH][S][G][2]
   float* at_acc = at_ml + (size_t)kAttnMaxSplit * nh * 2;  // [KVH][S][G][hd]
+  float* at_max = at_acc + (size_t)kAttnMaxSplit * nh * hd; // [KVH][S][G]
   unsigned* count = counters;                                  // [GEMV tiles at most]
   unsigned* at_count = count + (wide + kMinColsF - 1) / kMinColsF;  // [kvh]
 
@@ -916,7 +961,7 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   // More splits where a chunk's staged K and V rows would pass
   // kAttnStageBytes (long caches).
   const int G = nh / kvh;
-  const int row_bytes = hd * (int)sizeof(T) + 16;
+  const int row_bytes = hd * (int)sizeof(C) + 16;
   const int stage_rows = kAttnStageBytes / (2 * row_bytes);
   int S = (pos + kAttnMinRows - 1) / kAttnMinRows;
   S = std::min(S, (2 * sms + kvh - 1) / kvh);
@@ -925,9 +970,15 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
   const int chunk = S == 1 ? pos : (pos + S - 1) / S;
   const size_t attn_smem =
       2 * (size_t)chunk * row_bytes +
-      (size_t)(G * (hd + 1) + 2 * hd + 2 * G + G * (chunk + 1) + G * (S + 1)) * sizeof(float);
-  static const cudaError_t attn_allowed = allow_smem(decode_attn_kernel<T>);
+      (size_t)(G * (hd + 1) + 2 * hd + 2 * G + G * (chunk + 1) + G * (S + 1) +
+               (kRoundAttn ? G * (hd + 1) : 0)) * sizeof(float);
+  auto* attn_kernel = decode_attn_kernel<C, kRoundAttn, false>;
+  static const cudaError_t attn_allowed = allow_smem(attn_kernel);
   if (attn_allowed != cudaSuccess) return (int)attn_allowed;
+  if constexpr (kRoundAttn) {
+    static const cudaError_t max_allowed = allow_smem(decode_attn_kernel<C, true, true>);
+    if (max_allowed != cudaSuccess) return (int)max_allowed;
+  }
   if (attn_smem > (size_t)kMaxDynSmem) return (int)cudaErrorInvalidValue;
   auto layer_scale = [](const float* s, int l, int n) {
     return s == nullptr ? nullptr : s + (size_t)l * n;
@@ -953,12 +1004,18 @@ int decode_layers(const W* wqkv, const W* wo, const W* wgu, const W* wdown,
     g.norm_w = attn_norm + (size_t)l * d;
     g.out = qkv;
     if ((err = launch_gemv<kInNorm, kOutStore, W>(g, sms, st)) != cudaSuccess) return (int)err;
-    // 2. Attention, the merge in its last split.
-    Attn<T> at = {qkv, nh, kvh, hd, m, pos, chunk,
+    // 2. Attention, the merge in its last split (after the max pass where
+    //    a split attention rounds its probabilities).
+    Attn<C> at = {qkv, nh, kvh, hd, m, pos, chunk,
                   (float)(1.0 / sqrt((double)hd)), cos_row, sin_row,
                   k_cache + (size_t)l * kvh * m * hd, v_cache + (size_t)l * kvh * m * hd,
-                  attn, at_ml, at_acc, at_count};
-    if ((err = launch(decode_attn_kernel<T>, dim3(kvh, S), attn_smem, st, at)) != cudaSuccess)
+                  attn, at_ml, at_acc, at_count, at_max};
+    if constexpr (kRoundAttn) {
+      if (S > 1 && (err = launch(decode_attn_kernel<C, true, true>, dim3(kvh, S), attn_smem,
+                                 st, at)) != cudaSuccess)
+        return (int)err;
+    }
+    if ((err = launch(attn_kernel, dim3(kvh, S), attn_smem, st, at)) != cudaSuccess)
       return (int)err;
     // 3. h = x + attn @ wo, and h's per-tile sums of squares.
     g = Gemv<T>{};
@@ -1017,7 +1074,7 @@ extern "C" long l3t_decode_scratch_floats(int d, int nh, int kvh, int hd, int fd
   const long wide = std::max(qkvd, std::max((long)d, 2L * fd));
   const long d_tiles = (d + kMinColsF - 1) / kMinColsF;
   return 2L * d + qkvd + qd + 2L * fd + 2L * d_tiles + kMaxSplit * wide +
-         (long)kAttnMaxSplit * nh * (hd + 2);
+         (long)kAttnMaxSplit * nh * (hd + 3);
 }
 
 // Arrival counters the C entries below need for these widths.  They must
@@ -1119,3 +1176,51 @@ extern "C" int l3t_decode_layers_f16(
                                  v_cache, cos_row, sin_row, scratch, counters, nl, d, nh,
                                  kvh, hd, fd, m, pos, eps, device, stream);
 }
+
+// The kv_dtype override: caches of type C under activations (norms,
+// x_in/x_out) of another type T, float weights of type T.  Otherwise as the
+// entry of T's mode; attention takes `_attend_head`'s rounding points where
+// C is 16-bit (see Attn).
+#define L3T_DECODE_FLOAT_KV(NAME, T, C)                                               \
+  extern "C" int NAME(const T* wqkv, const T* wo, const T* wgu, const T* wdown,       \
+                      const T* attn_norm, const T* ffn_norm, const T* x_in, T* x_out, \
+                      C* k_cache, C* v_cache, const float* cos_row,                   \
+                      const float* sin_row, float* scratch, unsigned* counters,       \
+                      int nl, int d, int nh, int kvh, int hd, int fd, int m, int pos, \
+                      float eps, int device, void* stream) {                          \
+    return decode_layers<T, T, C>(wqkv, wo, wgu, wdown, nullptr, nullptr, nullptr,    \
+                                  nullptr, attn_norm, ffn_norm, x_in, x_out, k_cache, \
+                                  v_cache, cos_row, sin_row, scratch, counters, nl,  \
+                                  d, nh, kvh, hd, fd, m, pos, eps, device, stream);   \
+  }
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_f32_kv_bf16, float, bf16)
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_f32_kv_f16, float, f16)
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_bf16_kv_f32, bf16, float)
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_bf16_kv_f16, bf16, f16)
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_f16_kv_f32, f16, float)
+L3T_DECODE_FLOAT_KV(l3t_decode_layers_f16_kv_bf16, f16, bf16)
+
+// The kv_dtype override under int8 weights with their f32 scales: caches
+// of type C under activations of another type T.  Otherwise as the int8
+// entry of T's mode.
+#define L3T_DECODE_I8_KV(NAME, T, C)                                                  \
+  extern "C" int NAME(const int8_t* wqkv, const int8_t* wo, const int8_t* wgu,        \
+                      const int8_t* wdown, const float* s_qkv, const float* s_o,      \
+                      const float* s_gu, const float* s_dn, const T* attn_norm,       \
+                      const T* ffn_norm, const T* x_in, T* x_out, C* k_cache,         \
+                      C* v_cache, const float* cos_row, const float* sin_row,         \
+                      float* scratch, unsigned* counters, int nl, int d, int nh,      \
+                      int kvh, int hd, int fd, int m, int pos, float eps, int device, \
+                      void* stream) {                                                 \
+    return decode_layers<int8_t, T, C>(wqkv, wo, wgu, wdown, s_qkv, s_o, s_gu, s_dn,  \
+                                       attn_norm, ffn_norm, x_in, x_out, k_cache,     \
+                                       v_cache, cos_row, sin_row, scratch, counters,  \
+                                       nl, d, nh, kvh, hd, fd, m, pos, eps, device,   \
+                                       stream);                                       \
+  }
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_kv_bf16, float, bf16)
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_kv_f16, float, f16)
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_bf16_kv_f32, bf16, float)
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_bf16_kv_f16, bf16, f16)
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_f16_kv_f32, f16, float)
+L3T_DECODE_I8_KV(l3t_decode_layers_i8_f16_kv_bf16, f16, bf16)

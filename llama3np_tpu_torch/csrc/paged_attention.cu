@@ -1,6 +1,7 @@
-// Paged decode attention for Hopper (sm_90a): float32 pools, int8 pools
-// with per-(token, KV head) f32 scales under a float32, bf16 or float16 q,
-// or bf16 / float16 pools with q and out of the pools' type.
+// Paged decode attention for Hopper (sm_90a): float32, bf16 or float16
+// pools under a q (and out) of any of the three types (another than the
+// pools' is the JAX engine's `kv_dtype` override), or int8 pools with
+// per-(token, KV head) f32 scales under a float32, bf16 or float16 q.
 //
 // Replaces: llama3np_tpu/ops/kernels/paged_attention.py, `paged_attention`
 // (:257; kernel body `_kernel` :66, pallas_call at :375).  One decode token
@@ -299,8 +300,8 @@ __device__ __forceinline__ float row_dot(const float* qr, const unsigned char* k
   return dot;
 }
 
-// T: the pools' type; TQ: q's and out's (T for 16-bit pools; float, bf16
-// or f16 for int8 pools).  TC: the tensor-core form (16-bit pools only; HD %
+// T: the pools' type; TQ: q's and out's (float, bf16 or f16 whatever the
+// pools: a float pool under a q of another type is the kv_dtype override).  TC: the tensor-core form (16-bit pools only; HD %
 // 16 == 0, G <= 16).
 template <typename T, typename TQ, int VEC, int STAGES, bool TC>  // 3 blocks an SM with 2 stages, else 2
 __global__ void __launch_bounds__(kThreads, STAGES == 2 ? 3 : 2)
@@ -689,13 +690,13 @@ int run(Args a, int B, int layer, int device, void* stream) {
   a.scale = (float)(1.0 / sqrt((double)HD));
   const int S = (a.maxp + C - 1) / C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if constexpr (kHalf16<T>) {
+  if constexpr (kHalf16<T> && std::is_same<T, TQ>::value) {
     if (HD % 16 == 0 && G <= 16)  // the tensor-core form: 16 query rows, 16-dim steps
       err = launch_ring<T, TQ, 16, true>(a, B, S, st);
     else
       err = HD % 8 == 0 ? launch_ring<T, TQ, 16>(a, B, S, st)
                         : launch_ring<T, TQ, 4>(a, B, S, st);
-  } else {
+  } else {  // float32 pools, int8 pools, and float pools under a q of another type
     err = (int)sizeof(T) * HD % 16 == 0 ? launch_ring<T, TQ, 16>(a, B, S, st)
                                          : launch_ring<T, TQ, 4>(a, B, S, st);
   }
@@ -848,3 +849,28 @@ extern "C" int l3t_paged_attention_f16(
                            page, maxp, stacked, win_q, win_count, chunk_pages);
   return run<f16, f16>(a, B, layer, device, stream);
 }
+
+// The kv_dtype override: float pools, cur_k/cur_v and window rows of type T
+// under a q (and out) of another float type TQ.  q and every staged row are
+// widened to f32, the math is f32, and the output is rounded to TQ once, as
+// the TPU kernel does (:134, :167, :239, :251, :254); the CUDA-core walk
+// (the tensor-core form takes q in the pools' type).  Otherwise as
+// l3t_paged_attention_f32.
+#define L3T_PAGED_FLOAT_Q(NAME, T, TQ)                                                    \
+  extern "C" int NAME(const TQ* q, const T* k_pools, const T* v_pools,                    \
+                      const int* block_table, const int* pos, const T* cur_k,             \
+                      const T* cur_v, const T* win_k, const T* win_v, TQ* out,            \
+                      float* part_ml, float* part_acc, int B, int NH, int KVH, int HD,    \
+                      int P, int page, int maxp, int layer, int stacked, int win_q,       \
+                      int win_count, int chunk_pages, int device, void* stream) {         \
+    const Args a = make_args(q, k_pools, v_pools, block_table, pos, cur_k, cur_v, win_k, \
+                             win_v, out, part_ml, part_acc, NH, KVH, HD, P, page, maxp,  \
+                             stacked, win_q, win_count, chunk_pages);                     \
+    return run<T, TQ>(a, B, layer, device, stream);                                       \
+  }
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_bf16_q_f32, bf16, float)
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_f16_q_f32, f16, float)
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_f32_q_bf16, float, bf16)
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_f16_q_bf16, f16, bf16)
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_f32_q_f16, float, f16)
+L3T_PAGED_FLOAT_Q(l3t_paged_attention_bf16_q_f16, bf16, f16)

@@ -27,6 +27,7 @@ import torch
 from . import prng
 from .models.llama import (StaticConfig, embed_tokens, forward,
                            forward_hidden, lm_logits, top_k_mask, top_p_mask)
+from .observability import check_finite
 from .ops import core as ops
 from .ops.kernels.decode_step import decode_layers
 from .ops.kernels.greedy_head import argmax_head
@@ -104,6 +105,7 @@ def kernel_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos, sin,
         if "lm_head_scale" in params:
             tok = torch.argmax(lm_logits(params, h), dim=-1)  # [1]
         else:
+            check_finite(h, "the greedy head's input")  # no logits to check
             tok = argmax_head(h, params["lm_head"])  # [1]
         toks.append(tok)
     return torch.stack(toks, dim=1), cache
@@ -261,8 +263,8 @@ class Generator:
     def use_kernels(self, batch: int) -> bool:
         """The fused decode kernel runs batch-1 decode on the card, greedy
         or sampled, float32, bf16, float16 or int8 weights alike (attn_impl
-        "auto"/"pallas"; the engine refuses "pallas" elsewhere, and refuses
-        on the card what no kernel takes).  It reads the fused tree only: a
+        "auto"/"pallas"; the engine refuses "pallas" elsewhere), over a
+        cache of any float dtype or int8.  It reads the fused tree only: a
         split tree (int4 among them) decodes on the plain path, as in the
         JAX package."""
         return (self.cfg.kernels and self.cfg.fused and self.cfg.rope_split

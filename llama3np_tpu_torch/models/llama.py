@@ -41,6 +41,7 @@ from ..checkpoint import (build_param_tree, fuse_param_tree,
 from ..config import ModelArgs
 from .. import prng
 from ..kvcache import init_cache
+from ..observability import check_finite
 from ..ops import core as ops
 from ..ops.kernels.flash_prefill import flash_prefill
 from ..ops.kernels.paged_attention import paged_attention
@@ -89,8 +90,11 @@ def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
 
 def lm_logits(params: Dict, h: torch.Tensor) -> torch.Tensor:
     """Final projection to vocab logits [.., VS] in f32 (an int8 or int4
-    lm_head post-scales its columns)."""
-    return ops._scaled_dot(h, params["lm_head"], params.get("lm_head_scale"))
+    lm_head post-scales its columns); checked for NaN/Inf inside
+    `observability.debug_mode`."""
+    logits = ops._scaled_dot(h, params["lm_head"], params.get("lm_head_scale"))
+    check_finite(logits, "logits")
+    return logits
 
 
 def _split_qkv(x: torch.Tensor, lp: Dict, cfg: "StaticConfig"):
@@ -504,15 +508,27 @@ def resolve_device(device) -> torch.device:
 # Engine
 # ---------------------------------------------------------------------------
 
-def _refuse_unported_kernel_modes(args: ModelArgs):
-    """The kernels run float32, bf16 and float16 models (float or int8
-    weights, a float or int8 KV cache) with the float KV cache in the
-    activation dtype; raise for the JAX package's `kv_dtype` override,
-    which none of them takes yet."""
-    if args.kv_dtype != args.dtype:
-        raise NotImplementedError(f"a {args.kv_dtype} KV cache under {args.dtype} "
-                                  "activations (the kv_dtype override) is still "
-                                  "to port (ROADMAP B11); pass attn_impl='xla'")
+_PRECISIONS = (None, "default", "highest")
+
+
+def _cache_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A cache tensor as the array the JAX package's `np.savez` writes: a
+    bf16 cache as its 2-byte payload ('V2', what numpy stores for an
+    ml_dtypes bfloat16 array), the others as they are."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _cache_from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """The inverse of `_cache_to_numpy`: a 2-byte void array (a bf16 cache,
+    written by either package) is read as bf16 bits, never through
+    ml_dtypes."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 class Llama:
@@ -533,13 +549,27 @@ class Llama:
     fused tree.  quant="int4" (weights packed two a byte) runs only that
     split layout, as in the JAX package.  kv_quant="int8" is read by
     `serving.BatchEngine`: int8 pools under any of the three activation
-    dtypes.  On the card's kernel path a KV dtype other than the
-    activations' (`kv_dtype`) raises NotImplementedError naming its
-    ROADMAP item; attn_impl="xla" runs it plainly.  `from_quantized` boots
-    from a quantized checkpoint of either package."""
+    dtypes.  A float KV cache of another dtype than the activations'
+    (`kv_dtype`, e.g. float32 over a bf16 cache) runs the kernels' override
+    modes: the decode kernel and the paged kernel read and write the cache
+    in its dtype, flash prefill attends the new K/V before their cast, as
+    the JAX engine's.  `from_quantized` boots from a quantized checkpoint
+    of either package.
+
+    `precision` takes the JAX engine's values (None, "default",
+    "highest"), which there pick XLA's matmul precision.  Here every one of
+    them keeps f32 sums with TF32 off on the float32 path (on the CPU, the
+    oracle, the JAX engine computes them alike too).
+
+    `save_generation_state` / `resume_generate` write and continue a
+    greedy generation in the JAX package's file format (the cache, the
+    last position and last tokens), so either package resumes the other's
+    file."""
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
-                 device="cuda"):
+                 device="cuda", precision: Optional[str] = None):
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}, not {precision!r}")
         self.args = args.validate()
         fused = args.fuse_matmuls
         if args.quant == "int4" and fused:
@@ -549,8 +579,6 @@ class Llama:
                 "fuse_matmuls=False")
         self.device = resolve_device(device)
         self.cfg = StaticConfig.from_args(args, self.device)
-        if self.cfg.kernels:
-            _refuse_unported_kernel_modes(args)
         weights = (load_parameters(model_source)
                    if isinstance(model_source, str) else model_source)
         tree = build_param_tree(weights, args)
@@ -561,10 +589,13 @@ class Llama:
         if args.quant:
             # On the card the weights quantize there (the JAX package's
             # `device=True` path: the same codes and scales, at HBM speed
-            # instead of minutes of host numpy at 8B).
+            # instead of minutes of host numpy at 8B); each weight is first
+            # rounded to the activation dtype, as the JAX engine's tree is
+            # cast before it quantizes.
             tree = quantize_param_tree(
                 tree, bits=4 if args.quant == "int4" else 8,
-                device=self.device if self.device.type == "cuda" else None)
+                device=self.device if self.device.type == "cuda" else None,
+                dtype=args.dtype)
         self._finish_init(params_to_device(tree, self.device, args.dtype))
 
     @classmethod
@@ -580,8 +611,6 @@ class Llama:
         self.device = resolve_device(device)
         self.cfg = StaticConfig.from_args(args, self.device)._replace(
             rope_split=rope_split, fused="wqkv" in params["layers"])
-        if self.cfg.kernels:
-            _refuse_unported_kernel_modes(args)
         self._finish_init(params_to_device(params, self.device))
         return self
 
@@ -598,6 +627,8 @@ class Llama:
             scaling=args.rope_scaling, device=self.device)
         self.cache = self.init_cache()
         self._gen = None  # built lazily by the generate paths
+        self._last_pos = None     # the last generation's state, for
+        self._last_tokens = None  # save_generation_state
 
     # -- cache --------------------------------------------------------------
 
@@ -618,7 +649,12 @@ class Llama:
         logits, self.cache = forward(self.params, ids, int(start_pos),
                                      self.cache, self.cos, self.sin, self.cfg,
                                      first)
+        self._check_cache()
         return logits.cpu().numpy()
+
+    def _check_cache(self):
+        for name, c in self.cache.items():
+            check_finite(c, f"KV cache {name!r}", kind="checks")
 
     # -- generation ---------------------------------------------------------
 
@@ -650,4 +686,49 @@ class Llama:
         toks, self.cache = self._gen.generate(
             self.params, ids, self.init_cache(ids.shape[0]), num_tokens,
             sampling=sampling)
+        self._check_cache()
+        if num_tokens > 0:
+            self._last_pos = ids.shape[1] + num_tokens - 1
+            self._last_tokens = toks[:, -1].cpu().numpy()
+        return toks
+
+    # -- generation-state checkpointing -------------------------------------
+
+    def save_generation_state(self, path: str):
+        """Write (KV cache, last position, last tokens) of the last
+        `generate_tokens` call as the JAX package's .npz (`cache_k`,
+        `cache_v`, `pos`, `last_tokens`).  A bf16 cache is written as its
+        2-byte payload, the bytes the JAX package writes for its
+        ml_dtypes array."""
+        if self._last_tokens is None:
+            raise ValueError("no generation to save; call generate_tokens first")
+        np.savez(path,
+                 cache_k=_cache_to_numpy(self.cache["k"]),
+                 cache_v=_cache_to_numpy(self.cache["v"]),
+                 pos=np.int32(self._last_pos),
+                 last_tokens=np.asarray(self._last_tokens, np.int32))
+
+    def resume_generate(self, path: str, num_tokens: int) -> torch.Tensor:
+        """Continue greedy decoding from a saved generation state (either
+        package's file); returns the new tokens [B, num_tokens] on the
+        engine's device.  The saved `pos` is the position of the last
+        generated token: resuming forwards that token at `pos` (writing its
+        K/V) and continues the stream exactly.  On the card a batch-1
+        resume runs the decode kernel over the restored cache."""
+        from ..generate import Generator
+        state = np.load(path)
+        pos = int(state["pos"])
+        if pos + 1 + num_tokens > self.args.max_seq_len:
+            raise ValueError("resume would exceed max_seq_len")
+        self.cache = {"k": _cache_from_numpy(state["cache_k"], self.device),
+                      "v": _cache_from_numpy(state["cache_v"], self.device)}
+        if self._gen is None:
+            self._gen = Generator(self)
+        tok = torch.as_tensor(np.asarray(state["last_tokens"], np.int64),
+                              device=self.device)
+        toks, self.cache = self._gen.decode_fn(num_tokens, tok.shape[0])(
+            self.params, tok, pos, self.cache, self.cos, self.sin)
+        self._check_cache()
+        self._last_pos = pos + num_tokens
+        self._last_tokens = toks[:, -1].cpu().numpy()
         return toks

@@ -20,6 +20,7 @@ import ctypes
 import functools
 import glob
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -91,12 +92,19 @@ SIGNATURES = {
     "l3t_decode_layers_i8": _DECODE_I8,
     "l3t_decode_layers_i8_bf16": _DECODE_I8,
     "l3t_decode_layers_i8_f16": _DECODE_I8,
+    # the kv_dtype override: caches of another float type than x
+    **{f"l3t_decode_layers_{a}_kv_{c}": _DECODE
+       for a, c in itertools.permutations(("f32", "bf16", "f16"), 2)},
+    **{f"l3t_decode_layers_i8{'' if a == 'f32' else '_' + a}_kv_{c}": _DECODE_I8
+       for a, c in itertools.permutations(("f32", "bf16", "f16"), 2)},
     "l3t_paged_attention_i8": _PAGED_I8,
     "l3t_paged_attention_i8_bf16": _PAGED_I8,
     "l3t_paged_attention_i8_f16": _PAGED_I8,
     "l3t_paged_attention_f32": _PAGED,
     "l3t_paged_attention_bf16": _PAGED,
     "l3t_paged_attention_f16": _PAGED,
+    **{f"l3t_paged_attention_{t}_q_{q}": _PAGED
+       for t, q in itertools.permutations(("f32", "bf16", "f16"), 2)},
     "l3t_argmax_head_f32": _ARGMAX,
     "l3t_argmax_head_bf16": _ARGMAX,
     "l3t_argmax_head_f16": _ARGMAX,

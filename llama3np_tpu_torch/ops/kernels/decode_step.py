@@ -32,6 +32,17 @@ points in float16, except that `_wdot` rounds the activation to bf16 before
 any int8 weight, so int8 under float16 activations is the int8/bf16
 product with float16 norms, caches, residual and output.
 
+Each mode also runs over caches of another float dtype than the
+activations' (the JAX engine's `kv_dtype` override, e.g. float32
+activations over a bf16 cache): the new K/V rows are stored in the cache's
+dtype and the cache rows widen to f32, and where the cache is 16-bit the
+attention takes the rounding points of the TPU kernel's `_attend_head`
+(`decode_step.py:207-233`): q rounded to the cache dtype before the
+scores, the cache rows' probabilities (relative to the max over every
+visible row and the current token) rounded to it before P.V, the current
+token's score and value in f32, unrounded.  A 16-bit cache under
+activations of its own dtype keeps the streamed layout's f32 attention.
+
 `decode_layers` launches the kernels for CUDA tensors and runs
 `decode_layers_plain` for CPU tensors; there is no fallback from one to the
 other.  `decode_layers.launches` counts launches (one per call: one call
@@ -49,15 +60,21 @@ from ..core import _scaled_dot
 from . import _build
 
 _WEIGHTS = ("wqkv", "wo", "wgu", "w_down")
-# The C entry of each (weight dtype, activation dtype) mode.
-_ENTRIES = {
-    torch.float32: {torch.float32: "l3t_decode_layers_f32"},
-    torch.bfloat16: {torch.bfloat16: "l3t_decode_layers_bf16"},
-    torch.float16: {torch.float16: "l3t_decode_layers_f16"},
-    torch.int8: {torch.float32: "l3t_decode_layers_i8",
-                 torch.bfloat16: "l3t_decode_layers_i8_bf16",
-                 torch.float16: "l3t_decode_layers_i8_f16"},
-}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def _entry(w, a, c):
+    """The C entry of the (weight, activation, cache) dtypes: float weights
+    in the activation dtype or int8 weights, a float cache of any of the
+    three dtypes (another than the activations': the `kv_dtype`
+    override)."""
+    name = "l3t_decode_layers_" + ("i8" + ("" if a == torch.float32 else "_" + _SHORT[a])
+                                   if w == torch.int8 else _SHORT[a])
+    return name if c == a else f"{name}_kv_{_SHORT[c]}"
+
+
+_ENTRIES = {(w, a, c): _entry(w, a, c)
+            for a in _SHORT for c in _SHORT for w in (a, torch.int8)}
 
 
 def _rms_scale(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -90,7 +107,8 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
     the TPU kernel's `_attend_head` written out (int8 weights post-scale
     each product; 16-bit activations round where the kernel does: each
     product's activation, the stored rows, the residual at each layer's
-    end).
+    end; a 16-bit cache under activations of another dtype rounds q and
+    the cache rows' probabilities to the cache dtype, as `_attend_head`).
     Updates the caches at `pos` in place and returns (x_out, k_cache,
     v_cache)."""
     nh, kvh, hd = n_heads, kv_heads, head_dim
@@ -109,6 +127,12 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
 
     m = k_cache.shape[2]
     visible = torch.arange(m, device=x.device) < pos  # never row pos
+    # The kv_dtype override with a 16-bit cache: `_attend_head`'s roundings.
+    kv_round = k_cache.dtype != x.dtype and k_cache.dtype in _HALF
+
+    def to_cache(t):
+        return t.to(k_cache.dtype).float() if kv_round else t
+
     h = x.float()
     for layer in range(layers["wqkv"].shape[0]):
         xn = _rms_scale(h, layers["attn_norm"][layer].reshape(-1), norm_eps)
@@ -118,14 +142,14 @@ def decode_layers_plain(layers: Dict, x: torch.Tensor, pos: int,
         v_new = qkv[0, qd + kvd :].reshape(kvh, 1, hd)
         ks = k_cache[layer].float()                           # [KVH, M, HD]
         vs = v_cache[layer].float()
-        scores = torch.einsum("kgd,kmd->kgm", q, ks) * inv_sqrt_hd
+        scores = torch.einsum("kgd,kmd->kgm", to_cache(q), ks) * inv_sqrt_hd
         scores = scores.masked_fill(~visible, float("-inf"))
         s_new = torch.sum(q * k_rot, dim=-1, keepdim=True) * inv_sqrt_hd
         smax = torch.maximum(scores.amax(dim=-1, keepdim=True), s_new)
         sexp = torch.exp(scores - smax)
         e_new = torch.exp(s_new - smax)
         denom = sexp.sum(dim=-1, keepdim=True) + e_new
-        attn = (torch.einsum("kgm,kmd->kgd", sexp, vs) + e_new * v_new) / denom
+        attn = (torch.einsum("kgm,kmd->kgd", to_cache(sexp), vs) + e_new * v_new) / denom
         k_cache[layer, :, pos] = k_rot[:, 0].to(k_cache.dtype)
         v_cache[layer, :, pos] = v_new[:, 0].to(v_cache.dtype)
         h = h + proj(attn.reshape(1, qd), "wo", layer)
@@ -190,11 +214,11 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     [NL,1,QD+2KVD], "wo_scale", "wgu_scale", "w_down_scale".  x: [1, D]
     embedded token.  pos: host int, the token's position.
     k_cache/v_cache: [NL, KVH, M, HD] (one batch row), read at rows < pos
-    and written at row pos in place.  On the card: float32 weights, norms,
-    x and caches; int8 weights with f32 scales and float32 the rest; bf16
-    (or float16) weights, norms, x and caches; or int8 weights with f32
-    scales and bf16 (or float16) norms, x and caches; cos/sin rows
-    float32.
+    and written at row pos in place.  On the card: float32 weights, norms
+    and x; int8 weights with f32 scales and float32 the rest; bf16 (or
+    float16) weights, norms and x; or int8 weights with f32 scales and bf16
+    (or float16) norms and x; caches of x's dtype or of either other float
+    dtype (the `kv_dtype` override); cos/sin rows float32.
     cos_row/sin_row: [1, HD//2] RoPE rows for `pos`.
 
     Returns (x_out [1, D], k_cache, v_cache).
@@ -212,20 +236,20 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
     quant = "wqkv_scale" in layers
     weights = [layers[n] for n in _WEIGHTS]
     scales = [layers[n + "_scale"] for n in _WEIGHTS] if quant else []
-    acts = [layers["attn_norm"], layers["ffn_norm"], x, k_cache, v_cache]
+    acts = [layers["attn_norm"], layers["ffn_norm"], x]
     f32 = [cos_row, sin_row] + scales
-    tensors = weights + acts + f32
-    w_dtype, a_dtype = weights[0].dtype, x.dtype
-    if a_dtype not in _ENTRIES.get(w_dtype, {}) or (w_dtype == torch.int8) != quant \
+    tensors = weights + acts + [k_cache, v_cache] + f32
+    w_dtype, a_dtype, c_dtype = weights[0].dtype, x.dtype, k_cache.dtype
+    if (w_dtype, a_dtype, c_dtype) not in _ENTRIES or (w_dtype == torch.int8) != quant \
             or any(t.dtype != w_dtype for t in weights) \
-            or any(t.dtype != a_dtype for t in acts) \
+            or any(t.dtype != a_dtype for t in acts) or v_cache.dtype != c_dtype \
             or any(t.dtype != torch.float32 for t in f32):
         raise NotImplementedError(
             "the decode_layers kernel takes float32, bf16 or float16 weights "
-            "with norms, x and caches of the same dtype, or int8 weights with "
-            "f32 scales under float32, bf16 or float16 norms, x and caches "
-            f"(cos/sin rows float32); got {w_dtype} weights and {x.dtype} x, "
-            f"{k_cache.dtype} caches")
+            "with norms and x of the same dtype, or int8 weights with f32 "
+            "scales under float32, bf16 or float16 norms and x, over float32, "
+            "bf16 or float16 caches (cos/sin rows float32); got "
+            f"{w_dtype} weights and {x.dtype} x, {k_cache.dtype} caches")
     if any(t.device != x.device for t in tensors):
         raise ValueError("decode_layers: every tensor must lie on x's device")
     if not all(t.is_contiguous() for t in tensors):
@@ -257,7 +281,7 @@ def decode_layers(layers: Dict, x: torch.Tensor, pos: int,
             scratch.data_ptr(), counters.data_ptr(), nl, d, n_heads, kv_heads,
             head_dim, fd, k_cache.shape[2], pos, float(norm_eps), x.device.index,
             stream)
-    entry = getattr(lib, _ENTRIES[w_dtype][a_dtype])
+    entry = getattr(lib, _ENTRIES[w_dtype, a_dtype, c_dtype])
     rc = entry(*(t.data_ptr() for t in weights + scales), *rest)
     _build.check(rc, "decode_layers")
     decode_layers.launches += 1

@@ -26,7 +26,10 @@ pools take a float32, bf16 or float16 q and return q's dtype (a 16-bit
 model's int8 KV).  The kernel widens everything to f32 and accumulates in
 f32, as the TPU kernel does, rounding once at the output; the plain version
 computes on f32 copies of q and the float rows, so it never takes the XLA
-op's rounding of the probabilities to a 16-bit q's dtype.
+op's rounding of the probabilities to a 16-bit q's dtype.  Float pools also
+take a q of another float dtype (the JAX engine's `kv_dtype` override,
+e.g. bf16 pools under a float32 q): the same widening, rows in the pools'
+dtype, the output in q's.
 
 The kernel cuts each row's visible tokens into chunks of C pages, one
 block a chunk (`chunk_pages` picks C from static shapes only), and merges
@@ -47,13 +50,14 @@ import torch
 from .. import core
 from . import _build
 
-# The C entry of each (pool dtype, q dtype) mode.
-_ENTRIES = {(torch.float32, torch.float32): "l3t_paged_attention_f32",
-            (torch.int8, torch.float32): "l3t_paged_attention_i8",
-            (torch.int8, torch.bfloat16): "l3t_paged_attention_i8_bf16",
-            (torch.int8, torch.float16): "l3t_paged_attention_i8_f16",
-            (torch.bfloat16, torch.bfloat16): "l3t_paged_attention_bf16",
-            (torch.float16, torch.float16): "l3t_paged_attention_f16"}
+_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+# The C entry of each (pool dtype, q dtype) mode: int8 pools under any float
+# q, float pools under a q of their dtype or of another (the kv_dtype
+# override, "_q_<q>").
+_ENTRIES = {(torch.int8, q): "l3t_paged_attention_i8" + (
+    "" if q == torch.float32 else "_" + _SHORT[q]) for q in _SHORT}
+_ENTRIES.update({(t, q): f"l3t_paged_attention_{_SHORT[t]}" + (
+    "" if q == t else f"_q_{_SHORT[q]}") for t in _SHORT for q in _SHORT})
 
 
 def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -65,11 +69,11 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
                           win_count: Optional[int] = None) -> torch.Tensor:
     """The same function in plain PyTorch: the gather oracle
     (`ops.core.paged_attention`, or `paged_attention_stacked` when `layer`
-    is given).  A 16-bit q runs it on f32 copies of q and of the float rows
-    (16-bit pools: the pool of the layer read; int8 pools and their f32
-    scales as they are) and returns q's dtype: the kernel's f32 math, one
-    rounding at the output."""
-    if q.dtype != torch.float32:
+    is given).  A 16-bit q or 16-bit pools run it on f32 copies of q and of
+    the float rows (16-bit pools: the pool of the layer read; int8 pools
+    and their f32 scales as they are) and return q's dtype: the kernel's
+    f32 math, one rounding at the output."""
+    if q.dtype != torch.float32 or k_pages.dtype in (torch.bfloat16, torch.float16):
         if layer is not None:
             k_pages, v_pages = k_pages[layer : layer + 1], v_pages[layer : layer + 1]
             if k_scale is not None:
@@ -192,7 +196,8 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     1, NH, HD].  CUDA tensors must be contiguous: float32 q, pools and
     rows; a float32, bf16 or float16 q with int8 pools and rows and float32
     scales; or bf16 (float16) q, pools and rows; block_table and pos
-    int32.
+    int32.  Float pools and rows also run under a q of another float
+    dtype (the `kv_dtype` override), returning q's dtype.
     """
     scales = dict(k_scale=k_scale, v_scale=v_scale, cur_ks=cur_ks,
                   cur_vs=cur_vs, win_ks=win_ks, win_vs=win_vs)
@@ -212,10 +217,9 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if entry is None or any(t.dtype != k_pages.dtype for t in rows) \
             or any(t.dtype != torch.float32 for t in floats):
         raise NotImplementedError(
-            f"the paged_attention kernel takes float32, bf16 or float16 pools "
-            f"and rows under a q of their dtype, or int8 ones with float32 "
-            f"scales under a float32, bf16 or float16 q (got {k_pages.dtype} "
-            f"pools, {q.dtype} q)")
+            f"the paged_attention kernel takes float32, bf16, float16 or int8 "
+            f"pools and rows (int8 with float32 scales) under a float32, bf16 "
+            f"or float16 q (got {k_pages.dtype} pools, {q.dtype} q)")
     if block_table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("paged_attention takes int32 block_table and pos on the card")
     if not all(t.is_contiguous() for t in tensors):

@@ -115,3 +115,34 @@ class Tokenizer:
     @property
     def vocab_size(self) -> int:
         return len(self.vocab)
+
+
+def convert_llama2c_tokenizer(bin_path: str, out_path: str) -> str:
+    """Convert a llama2.c ``tokenizer.bin`` to the JSON model format the
+    reference uses (``{"tokens": [...], "scores": [...]}``).
+
+    Binary layout: int32 max_token_length, then per token (float32 score,
+    int32 length, UTF-8 bytes).  Tokens that are not UTF-8 (llama2.c's
+    byte-fallback tokens, raw bytes 0x80-0xFF) map latin-1-style to
+    U+0080-U+00FF, as the published JSON vocabulary has them."""
+    import struct
+
+    tokens = []
+    scores = []
+    with open(bin_path, "rb") as f:
+        f.read(4)  # max_token_length, unused
+        while True:
+            head = f.read(8)
+            if len(head) < 8:
+                break
+            score, length = struct.unpack("<fi", head)
+            raw = f.read(length)
+            try:
+                piece = raw.decode("utf-8")
+            except UnicodeDecodeError:
+                piece = raw.decode("latin-1")
+            tokens.append(piece)
+            scores.append(float(score))
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump({"tokens": tokens, "scores": scores}, f, ensure_ascii=False)
+    return out_path

@@ -328,3 +328,39 @@ def test_bf16_batch_engine_matches_capacity_one(quantum):
         want = solo.submit(p, b)
         solo.run_to_completion()
         assert req.generated == want.generated
+
+
+# ---------------------------------------------------------------------------
+# int8 and int4 trees under bf16 (ROADMAP C5)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", PRESETS)
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_params_from_jax_bf16_quantized_tree_is_bit_exact(name, quant):
+    """Under bf16 both engines quantize the bf16-rounded weights: the JAX
+    engine's int8 tree (whole-layer, per-column scales) and int4 tree
+    (split layout) carry over bit for bit and equal the port's own."""
+    kw = dict(quant=quant) if quant == "int8" else dict(quant=quant, fuse_matmuls=False)
+    w = jsynth(jpreset(name), seed=7)
+    jeng = JLlama(w, jpreset(name, dtype="bfloat16", pallas_ffn_block=0, **kw))
+    teng = Llama(w, preset(name, dtype="bfloat16", **kw), device="cpu")
+    carried = params_from_jax(jax.tree.map(np.asarray, jeng.params), "cpu")
+    assert carried.keys() == teng.params.keys()
+    for key, leaf in teng.params.items():
+        pairs = leaf.items() if isinstance(leaf, dict) else [(key, leaf)]
+        for k, v in pairs:
+            c = carried["layers"][k] if isinstance(leaf, dict) else carried[k]
+            assert c.dtype == v.dtype and torch.equal(c, v), k
+
+
+def test_bf16_int8_stream_matches_jax():
+    """A bf16 int8 test-tiny stream that quantizing the f32 weights (and
+    not the bf16-rounded ones) turned away from the JAX engine's."""
+    w = jsynth(jpreset("test-tiny"), seed=1)
+    jeng = JLlama(w, jpreset("test-tiny", dtype="bfloat16", quant="int8",
+                             pallas_ffn_block=0))
+    teng = Llama(w, preset("test-tiny", dtype="bfloat16", quant="int8"), device="cpu")
+    rng = np.random.default_rng(1)
+    ids = [rng.integers(3, 512, size=(1, n)).astype(np.int32) for n in range(5, 11)][-1]
+    want = np.asarray(jeng.generate_tokens(ids, 12))[0].tolist()
+    assert teng.generate_tokens(ids, 12)[0].tolist() == want

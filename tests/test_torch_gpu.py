@@ -827,17 +827,17 @@ def test_kernels_are_deterministic(cuda):
 
 
 def test_paged_attention_kernel_refuses_unported_pools(cuda):
-    """A float pool under a q of another dtype, and int8 scales other than
-    float32: no kernel mode takes them (int8 pools under a bf16 or float16
-    q, and float16 pools, run)."""
+    """int8 scales other than float32: no kernel mode takes them (int8
+    pools under a bf16 or float16 q, float16 pools, and float pools under a
+    q of another float dtype, the kv_dtype override, run)."""
     bt = torch.zeros(1, 2, dtype=torch.int32, device=cuda)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda)
     q = torch.zeros(1, 1, 4, 16, device=cuda, dtype=torch.bfloat16)
     half = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="under a q of their dtype"):
-        paged_attention(q, half, half, bt, pos)
-    with pytest.raises(NotImplementedError, match="under a q of their dtype"):
-        paged_attention(q.float(), half, half, bt, pos)
+    for qq in (q, q.float()):  # float16 pools under a bf16 or float32 q
+        got = paged_attention(qq, half, half, bt, pos)
+        torch.cuda.synchronize()
+        assert got.dtype == qq.dtype and not got.float().abs().any()
     pool = torch.zeros(3, 2, 8, 16, device=cuda, dtype=torch.int8)
     scale = torch.ones(3, 2, 8, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="float32 scales"):
@@ -933,17 +933,206 @@ def test_card_int8_bf16_engine_runs_the_kernels(cuda, name):
 
 
 def test_card_engine_refuses_unported_modes(cuda):
-    """On the card's kernel path only the kv_dtype override still raises;
-    float16 and int8 KV under a 16-bit q build."""
+    """Nothing the JAX engine runs is refused on the card any more: the
+    kv_dtype override (float32 over a bf16 cache, bf16 over a float32 one)
+    builds on the kernel path and decodes through the decode kernel, as do
+    float16 and int8 KV under a 16-bit q."""
     w = synthetic_weights(preset("test-tiny"), seed=1)
     for kw in (dict(dtype="float32", kv_dtype="bfloat16"),
                dict(dtype="bfloat16", kv_dtype="float32")):
-        with pytest.raises(NotImplementedError, match="ROADMAP B11"):
-            Llama(w, preset("test-tiny", **kw), device=cuda)
+        eng = Llama(w, preset("test-tiny", **kw), device=cuda)
+        assert eng.cfg.kernels and eng.cache["k"].dtype == getattr(torch, kw["kv_dtype"])
+        before = decode_layers.launches
+        assert eng.generate_tokens([[1, 5, 9]], 4).shape == (1, 4)
+        assert decode_layers.launches == before + 3
     assert Llama(w, preset("test-tiny", dtype="float16"), device=cuda).cfg.kernels
     eng = Llama(w, preset("test-tiny", dtype="bfloat16"), device=cuda)
     be = BatchEngine(eng, capacity=2, paged=True, page_size=8, kv_quant="int8")
     assert be.cache["k"].dtype == torch.int8
+
+
+# The kv_dtype override: (activation, cache) pairs of different float dtypes.
+KV_PAIRS = [(torch.float32, torch.bfloat16), (torch.float32, torch.float16),
+            (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16),
+            (torch.float16, torch.float32), (torch.float16, torch.bfloat16)]
+KV_IDS = ["f32-kv-bf16", "f32-kv-f16", "bf16-kv-f32", "bf16-kv-f16", "f16-kv-f32",
+          "f16-kv-bf16"]
+
+
+def _kv_tol(act):
+    """Kernel against twin under the override: float32 activations 1e-3
+    (the twin rounds q and the probabilities to a 16-bit cache where the
+    kernel does, but an element computed an ulp apart in f32 may round the
+    other way, moving the output by up to 2^-9 of a value); 16-bit
+    activations the 16-bit modes' 3e-2."""
+    return dict(rtol=1e-3, atol=1e-3) if act == torch.float32 else dict(rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("act,kv", KV_PAIRS, ids=KV_IDS)
+@pytest.mark.parametrize("pos,M", [(0, 64), (40, 128), (127, 128), (700, 1024)])
+def test_decode_layers_kv_override_kernel_matches_plain(cuda, int8, act, kv, pos, M):
+    """A cache of another float dtype than the activations', float or int8
+    weights: output and new rows against the twin, other rows untouched;
+    pos 0 (the appended column alone), one split, and many position splits
+    (the max pass before a split attention over a 16-bit cache)."""
+    nl, d, nh, kvh, fd = 2, 256, 8, 2, 512
+    g = torch.Generator().manual_seed(pos + M)
+    hd = d // nh
+    layers = _decode_layers_tree(g, cuda, nl, d, nh, kvh, fd, int8, act)
+    kc, vc = (torch.randn(nl, kvh, M, hd, generator=g).to(cuda, kv) for _ in range(2))
+    x = torch.randn(1, d, generator=g).to(cuda, act)
+    ang = torch.rand(1, hd // 2, generator=g).to(cuda) * pos
+    kw = dict(n_heads=nh, kv_heads=kvh, head_dim=hd, norm_eps=1e-5)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = decode_layers.launches
+    got = decode_layers(layers, x, pos, k1, v1, ang.cos(), ang.sin(), **kw)[0]
+    torch.cuda.synchronize()
+    assert decode_layers.launches == before + 1 and got.dtype == act and k1.dtype == kv
+    want = decode_layers_plain(layers, x, pos, k2, v2, ang.cos(), ang.sin(), **kw)[0]
+    tol = _kv_tol(act)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(k1[:, :, pos].float(), k2[:, :, pos].float(), **tol)
+    torch.testing.assert_close(v1[:, :, pos].float(), v2[:, :, pos].float(), **tol)
+    others = torch.arange(M, device=cuda) != pos
+    assert torch.equal(k1[:, :, others], kc[:, :, others])
+    assert torch.equal(v1[:, :, others], vc[:, :, others])
+    again = decode_layers(layers, x, pos, kc.clone(), vc.clone(), ang.cos(), ang.sin(), **kw)[0]
+    assert torch.equal(again, got)  # deterministic, the max pass included
+
+
+@pytest.mark.parametrize("act,kv", KV_PAIRS, ids=KV_IDS)
+@pytest.mark.parametrize("mode", ["plain", "stacked", "window2"])
+@pytest.mark.parametrize("NH,KVH,HD", [(8, 2, 64), (32, 8, 128), (4, 2, 20)])
+def test_paged_attention_kv_override_kernel_matches_plain(cuda, act, kv, mode, NH, KVH, HD):
+    """Float pools, current rows and window of `kv` under a q of `act`:
+    the CUDA-core walk widens everything to f32 and rounds the output to
+    q's dtype once, as the twin does; float32 q 1e-4, 16-bit q two ulps."""
+    B, page, maxp, NL, Q = 5, 16, 9, 2, 3
+    a = _paged_inputs(cuda, B, NH, KVH, HD, page, maxp, NL, Q, seed=HD + 1)
+    q = a["q"].to(act)
+    kp, vp, ck, cv, wk, wv = (a[n].to(kv) for n in ("kp", "vp", "ck", "cv", "wk", "wv"))
+    if mode == "plain":
+        args, kw = (q, kp[1].contiguous(), vp[1].contiguous(), a["bt"], a["pos"]), {}
+    else:
+        args, kw = (q, kp, vp, a["bt"], a["pos"]), dict(layer=1, cur_k=ck, cur_v=cv)
+        if mode == "window2":
+            kw.update(win_k=wk, win_v=wv, win_count=2)
+    before = paged_attention.launches
+    got = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + 1 and got.dtype == act
+    want = paged_attention_plain(*args, **kw)
+    tol = (dict(rtol=1e-4, atol=1e-5) if act == torch.float32 else
+           dict(rtol=1e-2, atol=1e-2) if act == torch.bfloat16 else dict(rtol=2e-3, atol=2e-3))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("kw", [dict(dtype="float32", kv_dtype="bfloat16"),
+                                dict(dtype="float32", kv_dtype="bfloat16", quant="int8"),
+                                dict(dtype="bfloat16", kv_dtype="float32"),
+                                dict(dtype="float16", kv_dtype="bfloat16")],
+                         ids=["f32-kv-bf16", "int8-kv-bf16", "bf16-kv-f32", "f16-kv-bf16"])
+def test_card_kv_override_engine_runs_the_kernels(cuda, kw):
+    """An engine with the override on the card: greedy generation through
+    flash, the decode kernel's override mode and (float head) the greedy
+    head, the same stream as the CPU engine on its kernel path (the twins);
+    paged serving through the paged kernel's override mode at quanta 1 and
+    3, every stream equal to the CPU twins' and every page back."""
+    args = preset("test-tiny", **kw)
+    w = synthetic_weights(args, seed=7)
+    ids = [[1, 7, 30, 41, 5]]
+    eng = Llama(w, args, device=cuda)
+    cpu = Llama(w, args, device="cpu")
+    cpu.cfg = cpu.cfg._replace(kernels=True)  # the twins, on the CPU
+    before = (flash_prefill.launches, decode_layers.launches, argmax_head.launches)
+    toks = eng.generate_tokens(ids, 12).cpu()
+    assert (flash_prefill.launches - before[0], decode_layers.launches - before[1],
+            argmax_head.launches - before[2]) == (
+        args.n_layers, 11, 0 if args.quant else 11)
+    assert toks.tolist() == cpu.generate_tokens(ids, 12).tolist()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, args.vocab_size, size=n).tolist() for n in (4, 9, 6)]
+    for quantum in (1, 3):
+        streams = []
+        for e in (eng, cpu):
+            be = BatchEngine(e, capacity=2, paged=True, page_size=8)
+            assert be.cache["k"].dtype == getattr(torch, args.kv_dtype)
+            reqs = [be.submit(p, 10, stop_ids=()) for p in prompts]
+            be.run_to_completion()
+            assert be.allocator.available == be.allocator.num_pages - 1
+            streams.append([r.generated for r in reqs])
+        assert streams[0] == streams[1]
+
+
+def test_card_boots_converted_checkpoints_and_resumes(cuda, tmp_path):
+    """A llama2.c `.bin` and a bf16 safetensors HF directory, both written
+    here, convert and boot on the card to the stream of the same weights
+    handed over directly; a generation saved on the card resumes there
+    through the decode kernel (first + rest = the uninterrupted stream),
+    over a bf16 cache under float32 activations."""
+    import json
+    import struct
+
+    from llama3np_tpu_torch import checkpoint as ck
+    from llama3np_tpu_torch.ops.core import rope_split_permutation
+
+    args = preset("test-tiny")
+    w = synthetic_weights(args, seed=3)
+    ids = [[1, 17, 99, 5, 203]]
+    direct = Llama(w, args, device=cuda).generate_tokens(ids, 8).tolist()
+    L = args.n_layers
+    p = "model.layers.{i}."
+    names = ["input_layernorm", "self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+             "self_attn.o_proj", "post_attention_layernorm", "mlp.gate_proj",
+             "mlp.down_proj", "mlp.up_proj"]
+    with open(tmp_path / "m.bin", "wb") as f:
+        np.array([args.dim, args.hidden_dim, L, args.n_heads, args.kv_heads,
+                  -args.vocab_size, args.max_seq_len], np.int32).tofile(f)
+        w["model.embed_tokens.weight"].tofile(f)
+        for n in names:
+            np.stack([w[(p + n + ".weight").format(i=i)] for i in range(L)]).tofile(f)
+        w["model.norm.weight"].tofile(f)
+        np.zeros(args.max_seq_len * args.head_dim, np.float32).tofile(f)
+        w["lm_head.weight"].tofile(f)
+    cw, cargs = ck.convert_llama2c_bin(str(tmp_path / "m.bin"))
+    assert Llama(cw, cargs, device=cuda).generate_tokens(ids, 8).tolist() == direct
+
+    bf = preset("test-tiny", dtype="bfloat16")
+    want = Llama(w, bf, device=cuda).generate_tokens(ids, 8).tolist()
+    perm = {"q_proj": rope_split_permutation(args.n_heads, args.head_dim),
+            "k_proj": rope_split_permutation(args.kv_heads, args.head_dim)}
+    header, blobs, off = {}, [], 0
+    for k, v in w.items():
+        t = torch.from_numpy(v[perm[k.split(".")[-2]]] if k.split(".")[-2] in perm else v)
+        raw = t.to(torch.bfloat16).view(torch.uint8).numpy().tobytes()
+        header[k] = {"dtype": "BF16", "shape": list(t.shape),
+                     "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    d = tmp_path / "hf"
+    d.mkdir()
+    head = json.dumps(header).encode()
+    (d / "model.safetensors").write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    (d / "config.json").write_text(json.dumps({
+        "hidden_size": args.dim, "num_hidden_layers": L, "num_attention_heads": args.n_heads,
+        "num_key_value_heads": args.kv_heads, "vocab_size": args.vocab_size,
+        "max_position_embeddings": args.max_seq_len, "rms_norm_eps": args.norm_eps,
+        "intermediate_size": args.hidden_dim, "torch_dtype": "bfloat16"}))
+    hw = ck.convert_hf_model(str(d))
+    hargs = ck.args_from_hf_config(str(d), norm_eps=bf.norm_eps, rope_theta=bf.rope_theta)
+    assert hargs.dtype == "bfloat16"
+    assert Llama(hw, hargs, device=cuda).generate_tokens(ids, 8).tolist() == want
+
+    eng = Llama(w, preset("test-tiny", kv_dtype="bfloat16"), device=cuda)
+    full = eng.generate_tokens(ids, 10).tolist()[0]
+    first = eng.generate_tokens(ids, 4).tolist()[0]
+    eng.save_generation_state(str(tmp_path / "s.npz"))
+    eng.reset()
+    before = decode_layers.launches
+    rest = eng.resume_generate(str(tmp_path / "s.npz"), 6).tolist()[0]
+    assert decode_layers.launches == before + 6
+    assert first + rest == full
 
 
 @pytest.mark.parametrize("quant", [None, "int8"])

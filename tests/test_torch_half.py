@@ -304,9 +304,9 @@ def assert_in_envelope(got, want):
 @pytest.mark.parametrize("quant", [None, "int8"])
 def test_params_from_jax_f16_tree_is_bit_exact(name, quant):
     """The JAX engine's float16 tree (float, or int8 with f32 scales under
-    float16 norms) carries over bit for bit.  A float tree also equals the
-    port's own; an int8 one is quantized by the JAX engine from the
-    float16-rounded weights, by the port from the f32 ones (ROADMAP C3)."""
+    float16 norms) carries over bit for bit, and equals the port's own: an
+    int8 tree is quantized by both engines from the float16-rounded
+    weights (ROADMAP C5)."""
     _, jeng, teng = engines(name, quant=quant)
     jtree = jax.tree.map(np.asarray, jeng.params)
     carried = params_from_jax(jtree, "cpu")
@@ -320,8 +320,7 @@ def test_params_from_jax_f16_tree_is_bit_exact(name, quant):
             assert c.dtype == v.dtype, k
             assert str(j.dtype) == str(c.dtype).replace("torch.", ""), k
             assert np.array_equal(c.numpy(), j), k
-            if not quant:
-                assert torch.equal(c, v), k
+            assert torch.equal(c, v), k
 
 
 @pytest.mark.parametrize("name", PRESETS)

@@ -223,18 +223,18 @@ def _port_files():
 def test_port_never_imports_jax(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "llama3np_tpu", "ml_dtypes"), \
+        assert root not in ("jax", "jaxlib", "llama3np_tpu", "ml_dtypes", "safetensors"), \
             f"{path.relative_to(REPO)} imports {mod}"
 
 
 def test_port_modules_import_without_jax():
     """Import every module of the port in a fresh interpreter with jax,
-    the JAX package and ml_dtypes (which the card's machine lacks) made
-    unimportable."""
+    the JAX package, ml_dtypes and safetensors (which the card's machine
+    lacks) made unimportable."""
     mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
                    .removesuffix(".__init__") for p in PORT.rglob("*.py")})
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes'):\n"
+            "for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes', 'safetensors'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
