@@ -73,6 +73,18 @@ different float dtypes the decode kernel (float and int8 weights) and the
 paged kernel against their twins at tinyllama shapes, then fp32
 activations over a bf16 cache at full width (generation against the plain
 path, serving at quanta 1 and 4 against capacity-1 streams).
+Then (ROADMAP A7, A8) tinyllama-1.1b full-model training in float32 from
+a token shard the script packs (`prefetch_to_device`, 8 AdamW steps:
+step 0's loss against `next_token_loss`, the loss falling, finite
+gradients) and stories15M's steps on the card against the CPU; and, on
+the loaded bf16 llama3-8b before the int8 engine loads, multi-LoRA
+serving over its split view (3 adapters, the 12 requests round-robin
+over no adapter and adapters 0-2, quanta 1 and 4, against capacity-1
+streams through the same adapter and the plain path, beside the same
+workload without a bank; the HTTP server with adapter names), LoRA
+fine-tuning over the frozen base (8 steps with remat: the loss falls,
+the base's bits unchanged) and perplexity (`eval.Scorer`: per-token
+log-probabilities against the plain twin and unpadded scoring).
 The greedy head is also re-timed against torch.matmul +
 torch.argmax in alternation (tinyllama-1.1b fp32 and fp16, llama3-8b bf16),
 and fp32 flash prefill against scaled_dot_product_attention (stories15M
@@ -766,15 +778,17 @@ def solo_streams(engine, workload):
 
 
 def serve(torch, engine, workload, quantum: int, admit_chunk=None,
-          kv_quant=None):
+          kv_quant=None, adapters=None, assign=None):
     """Serve `workload` through a paged BatchEngine (capacity 8, page 16):
     6 requests at once, then 2 more after every 3 steps, so some queue;
     then drain.  Returns the streams and the run's counts and times.  The
-    admission time (prefill, fenced) is kept apart from the decode time."""
+    admission time (prefill, fenced) is kept apart from the decode time.
+    With `adapters`, request i decodes through adapter assign[i] (None:
+    the base model)."""
     from llama3np_tpu_torch.serving import BatchEngine
 
     be = BatchEngine(engine, capacity=8, paged=True, page_size=16,
-                     admit_chunk=admit_chunk, kv_quant=kv_quant)
+                     admit_chunk=admit_chunk, kv_quant=kv_quant, adapters=adapters)
     st = {"decode_steps": 0, "step_calls": 0, "admissions": 0, "admit_s": 0.0}
     step, prefill_into = be.step, be._prefill_into
 
@@ -792,14 +806,18 @@ def serve(torch, engine, workload, quantum: int, admit_chunk=None,
         st["admit_s"] += time.perf_counter() - t0
 
     be.step, be._prefill_into = counted_step, timed_prefill
+
+    def submit(i):
+        return be.submit(*workload[i], stop_ids=STOP_IDS,
+                         adapter=None if assign is None else assign[i])
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    reqs = [be.submit(p, n, stop_ids=STOP_IDS) for p, n in workload[:6]]
+    reqs = [submit(i) for i in range(6)]
     calls = 0
     while be.num_active or be._queue or len(reqs) < len(workload):
         if calls and calls % 3 == 0 and len(reqs) < len(workload):
-            reqs += [be.submit(p, n, stop_ids=STOP_IDS)
-                     for p, n in workload[len(reqs) : len(reqs) + 2]]
+            reqs += [submit(i) for i in range(len(reqs), min(len(reqs) + 2, len(workload)))]
         be.step(quantum)
         calls += 1
     torch.cuda.synchronize()
@@ -873,19 +891,23 @@ def plain_twin(engine):
     return twin
 
 
-def solo_serve(engine, workload, kv_quant, margins: bool = False):
+def solo_serve(engine, workload, kv_quant, margins: bool = False, adapters=None,
+               assign=None):
     """Each request's stream from a capacity-1 paged engine (the
     schedule-independence rule of tests/test_kv_quant.py:160-178); with
     `margins`, also each token's top-2 logit margin (the difference of the
-    top two log-probabilities), for the near-tie rule."""
+    top two log-probabilities), for the near-tie rule.  With `adapters`,
+    request i through adapter assign[i]."""
     from llama3np_tpu_torch.serving import BatchEngine
 
     out, gaps = [], []
-    for prompt, budget in workload:
+    for i, (prompt, budget) in enumerate(workload):
         be = BatchEngine(engine, capacity=1, paged=True, page_size=16,
-                         kv_quant=kv_quant, logprobs=2 if margins else None)
+                         kv_quant=kv_quant, logprobs=2 if margins else None,
+                         adapters=adapters)
         req = be.submit(prompt, budget, stop_ids=STOP_IDS,
-                        logprobs=2 if margins else None)
+                        logprobs=2 if margins else None,
+                        adapter=None if assign is None else assign[i])
         be.run_to_completion()
         out.append(req.generated)
         gaps.append([top[0][1] - top[1][1] for top in req.top_logprobs])
@@ -2646,6 +2668,485 @@ def tooling_phases(torch, card, s_weights, s_args, s_stream, t_eng, t_weights, p
     emit({"phase": "tooling", "model": "stories15M, tinyllama-1.1b", **out})
 
 
+# ---------------------------------------------------------------------------
+# LoRA, training, perplexity and data (ROADMAP A7, A8)
+# ---------------------------------------------------------------------------
+
+# tests/test_multilora.py's targets: the q/k/v deltas (after the rounding)
+# and the o-projection and FFN callbacks (before it) both run.
+LORA_TARGETS = ("wq", "wv", "w_gate", "w_down")
+
+
+def card_adapters(torch, args, n: int = 3, rank: int = 16, alpha: float = 32.0,
+                  b_scale: float = 1e-3):
+    """n adapters on LORA_TARGETS: A from `init_lora` (seed i), B seeded
+    normals x b_scale made on the card (a fresh B is zero, which would
+    serve the base model), so each delta is a few per cent of its base
+    product (`lora_delta_share` measures it)."""
+    from llama3np_tpu_torch.lora import init_lora
+
+    out = []
+    for i in range(n):
+        lora = init_lora(args, rank=rank, alpha=alpha, targets=LORA_TARGETS, seed=i,
+                         device="cuda")
+        g = torch.Generator("cuda").manual_seed(1000 + i)
+        lora["layers"] = {k: v if k.endswith("_a") else
+                          torch.randn(v.shape, generator=g, device="cuda") * b_scale
+                          for k, v in lora["layers"].items()}
+        out.append(lora)
+    return out
+
+
+def lora_delta_share(torch, eng, lora, prompt) -> dict:
+    """|scale * (x@A)@B| / |x@W| (Frobenius) of each adapted target at layer
+    0, on the prompt's normed embeddings (w_down on the SwiGLU of them)."""
+    import torch.nn.functional as F
+
+    from llama3np_tpu_torch.models.llama import embed_tokens
+    from llama3np_tpu_torch.ops import core as ops
+
+    lp = {k: v[0] for k, v in eng.params["layers"].items()}
+    ll = {k: v[0] for k, v in lora["layers"].items()}
+    scale = lora["alpha"] / lora["rank"]
+    with torch.inference_mode():
+        x = ops.rms_norm(embed_tokens(eng.params, torch.as_tensor(prompt, device="cuda")),
+                         lp["attn_norm"], eng.args.norm_eps)
+        inputs = {"wq": x, "wv": x, "w_gate": x,
+                  "w_down": (F.silu(ops._dot(x, lp["w_gate"])) * ops._dot(x, lp["w_up"]))
+                  .to(x.dtype)}
+        out = {}
+        for t, xin in inputs.items():
+            base = ops._dot(xin, lp[t])
+            delta = scale * ops._dot(ops._dot(xin, ll[t + "_a"]).to(xin.dtype), ll[t + "_b"])
+            out[t] = (delta.norm() / base.norm()).item()
+    return out
+
+
+def multilora_phase(torch, eng, limit, card):
+    """(a) llama3-8b multi-LoRA serving in bf16 at full width and depth.
+
+    The split engine is `Llama.split_view` of the loaded fused engine (views
+    of wqkv and wgu: no second copy of the weights).  Three adapters (rank
+    16, alpha 32, LORA_TARGETS); the 12 requests of `serve_workload` go
+    round-robin to no adapter and adapters 0, 1 and 2, served paged at
+    quanta 1 and 4.  Gates: each stream equals its capacity-1 stream
+    through the same adapter (near-tie rule under `limit`); exact launch
+    counts (flash once a layer an admission, the paged kernel once a layer
+    a decode step) and all pages back; the no-adapter rows equal the same
+    workload served without a bank (near-tie rule); one adapter's solo
+    stream equals the plain path's (`plain_twin`, near-tie rule against the
+    plain path's margins).  Then the HTTP server over a banked engine with
+    adapter names: a streamed request naming an adapter (its solo stream,
+    near-tie rule) and one naming an unknown adapter (400).  Reports the
+    served tok/s and ms a step with and without the bank.  Returns the
+    launch counts of each run."""
+    from llama3np_tpu_torch.server import serve as http_serve
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    split = eng.split_view()
+    args, nl = split.args, split.args.n_layers
+    ads = card_adapters(torch, args)
+    workload = serve_workload(args.vocab_size)
+    assign = [(None, 0, 1, 2)[i % 4] for i in range(len(workload))]
+    shares = lora_delta_share(torch, split, ads[0], workload[0][0][:64])
+    solo, gaps = solo_serve(split, workload, None, margins=True, adapters=ads, assign=assign)
+    out, timings, streams = {}, {}, {}
+    for bank, runs in ((True, (("q1", 1), ("q4", 4))), (False, (("q1", 1), ("q4", 4)))):
+        for run, quantum in runs:
+            reset_counters()  # the main path: multi-LoRA serving through the kernels
+            got, st = serve(torch, split, workload, quantum, adapters=ads if bank else None,
+                            assign=assign if bank else None)
+            counts = counters()
+            expect = {"flash_prefill": nl * st["admissions"], "decode_layers": 0,
+                      "paged_attention": nl * st["decode_steps"], "argmax_head": 0}
+            what = f"llama3-8b multi-LoRA {run} bank={bank}"
+            if counts != expect or st["admissions"] != len(workload):
+                raise AssertionError(f"{what} launch counts {counts}, expected {expect}")
+            rows = [i for i, a in enumerate(assign) if bank or a is None]
+            rules = [near_tie(got[i], solo[i], lambda j, m=gaps[i]: m[j], limit,
+                              f"{what} request {i}") for i in rows]
+            name = ("multilora_" if bank else "split_") + run
+            out[name], timings[name], streams[name] = counts, st, got
+            emit({"phase": "e2e", "model": "llama3-8b", "path": "multilora" if bank
+                  else "serving-split", "dtype": "bfloat16", "run": run, **st,
+                  "adapters": len(ads) if bank else 0, "assign": assign if bank else None,
+                  "launches": counts, "checked_rows": len(rows),
+                  "streams_equal_solo": sum(r["first_diff"] is None for r in rules),
+                  "near_ties": [dict(request=i, **r) for i, r in zip(rows, rules)
+                                if r["first_diff"] is not None],
+                  "near_tie_limit": limit, "pages_leaked": 0, "card": card})
+    # The no-adapter rows of the banked runs against the bank-less runs.
+    base_rows = [i for i, a in enumerate(assign) if a is None]
+    for run in ("q1", "q4"):
+        for i in base_rows:
+            near_tie(streams["multilora_" + run][i], streams["split_" + run][i],
+                     lambda j, m=gaps[i]: m[j], limit, f"no-adapter row {i} {run}")
+    # One adapter's solo stream against the plain path.
+    k = assign.index(0)
+    plain, pgaps = solo_serve(plain_twin(split), workload[k : k + 1], None, margins=True,
+                              adapters=ads, assign=[0])
+    plain_rule = near_tie(solo[k], plain[0], lambda j: pgaps[0][j], limit,
+                          "multi-LoRA solo vs the plain path")
+
+    # The HTTP server over a banked engine: a named adapter, an unknown one.
+    be = BatchEngine(split, capacity=8, paged=True, page_size=16, adapters=ads)
+    srv = http_serve(be, None, "127.0.0.1", 0, quantum=4, adapter_names=["a0", "a1", "a2"])
+    port = srv.server_address[1]
+    r = assign.index(1)
+    try:
+        status, events, t_first, _ = http_call(
+            port, "/v1/completions", {"prompt_ids": workload[r][0], "max_tokens": 16,
+                                      "stop_ids": list(STOP_IDS), "adapter": "a1",
+                                      "stream": True}, stream=True)
+        ids = [t for e in events for t in e["choices"][0]["token_ids"]]
+        bad_status, bad = http_call(port, "/v1/completions",
+                                    {"prompt_ids": [1, 2, 3], "adapter": "nope"})
+    finally:
+        srv.shutdown()
+        srv.loop.shutdown()
+        srv.server_close()
+    if status != 200 or t_first is None or bad_status != 400 or "unknown adapter" not in \
+            bad.get("error", ""):
+        raise AssertionError(f"multi-LoRA server: {status} {bad_status} {bad}")
+    server_rule = near_tie(ids, solo[r][:16], lambda j: gaps[r][j], limit,
+                           "multi-LoRA server stream")
+    if be.allocator.available != be.allocator.num_pages - 1:
+        raise AssertionError("multi-LoRA server: pages leaked")
+    bank_mb = sum(v.numel() * v.element_size() for v in be.lora_bank["layers"].values()) / 1e6
+    del be, srv
+    import gc
+    gc.collect()  # the server's engine thread and pools hold reference cycles
+    torch.cuda.empty_cache()
+    t = timings
+    emit({"phase": "multilora", "model": "llama3-8b", "dtype": "bfloat16",
+          "adapters": len(ads), "rank": ads[0]["rank"], "alpha": ads[0]["alpha"],
+          "targets": list(LORA_TARGETS), "delta_share_layer0": shares, "bank_mb": bank_mb,
+          "served_tok_s": {k: v["served_tok_s"] for k, v in t.items()},
+          "ms_per_step": {k: v["ms_per_step"] for k, v in t.items()},
+          "bank_cost_ms_per_step": {q: t["multilora_" + q]["ms_per_step"]
+                                    - t["split_" + q]["ms_per_step"] for q in ("q1", "q4")},
+          "no_adapter_rows_equal_bankless": len(base_rows), "plain_twin": plain_rule,
+          "server": {"status": status, "ttft_s": t_first, "stream": server_rule,
+                     "unknown_adapter_status": bad_status},
+          "near_tie_limit": limit, "card": card})
+    return split, out
+
+
+def shard_batches(torch, path: str, vocab: str, docs: int, chars: int, seed: int):
+    """A token shard the script writes (`pack_documents` over seeded
+    letter-and-space documents, tokenized with the synthetic vocabulary
+    `vocab`) and its `TokenDataset`."""
+    import numpy as np
+
+    from llama3np_tpu_torch import Tokenizer
+    from llama3np_tpu_torch.data import TokenDataset, pack_documents
+
+    rng = np.random.default_rng(seed)
+    letters = list("abcdefghijklmnopqrstuvwxyz      ")
+    texts = ["".join(rng.choice(letters, size=chars)) for _ in range(docs)]
+    n = pack_documents(texts, Tokenizer(vocab), path)
+    return TokenDataset(path), n
+
+
+def leaf_checksum(torch, t) -> tuple:
+    """A checksum of a 16-bit tensor's bits: the sum and the sum of squares
+    of its words, to show a frozen leaf is unchanged."""
+    w = t.contiguous().view(torch.int16).reshape(-1).int()
+    return int(w.sum(dtype=torch.int64)), int((w * w).sum(dtype=torch.int64))
+
+
+def lora_train_phase(torch, split, vocab, card, steps: int = 8, L: int = 512):
+    """(b) llama3-8b LoRA fine-tuning in bf16 at full width and depth: the
+    split view's weights frozen, one adapter on DEFAULT_TARGETS (rank 16),
+    `make_lora_train_step` with AdamW (lr 1e-3) and remat, B=1, L=512, on
+    the first 2 batches of a `TokenDataset` shard the script writes,
+    alternating, for 8 steps.  Gates: every loss finite, the loss on batch
+    0 after the steps below step 0's, the base leaves' checksums unchanged,
+    no kernel launched (training runs the plain ops, as the JAX package's
+    does).  Reports ms a step, tokens/s and the peak device memory."""
+    from llama3np_tpu_torch.lora import (DEFAULT_TARGETS, init_lora, lora_loss,
+                                         make_lora_train_step)
+    from llama3np_tpu_torch.train import init_optimizer
+
+    args = split.args
+    ds, n_tok = shard_batches(torch, os.path.join(REPO, "build", "smoke", "lora8b.bin"),
+                              vocab, docs=2, chars=3000, seed=5)
+    batches = [torch.as_tensor(b, device="cuda")
+               for b, _ in zip(ds.batches(1, L, shuffle=False, epochs=1), range(2))]
+    params = split.params
+    leaves = {"layers.wq": params["layers"]["wq"], "layers.w_down": params["layers"]["w_down"],
+              "lm_head": params["lm_head"], "tok_embedding": params["tok_embedding"],
+              "layers.attn_norm": params["layers"]["attn_norm"]}
+    before = {k: leaf_checksum(torch, v) for k, v in leaves.items()}
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     [params["tok_embedding"], params["lm_head"], params["norm"],
+                      *params["layers"].values()]) / 1e9
+    cfg = split.cfg  # rope_split: the engine's permuted weights and tables
+    lora = init_lora(args, rank=16, alpha=32.0, targets=DEFAULT_TARGETS, seed=0,
+                     device="cuda")
+    scale = lora["alpha"] / lora["rank"]
+    ly = lora["layers"]
+    opt, st = init_optimizer(ly, learning_rate=1e-3)
+    step = make_lora_train_step(opt, cfg, scale, remat=True)
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    reset_counters()
+    losses, times = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        ly, st, loss = step(ly, st, params, batches[i % 2], split.cos, split.sin)
+        losses.append(float(loss))  # syncs
+        times.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        after0 = float(lora_loss(ly, params, batches[0], split.cos, split.sin, cfg, scale))
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated()
+    after = {k: leaf_checksum(torch, v) for k, v in leaves.items()}
+    import math
+    if not all(math.isfinite(x) for x in losses + [after0]):
+        raise AssertionError(f"8B LoRA losses not finite: {losses} {after0}")
+    if not after0 < losses[0]:
+        raise AssertionError(f"8B LoRA: batch 0's loss {after0} after {steps} steps is not "
+                             f"below step 0's {losses[0]}")
+    if after != before:
+        raise AssertionError("8B LoRA: the frozen base changed")
+    if any(counts.values()):
+        raise AssertionError(f"8B LoRA training launched kernels: {counts}")
+    step_ms = 1e3 * sum(times[1:]) / (steps - 1)
+    emit({"phase": "e2e", "model": "llama3-8b", "path": "lora-train", "dtype": "bfloat16",
+          "targets": list(DEFAULT_TARGETS), "rank": 16, "alpha": 32.0, "lr": 1e-3,
+          "remat": True, "batch": 1, "seq_len": L, "steps": steps, "shard_tokens": n_tok,
+          "losses": losses, "loss_batch0_after": after0,
+          "adapter_params": sum(v.numel() for v in ly.values()),
+          "ms_per_step": step_ms, "first_step_ms": 1e3 * times[0],
+          "tokens_per_s": L / (step_ms / 1e3),
+          "peak_memory_gb": peak / 1e9, "resident_before_gb": base_alloc / 1e9,
+          "training_peak_gb": (peak - base_alloc) / 1e9, "base_weights_gb": weights_gb,
+          "base_checksums_equal": len(before), "launches": counts, "card": card})
+    del opt, st, ly, lora
+    torch.cuda.empty_cache()
+
+
+def perplexity_phase(torch, smoke, eng, card, batch: int = 8):
+    """(c) llama3-8b perplexity in bf16: `Scorer` over the loaded fused
+    engine (its forward runs `flash_prefill`, once a layer a batch), 16
+    seeded sequences of 17-1000 tokens, batch 8.  Gates: each batch's
+    per-token log-probabilities against the plain twin's on the same
+    padded batch, and each sequence's log-probabilities scored alone at
+    its own length (no padding) against the batched ones, within
+    2 x E8B_ENVELOPE x max(1, max |logits|) (a log-probability is a logit
+    less a log-sum-exp, each within the bf16 envelope of
+    tests/test_dtype.py); the launch counts.  Reports scored tokens/s of
+    the kernel path and the plain path.  Returns the launch count."""
+    import numpy as np
+
+    from llama3np_tpu_torch.eval import Scorer
+
+    args = eng.args
+    shape = (args.n_heads, args.kv_heads, args.head_dim)
+    for L in (8, 16):  # the Scorer's smallest buckets, at its batch of 8
+        smoke.flash_phase("llama3-8b", batch, L, *shape, dtype=torch.bfloat16)
+    rng = np.random.default_rng(7)
+    lens = rng.integers(17, 1001, size=16)
+    lens[:2] = (17, 1000)
+    seqs = [[1] + rng.integers(3, args.vocab_size, size=int(n) - 1).tolist() for n in lens]
+    twin = plain_twin(eng)
+    # The limit: the plain path's largest logit at a prompt's last position.
+    logits = torch.from_numpy(twin(np.asarray([seqs[1][:64]]), 0))
+    limit = 2 * E8B_ENVELOPE * max(1.0, logits.abs().max().item())
+    sc, ptw = Scorer(eng, batch_size=batch), Scorer(twin, batch_size=batch)
+    sc.score(seqs[:batch])  # warm
+    torch.cuda.synchronize()
+    reset_counters()  # the main path: scoring through flash prefill
+    t0 = time.perf_counter()
+    nll, cnt = sc.score(seqs)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    n_batches = -(-len(seqs) // batch)
+    if counts != {"flash_prefill": args.n_layers * n_batches, "decode_layers": 0,
+                  "paged_attention": 0, "argmax_head": 0}:
+        raise AssertionError(f"perplexity launch counts {counts}")
+    t0 = time.perf_counter()
+    pnll, pcnt = ptw.score(seqs)
+    plain_wall = time.perf_counter() - t0
+    # Per-token log-probabilities of each padded batch, kernels against the
+    # plain twin; and each sequence alone at its own length.
+    order = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))
+    err_twin = err_alone = 0.0
+    for start in range(0, len(order), batch):
+        idxs = order[start : start + batch]
+        Lb = sc._bucket(max(len(seqs[i]) for i in idxs))
+        ids = torch.zeros((batch, Lb), dtype=torch.long)
+        for j, i in enumerate(idxs):
+            ids[j, : len(seqs[i])] = torch.tensor(seqs[i])
+        ids = ids.to("cuda")
+        lp, plp = sc._score_impl(ids), ptw._score_impl(ids)
+        for j, i in enumerate(idxs):
+            n = len(seqs[i]) - 1
+            err_twin = max(err_twin, (lp[j, :n] - plp[j, :n]).abs().max().item())
+            alone = sc._score_impl(torch.tensor([seqs[i]], device="cuda"))[0]
+            err_alone = max(err_alone, (lp[j, :n] - alone).abs().max().item())
+    if not (err_twin < limit and err_alone < limit) or not np.isfinite(nll).all() or \
+            list(cnt) != list(pcnt):
+        raise AssertionError(f"perplexity: per-token err vs plain {err_twin}, padded vs "
+                             f"alone {err_alone}, limit {limit}")
+    tokens = int(cnt.sum())
+    emit({"phase": "e2e", "model": "llama3-8b", "path": "perplexity", "dtype": "bfloat16",
+          "sequences": len(seqs), "batch": batch, "lens": [int(x) for x in lens],
+          "scored_tokens": tokens, "ppl": float(np.exp(nll.sum() / tokens)),
+          "ppl_plain": float(np.exp(pnll.sum() / tokens)),
+          "lp_max_abs_err_vs_plain": err_twin, "lp_max_abs_err_padded_vs_alone": err_alone,
+          "lp_limit": limit, "wall_s": wall, "scored_tok_s": tokens / wall,
+          "plain_scored_tok_s": tokens / plain_wall, "launches": counts, "card": card})
+    return counts["flash_prefill"]
+
+
+def train_tree(torch, weights, args, device):
+    """The training layout (`train.forward_train`): the split float32 tree
+    with interleaved RoPE, on `device`, with its config and tables."""
+    from llama3np_tpu_torch.checkpoint import build_param_tree, params_to_device
+    from llama3np_tpu_torch.models.llama import StaticConfig
+    from llama3np_tpu_torch.ops.core import rope_tables
+
+    params = params_to_device(build_param_tree(weights, args), device, "float32")
+    if torch.device(device).type == "cpu":  # own copies: a step trains them in place
+        params = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v.clone())
+                  for k, v in params.items()}
+    cfg = StaticConfig.from_args(args, device)._replace(fused=False, rope_split=False)
+    cos, sin = rope_tables(args.head_dim, args.max_seq_len, args.rope_theta, device=device)
+    return params, cfg, cos, sin
+
+
+def full_train_phase(torch, weights, args, vocab, card, B: int = 4, L: int = 256,
+                     steps: int = 8):
+    """(d) tinyllama-1.1b full-model training in float32 (TF32 off) at full
+    width and depth: `pack_documents` over the synthetic vocabulary, a
+    `TokenDataset`, `prefetch_to_device` onto the card, `make_train_step`
+    (AdamW, lr 1e-3), B=4, L=256, 8 steps.  Gates: step 0's loss equals
+    `next_token_loss` of its batch (rtol 2e-4 / atol 1e-4), the loss falls,
+    every gradient finite, no kernel launched.  Reports ms a step,
+    tokens/s, peak device memory (parameters, gradients and both moments:
+    16 bytes a parameter)."""
+    import math
+
+    from llama3np_tpu_torch.data import prefetch_to_device
+    from llama3np_tpu_torch.train import init_optimizer, make_train_step, next_token_loss
+
+    ds, n_tok = shard_batches(torch, os.path.join(REPO, "build", "smoke", "tiny.bin"),
+                              vocab, docs=8, chars=3000, seed=9)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    params, cfg, cos, sin = train_tree(torch, weights, args, "cuda")
+    n_params = sum(p.numel() for p in [params["tok_embedding"], params["norm"],
+                                       params["lm_head"], *params["layers"].values()])
+    opt, st = init_optimizer(params, learning_rate=1e-3)
+    step = make_train_step(opt, cfg)
+    losses, times, first_check = [], [], None
+    reset_counters()
+    it = prefetch_to_device(ds.batches(B, L, seed=0, epochs=None), size=2, device="cuda")
+    for i, batch in zip(range(steps), it):
+        if i == 0:
+            with torch.no_grad():
+                first_check = float(next_token_loss(params, batch, cos, sin, cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, st, loss = step(params, st, batch, cos, sin)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+        if not all(bool(torch.isfinite(p.grad).all()) for g in opt.param_groups
+                   for p in g["params"]):
+            raise AssertionError(f"tinyllama training: a gradient is not finite at step {i}")
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated()
+    if abs(losses[0] - first_check) > 1e-4 + 2e-4 * abs(first_check):
+        raise AssertionError(f"tinyllama step 0 loss {losses[0]} vs next_token_loss "
+                             f"{first_check}")
+    if not (all(math.isfinite(x) for x in losses) and
+            sum(losses[-2:]) / 2 < losses[0] - 0.1):
+        raise AssertionError(f"tinyllama training loss does not fall: {losses}")
+    if any(counts.values()):
+        raise AssertionError(f"tinyllama training launched kernels: {counts}")
+    step_ms = 1e3 * sum(times[1:]) / (steps - 1)
+    emit({"phase": "e2e", "model": "tinyllama-1.1b", "path": "train", "dtype": "float32",
+          "tf32": torch.backends.cuda.matmul.allow_tf32, "batch": B, "seq_len": L,
+          "steps": steps, "lr": 1e-3, "shard_tokens": n_tok, "losses": losses,
+          "step0_vs_next_token_loss": abs(losses[0] - first_check),
+          "params": n_params, "ms_per_step": step_ms, "first_step_ms": 1e3 * times[0],
+          "tokens_per_s": B * L / (step_ms / 1e3), "peak_memory_gb": peak / 1e9,
+          "resident_before_gb": resident / 1e9, "launches": counts, "card": card})
+    del opt, st, params
+    torch.cuda.empty_cache()
+
+
+def train_card_vs_cpu_phase(torch, weights, args, card, steps: int = 3, lr: float = 1e-3):
+    """Three `make_train_step` steps of stories15M in float32 on the card
+    and on the CPU, on the same seeded batches.  The losses of every step
+    and the gradients of every step agree to rtol 2e-4 / atol 1e-4; at
+    step 0 (the same parameters on both sides) each leaf's gradient also
+    agrees normwise within 1e-4 (float32 sums in another order; TF32
+    would leave ~1e-3).  The parameters after the steps agree to rtol 2e-4 /
+    atol 1e-4, except where AdamW's update follows rounding noise: its
+    first update of an element is lr * g / (|g| + 1e-8), about a sign, and
+    where g is what is left of a cancelling sum the two devices disagree on
+    it beyond its first digit (|g_card - g_cpu| > 0.1 |g_cpu| at some
+    step), so the update may go either way.  Those elements are counted and
+    held to the most AdamW can move them apart: 2 lr a step."""
+    import numpy as np
+
+    from llama3np_tpu_torch.train import init_optimizer, make_train_step, tree_leaves
+
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(3, args.vocab_size, size=(2, 65)) for _ in range(steps)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params, cfg, cos, sin = train_tree(torch, weights, args, dev)
+        opt, st = init_optimizer(params, learning_rate=lr)
+        step = make_train_step(opt, cfg)
+        losses, grads = [], []
+        for b in batches:
+            params, st, loss = step(params, st, torch.as_tensor(b, device=dev), cos, sin)
+            losses.append(float(loss))
+            grads.append([p.grad.detach().cpu().clone() for p in tree_leaves(params)])
+        out[dev] = losses, grads, [p.detach().cpu() for p in tree_leaves(params)]
+    compare(torch, torch.tensor(out["cuda"][0]), torch.tensor(out["cpu"][0]), 2e-4, 1e-4,
+            "stories15M card vs CPU losses")
+    grad_err, grad_norm_err = 0.0, [0.0] * steps
+    for s in range(steps):
+        for a, b in zip(out["cuda"][1][s], out["cpu"][1][s]):
+            grad_err = max(grad_err, compare(torch, a, b, 2e-4, 1e-4,
+                                             "stories15M card vs CPU gradients")[0])
+            grad_norm_err[s] = max(grad_norm_err[s], ((a - b).norm() / b.norm()).item())
+    if not grad_norm_err[0] < 1e-4:
+        raise AssertionError(f"stories15M card vs CPU step-0 gradients: normwise "
+                             f"{grad_norm_err[0]}")
+    noisy, worst, worst_noisy = 0, 0.0, 0.0
+    for i, (a, b) in enumerate(zip(out["cuda"][2], out["cpu"][2])):
+        mask = torch.zeros_like(b, dtype=torch.bool)
+        for s in range(steps):
+            g = out["cpu"][1][s][i]
+            mask |= (out["cuda"][1][s][i] - g).abs() > 0.1 * g.abs()
+        noisy += int(mask.sum())
+        worst = max(worst, compare(torch, a[~mask], b[~mask], 2e-4, 1e-4,
+                                   "stories15M card vs CPU params")[0])
+        if mask.any():
+            worst_noisy = max(worst_noisy, (a[mask] - b[mask]).abs().max().item())
+    if not worst_noisy <= 2 * lr * steps * (1 + 1e-4):
+        raise AssertionError(f"stories15M card vs CPU: {noisy} noise-bound elements, max "
+                             f"abs err there {worst_noisy}, past 2 lr a step")
+    emit({"phase": "train-card-vs-cpu", "model": "stories15M", "steps": steps, "lr": lr,
+          "losses_card": out["cuda"][0], "losses_cpu": out["cpu"][0],
+          "grads_max_abs_err": grad_err, "grads_normwise_err_by_step": grad_norm_err,
+          "params_max_abs_err": worst, "params": sum(p.numel() for p in out["cpu"][2]),
+          "noise_bound_elements": noisy, "noise_bound_max_abs_err": worst_noisy,
+          "tol": {"rtol": 2e-4, "atol": 1e-4, "step0_grads_normwise": 1e-4}, "card": card})
+
+
 def synthetic_vocab(path: str, size: int, seed: int = 0):
     """A tokenizer model of `size` entries made from a seed: the markers,
     printable ASCII, then random merges of letters and spaces."""
@@ -2909,6 +3410,11 @@ def main() -> int:
 
     # ---- tinyllama-1.1b in float16, and int8 weights under float16 ----------
     h_rows, h_paths = fp16_phases(torch, smoke, t_args, t_weights, prompt, workload, card)
+
+    # ---- training (A8): tinyllama-1.1b in float32 from a token shard, and
+    # stories15M's steps on the card against the CPU --------------------------
+    full_train_phase(torch, t_weights, t_args, vocab, card)
+    train_card_vs_cpu_phase(torch, s_weights, s_args, card)
     del t_weights  # host memory for the 8B staging
     import gc
     gc.collect()
@@ -2916,6 +3422,21 @@ def main() -> int:
     # ---- llama3-8b in bf16 at full width and depth -------------------------
     b_rows, b_paths, b_eng, b_limit = llama3_8b_phases(torch, smoke, card)
     gc.collect()
+
+    # ---- llama3-8b multi-LoRA serving, LoRA fine-tuning and perplexity (A7,
+    # A8), on the loaded bf16 engine before the int8 engine loads -------------
+    split, ml_counts = multilora_phase(torch, b_eng, b_limit, card)
+    vocab128k = synthetic_vocab(os.path.join(REPO, "build", "smoke", "vocab128k.json"),
+                                b_eng.args.vocab_size)
+    lora_train_phase(torch, split, vocab128k, card)
+    del split
+    ppl_flash = perplexity_phase(torch, smoke, b_eng, card)
+    for run, counts in ml_counts.items():
+        for name in ("flash_prefill", "paged_attention"):
+            b_paths[name][run] = counts[name]
+    b_paths["flash_prefill"]["perplexity"] = ppl_flash
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- llama3-8b with int8 weights under bf16 activations, and speculation
     # with the bf16 engine as target and the int8 engine as its draft --------

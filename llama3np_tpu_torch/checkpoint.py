@@ -215,6 +215,25 @@ def fuse_param_tree(params: Dict) -> Dict:
     return {**params, "layers": fused}
 
 
+def unfuse_param_tree(params: Dict, args: ModelArgs) -> Dict:
+    """The split tree of a fused float tree, as views of its tensors:
+    wq|wk|wv and w_gate|w_up are column slices of wqkv and wgu (which
+    `fuse_param_tree` concatenates), the norms [NL, D].  No weight is
+    copied, so an engine of the split layout can share a loaded fused
+    engine's weights (multi-LoRA serving needs the split layout)."""
+    ly = params["layers"]
+    if "wqkv" not in ly or "wqkv_scale" in ly:
+        raise ValueError("unfuse_param_tree takes a fused float tree")
+    qd, kvd = args.n_heads * args.head_dim, args.kv_heads * args.head_dim
+    fd = args.hidden_dim
+    wqkv, wgu = ly["wqkv"], ly["wgu"]
+    split = {"wq": wqkv[..., :qd], "wk": wqkv[..., qd : qd + kvd],
+             "wv": wqkv[..., qd + kvd :], "wo": ly["wo"],
+             "w_gate": wgu[..., :fd], "w_up": wgu[..., fd:], "w_down": ly["w_down"],
+             "attn_norm": ly["attn_norm"][:, 0], "ffn_norm": ly["ffn_norm"][:, 0]}
+    return {**params, "layers": split}
+
+
 def pack_int4(w) -> torch.Tensor:
     """int4 codes [..., n] (an int8 tensor or array) -> torch.uint8 [...,
     ceil(n / 2)], two a byte along the last axis: value 2j in the low

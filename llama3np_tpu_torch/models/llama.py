@@ -12,7 +12,10 @@ fused decode kernel (`generate.kernel_decode_steps`).
 The serving path's ragged decode (`forward_ragged_decode`: every batch row
 at its own position, over the dense cache or the page pool) and its quantum
 loop (`ragged_decode_steps`) are here too; on the card a paged step runs
-the paged-attention kernel once per layer.
+the paged-attention kernel once per layer.  Multi-LoRA serving (the split
+layout): an admission prefills through its request's adapter
+(`forward_hidden(lora=)`), and a ragged step adds each row's low-rank
+deltas from the adapter bank (`gather_lora_rows`).
 
 int8 weights (`quant="int8"`) ride the same tree with `*_scale` leaves
 beside the int8 payloads: every consumer post-scales its product.  int4
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 from ..checkpoint import (build_param_tree, fuse_param_tree,
                           load_parameters, load_quantized_npz,
                           params_to_device, permute_rope_layout,
-                          quantize_param_tree)
+                          quantize_param_tree, unfuse_param_tree)
 from ..config import ModelArgs
 from .. import prng
 from ..kvcache import init_cache
@@ -117,14 +120,45 @@ def _qkv(x: torch.Tensor, lp: Dict, cfg: "StaticConfig"):
     return _split_qkv(x, lp, cfg)
 
 
+def _lora_delta(x: torch.Tensor, ll: Dict, t: str, scale) -> Optional[torch.Tensor]:
+    """Low-rank serving delta scale * (x@A)@B in f32 for ONE layer's
+    factors, the rank-r product's input rounded to x's dtype; None when `t`
+    is not an adapted target.  ll[f"{t}_a"] [in, r] / ll[f"{t}_b"] [r, out]
+    are one adapter's (an admission), or [B, in, r] / [B, r, out] each row's
+    own against x [B, 1, in] (a ragged step)."""
+    if f"{t}_a" not in ll:
+        return None
+    u = ops._dot(x, ll[f"{t}_a"])
+    return scale * ops._dot(u.to(x.dtype), ll[f"{t}_b"])
+
+
+def _add_qkv_deltas(q, k, v, x, delta):
+    """q/k/v (already rounded to the activation dtype) plus each adapted
+    target's delta `delta(t, x)`, rounded to q's dtype before the add, as
+    the JAX serving paths add it."""
+    out = []
+    for t, y in (("wq", q), ("wk", k), ("wv", v)):
+        d = delta(t, x)
+        out.append(y if d is None else y + d.to(y.dtype).reshape(y.shape))
+    return out
+
+
 def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
                 h: torch.Tensor, lp: Dict, ck: torch.Tensor,
-                cv: torch.Tensor) -> torch.Tensor:
+                cv: torch.Tensor, ll: Optional[Dict] = None,
+                lora_scale: float = 1.0) -> torch.Tensor:
     """One transformer block.  h: [B, L, D]; ck/cv: this layer's cache
-    [B, KVH, M, HD], written at pos..pos+L-1 in place."""
+    [B, KVH, M, HD], written at pos..pos+L-1 in place.  ll: one layer's
+    single-adapter LoRA slices (a serving admission prefills its request
+    through its adapter)."""
     L = h.shape[1]
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
     q, k, v = _qkv(x, lp, cfg)
+    lora_cb = None
+    if ll is not None:
+        def lora_cb(t, xin):
+            return _lora_delta(xin, ll, t, lora_scale)
+        q, k, v = _add_qkv_deltas(q, k, v, x, lora_cb)
     rope = ops.apply_rope_split if cfg.rope_split else ops.apply_rope
     q = rope(q, cos, sin)
     k = rope(k, cos, sin)
@@ -147,27 +181,31 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
             q, ck.transpose(1, 2), cv.transpose(1, 2), pos, cfg.kv_block)
     else:
         attn = ops.cache_attention(q, ck, cv, pos)
-    h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
+    h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale"),
+                             lora=lora_cb).to(h.dtype)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    return h + _ffn(z, lp, cfg)
+    return h + _ffn(z, lp, cfg, lora_cb)
 
 
-def _ffn(z: torch.Tensor, lp: Dict, cfg: StaticConfig) -> torch.Tensor:
+def _ffn(z: torch.Tensor, lp: Dict, cfg: StaticConfig, lora=None) -> torch.Tensor:
     if cfg.fused:
         return ops.fused_ffn(z, lp["wgu"], lp["w_down"], lp.get("wgu_scale"),
                              lp.get("w_down_scale"))
     return ops.swiglu(z, lp["w_gate"], lp["w_up"], lp["w_down"],
                       lp.get("w_gate_scale"), lp.get("w_up_scale"),
-                      lp.get("w_down_scale"))
+                      lp.get("w_down_scale"), lora=lora)
 
 
 def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
                    cache: Dict, cos, sin, cfg: StaticConfig,
-                   first_chunk: bool):
+                   first_chunk: bool, lora: Optional[Dict] = None):
     """Embed -> N blocks -> pre-norm hidden states.
 
     input_ids: [B, L] int64; pos: host int.  Returns (h [B, L, D], cache),
-    the cache updated in place.
+    the cache updated in place.  lora: an optional SINGLE-adapter tree
+    {"layers": {t_a: [NL, in, r], t_b: [NL, r, out]}, "scale": alpha/r}
+    (`lora.bank_adapter_slice`): a serving admission prefills its request
+    through its adapter.
     """
     L = input_ids.shape[1]
     h = embed_tokens(params, input_ids)
@@ -175,8 +213,10 @@ def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
     layers = params["layers"]
     for i in range(layers["wo"].shape[0]):
         lp = {name: w[i] for name, w in layers.items()}
+        ll = None if lora is None else {n: w[i] for n, w in lora["layers"].items()}
         h = _layer_step(cfg, first_chunk, pos, cos_l, sin_l, h, lp,
-                        cache["k"][i], cache["v"][i])
+                        cache["k"][i], cache["v"][i], ll=ll,
+                        lora_scale=1.0 if lora is None else lora["scale"])
     return h, cache
 
 
@@ -194,10 +234,12 @@ def forward(params: Dict, input_ids: torch.Tensor, pos: int, cache: Dict,
 # Ragged (per-row position) decode: the serving path
 # ---------------------------------------------------------------------------
 
-def _refuse_unported(lora=None, adapter_ids=None, lora_rows=None):
-    if lora is not None or adapter_ids is not None or lora_rows is not None:
-        raise NotImplementedError("multi-LoRA serving is still to port "
-                                  "(ROADMAP A7)")
+def gather_lora_rows(lora_layers: Dict, adapter_ids: torch.Tensor) -> Dict:
+    """Per-row adapter factors: {t: [NL, NA, ...]} gathered by adapter_ids
+    [B] -> {t: [NL, B, ...]}.  The quantum loop gathers them once a
+    dispatch (adapter assignments are frozen for it)."""
+    ids = adapter_ids.long()
+    return {name: bank[:, ids] for name, bank in lora_layers.items()}
 
 
 def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
@@ -233,10 +275,18 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     On the card (`cfg.kernels`) paged attention runs the CUDA kernel, once
     per layer, which reads the scale pools through the block table itself;
     otherwise the gather form (`ops.paged_attention_stacked`).  Dense
-    attention is plain in both packages.  LoRA (`lora`, `adapter_ids`,
-    `lora_rows`, ROADMAP A7) is still to port and raises.
+    attention is plain in both packages.
+
+    Multi-LoRA serving: `lora` is the engine's adapter bank ({"layers":
+    {t_a: [NL, NA, in, r], t_b: [NL, NA, r, out]}, "scale": alpha/r}, bank
+    slot 0 the zero adapter) and adapter_ids [B] picks each row's adapter;
+    `lora_rows` is their per-row gather (`gather_lora_rows`), which the
+    quantum loop makes once and which is made here when absent.  The
+    deltas add to q/k/v after their rounding, and to wo and the FFN's
+    products before it, as in the JAX package.
     """
-    _refuse_unported(lora, adapter_ids, lora_rows)
+    if lora is not None and lora_rows is None:
+        lora_rows = gather_lora_rows(lora["layers"], adapter_ids)
     if pos0 is None:
         pos0 = pos
     quant = "k_s" in cache
@@ -268,6 +318,13 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
         lp = {name: w[li] for name, w in layers.items()}
         x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _qkv(x, lp, cfg)
+        lora_cb = None
+        if lora_rows is not None:
+            ll = {name: rows[li] for name, rows in lora_rows.items()}  # [B, ...]
+
+            def lora_cb(t, xin, ll=ll):
+                return _lora_delta(xin, ll, t, lora["scale"])
+            q, k, v = _add_qkv_deltas(q, k, v, x, lora_cb)
         q = rope_rows(q)
         k = rope_rows(k)
         if quant:
@@ -300,9 +357,10 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
                 q, kc_all[li], vc_all[li], pos0,
                 k_scale=None if ks_all is None else ks_all[li],
                 v_scale=None if vs_all is None else vs_all[li], **cols)
-        h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale")).to(h.dtype)
+        h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale"),
+                                 lora=lora_cb).to(h.dtype)
         z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-        h = h + _ffn(z, lp, cfg)
+        h = h + _ffn(z, lp, cfg, lora_cb)
         new_rows.append(cur)
     rows = tuple(torch.stack(r) for r in zip(*new_rows))  # [NL, B, KVH, ...]
     logits = lm_logits(params, ops.rms_norm(h[:, -1, :], params["norm"],
@@ -368,11 +426,14 @@ def commit_window(cache: Dict, win: Dict, pos0: torch.Tensor, block_table,
 
 def _ragged_quantum(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
                     cache: Dict, cos, sin, cfg: StaticConfig, num_steps: int,
-                    block_table, num_logprobs: Optional[int], pick):
+                    block_table, num_logprobs: Optional[int], pick, lora=None,
+                    adapter_ids=None):
     """The quantum loop of `ragged_decode_steps` and
     `sampled_ragged_decode_steps`; `pick(logits, s)` chooses step s's
-    tokens [B]."""
+    tokens [B].  The adapter rows are gathered once for the quantum."""
     pos0 = pos
+    lora_rows = (None if lora is None
+                 else gather_lora_rows(lora["layers"], adapter_ids))
     scale_rows = None
     if block_table is not None and "k_s" in cache and not cfg.kernels:
         scale_rows = (ops.gather_page_scales_all(cache["k_s"], block_table),
@@ -383,7 +444,7 @@ def _ragged_quantum(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
         logits, rows = forward_ragged_decode(
             params, tok, pos0 + s, cache, cos, sin, cfg, block_table,
             pos0=pos0, win=win, win_count=s, commit=False,
-            scale_rows=scale_rows)
+            scale_rows=scale_rows, lora=lora, lora_rows=lora_rows)
         insert_window_rows(win, rows, s)
         tok = pick(logits, s)
         toks.append(tok)
@@ -413,11 +474,13 @@ def ragged_decode_steps(params: Dict, tokens: torch.Tensor, pos: torch.Tensor,
     num_steps], cache); with num_logprobs=k, (tokens, (chosen_lp [B, n],
     top_ids [B, n, k], top_lps [B, n, k]), cache).  Paged mode requires
     the block tables to cover positions pos .. pos + num_steps - 1.
+    `lora`/`adapter_ids`: the adapter bank and each row's bank slot
+    (`forward_ragged_decode`).
     """
-    _refuse_unported(lora, adapter_ids)
     return _ragged_quantum(params, tokens, pos, cache, cos, sin, cfg,
                            num_steps, block_table, num_logprobs,
-                           lambda logits, s: torch.argmax(logits, dim=-1))
+                           lambda logits, s: torch.argmax(logits, dim=-1),
+                           lora, adapter_ids)
 
 
 def fold_row_keys(base_key, rids, ctrs) -> np.ndarray:
@@ -479,17 +542,20 @@ def sampled_ragged_decode_steps(params: Dict, tokens: torch.Tensor,
                                 cfg: StaticConfig, num_steps: int,
                                 top_k: int = 0, top_p: float = 1.0,
                                 block_table=None,
-                                num_logprobs: Optional[int] = None):
+                                num_logprobs: Optional[int] = None,
+                                lora=None, adapter_ids=None):
     """`ragged_decode_steps` with per-row sampling (temps[b] == 0 keeps
     row b greedy): step s draws row b under keys[b, s] ([B, num_steps, 2]
     on the cache's device; the JAX package's fold_row_keys(base_key,
     rids[b], ctrs[b] + s), `fold_row_keys` made on the host for the whole
     quantum).  Log-probabilities, when asked for, are of the drawn token
-    under the raw (untempered) distribution."""
+    under the raw (untempered) distribution.  `lora`/`adapter_ids` as in
+    `ragged_decode_steps`."""
     return _ragged_quantum(
         params, tokens, pos, cache, cos, sin, cfg, num_steps, block_table,
         num_logprobs,
-        lambda logits, s: sample_rows(logits, keys[:, s], temps, top_k, top_p))
+        lambda logits, s: sample_rows(logits, keys[:, s], temps, top_k, top_p),
+        lora, adapter_ids)
 
 
 def resolve_device(device) -> torch.device:
@@ -629,6 +695,21 @@ class Llama:
         self._gen = None  # built lazily by the generate paths
         self._last_pos = None     # the last generation's state, for
         self._last_tokens = None  # save_generation_state
+
+    def split_view(self) -> "Llama":
+        """An engine of the split layout (`fuse_matmuls=False`) over this
+        fused float engine's weights, sharing them
+        (`checkpoint.unfuse_param_tree`: views, no copy): multi-LoRA
+        serving over an engine already loaded fused.  Its prefill and
+        serving run the same kernels; its batch-1 decode the plain forward,
+        as any split engine's."""
+        import copy
+        twin = copy.copy(self)
+        twin.args = self.args.replace(fuse_matmuls=False)
+        twin.cfg = self.cfg._replace(fused=False)
+        twin.params = unfuse_param_tree(self.params, self.args)
+        twin._gen = None
+        return twin
 
     # -- cache --------------------------------------------------------------
 

@@ -58,12 +58,36 @@ def _dot(a: torch.Tensor, b: torch.Tensor, n: Optional[int] = None) -> torch.Ten
     """a @ b accumulated and returned in float32 (the JAX package's
     `preferred_element_type=jnp.float32`).  A packed int4 `b` (torch.uint8,
     `checkpoint.pack_int4`, n output columns) is unpacked straight to f32
-    first (exact), as XLA computed the int4 product."""
+    first (exact), as XLA computed the int4 product.  Under autograd, a
+    frozen 16-bit or integer `b` goes through `_FrozenDot`, which keeps `b`
+    itself for the backward instead of its float32 copy."""
+    if (a.requires_grad and not b.requires_grad and b.dtype != torch.float32
+            and torch.is_grad_enabled()):
+        return _FrozenDot.apply(a, b, n)
     if b.dtype == torch.uint8:
         b = unpack_int4(b, n, torch.float32)
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.matmul(a, b)
     return torch.matmul(a.float(), b.float())
+
+
+class _FrozenDot(torch.autograd.Function):
+    """`_dot` of a trained input and a frozen weight (LoRA's base): the
+    weight is widened again in the backward, so a 16-bit base keeps no
+    float32 copy of itself alive between the passes (~32 GB at 8B)."""
+
+    @staticmethod
+    def forward(ctx, a, b, n):
+        ctx.save_for_backward(b)
+        ctx.n, ctx.a_dtype = n, a.dtype
+        with torch.no_grad():
+            return _dot(a, b, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        (b,) = ctx.saved_tensors
+        w = unpack_int4(b, ctx.n, torch.float32) if b.dtype == torch.uint8 else b.float()
+        return torch.matmul(g, w.transpose(-1, -2)).to(ctx.a_dtype), None, None
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -84,13 +108,25 @@ def _scaled_dot(a: torch.Tensor, w: torch.Tensor, s=None) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, s_gate=None, s_up=None,
-           s_down=None) -> torch.Tensor:
+           s_down=None, lora=None) -> torch.Tensor:
     """SwiGLU FFN on split weights: down( silu(x@gate) * (x@up) ).  int8
-    weights pass their scales; gate's applies before the SiLU."""
+    weights pass their scales; gate's applies before the SiLU.
+
+    `lora`: optional callback (target name, input) -> f32 delta or None:
+    a serving adapter's delta adds after the scale and before the SiLU or
+    the cast (multi-LoRA serving, models/llama.py)."""
     gate = _scaled_dot(x, w_gate, s_gate)
     up = _scaled_dot(x, w_up, s_up)
+    if lora is not None:
+        dg, du = lora("w_gate", x), lora("w_up", x)
+        gate = gate if dg is None else gate + dg
+        up = up if du is None else up + du
     h = (F.silu(gate) * up).to(x.dtype)
-    return _scaled_dot(h, w_down, s_down).to(x.dtype)
+    out = _scaled_dot(h, w_down, s_down)
+    if lora is not None:
+        dd = lora("w_down", h)
+        out = out if dd is None else out + dd
+    return out.to(x.dtype)
 
 
 def fused_qkv(x: torch.Tensor, wqkv: torch.Tensor, n_heads: int,
@@ -109,12 +145,16 @@ def fused_qkv(x: torch.Tensor, wqkv: torch.Tensor, n_heads: int,
 
 
 def fused_o_proj(attn: torch.Tensor, wo: torch.Tensor,
-                 scale=None) -> torch.Tensor:
+                 scale=None, lora=None) -> torch.Tensor:
     """Output projection: attn [B, L, NH, HD] with wo [QD, D] (int8 with its
     [1, D] `scale`); returns [B, L, D] in f32 (the caller casts, as in the
-    JAX package)."""
+    JAX package).  `lora`: optional ("wo", input) -> f32 delta callback,
+    added after the scale (split layout only)."""
     B, L = attn.shape[:2]
-    return _scaled_dot(attn.reshape(B, L, -1), wo, scale)
+    flat = attn.reshape(B, L, -1)
+    out = _scaled_dot(flat, wo, scale)
+    d = None if lora is None else lora("wo", flat)
+    return out if d is None else out + d
 
 
 def fused_ffn(z: torch.Tensor, wgu: torch.Tensor, w_down: torch.Tensor,

@@ -113,6 +113,44 @@ def gumbel_scores(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return gumbel(key, logits.shape[key.dim() - 1:]) + logits.float()
 
 
+# XLA's float32 ErfInv: Giles' degree-9 polynomials in w - 2.5 (w < 5)
+# and sqrt(w) - 3 (w >= 5), w = -log1p(-x^2).
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                 0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+                 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                 0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+                 2.83297682)
+
+
+def erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erf_inv of x (float32), +-inf at +-1: each step of
+    the polynomial a fused multiply-add (the product and the sum in
+    float64, one rounding to float32)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):
+        c = torch.tensor([_ERFINV_W_LT5[i], _ERFINV_W_GE5[i]], dtype=torch.float32,
+                         device=x.device)
+        return torch.where(lt, c[0], c[1])
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = (coef(i).double() + p.double() * w).float()
+    return torch.where(x.abs() == 1, x * torch.inf, p * x)
+
+
+_NORMAL_LO = -0.9999999403953552  # nextafter(-1, 0) in float32
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """`jax.random.normal` in float32: [..., *shape] for keys [..., 2]."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return torch.tensor(1.4142135623730951, dtype=torch.float32) * erfinv(u)
+
+
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """`jax.random.categorical` over the last axis (int64 indices); keys as
     in `gumbel_scores`."""

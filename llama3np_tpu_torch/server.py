@@ -35,9 +35,10 @@ Endpoints:
   GET  /metrics          the same counters in Prometheus text exposition.
 
 A disconnected streaming client or a stop-string hit CANCELS the request in
-the engine (BatchEngine.cancel): its slot and pages are freed.  Requests
-naming an "adapter" are refused: multi-LoRA serving is still to port
-(ROADMAP A7).
+the engine (BatchEngine.cancel): its slot and pages are freed.  A request's
+"adapter" (an int index or a name given to `serve(adapter_names=)` /
+`--adapter NAME=PATH`) picks a LoRA adapter of the engine's bank; an
+unknown one is answered 400.
 
 Run:  python -m llama3np_tpu_torch.server --preset test-tiny --synthetic --device cpu
       (on the card: --device cuda, the default)
@@ -57,8 +58,10 @@ _DONE = object()
 
 class _Pending:
     def __init__(self, prompt_ids: List[int], max_tokens: int,
-                 temperature: float, stop_ids, logprobs: Optional[int] = None):
+                 temperature: float, stop_ids, logprobs: Optional[int] = None,
+                 adapter: Optional[int] = None):
         self.prompt_ids = prompt_ids
+        self.adapter = adapter
         self.max_tokens = max_tokens
         self.temperature = temperature
         self.stop_ids = tuple(stop_ids)
@@ -92,9 +95,9 @@ class EngineLoop:
     # -- client side ---------------------------------------------------------
 
     def submit(self, prompt_ids, max_tokens, temperature=0.0,
-               stop_ids=(1, 2), logprobs=None) -> _Pending:
+               stop_ids=(1, 2), logprobs=None, adapter=None) -> _Pending:
         p = _Pending(list(map(int, prompt_ids)), int(max_tokens),
-                     float(temperature), stop_ids, logprobs)
+                     float(temperature), stop_ids, logprobs, adapter)
         self._subs.put(p)
         return p
 
@@ -134,7 +137,8 @@ class EngineLoop:
             req = self.be.submit(p.prompt_ids, max_new_tokens=p.max_tokens,
                                  stop_ids=p.stop_ids,
                                  temperature=p.temperature,
-                                 logprobs=p.logprobs)
+                                 logprobs=p.logprobs,
+                                 adapter=p.adapter)
         except (ValueError, MemoryError) as e:
             p.error = str(e)
             p.out.put(_DONE)
@@ -246,13 +250,23 @@ class CompletionHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
-    def _refuse_adapter(self, body) -> bool:
-        """Answer 400 to a request that names an adapter; True if it did."""
-        if body.get("adapter") is None:
-            return False
-        self._json(400, {"error": "multi-LoRA serving is still to port "
-                                  "(ROADMAP A7)"})
-        return True
+    def _resolve_adapter(self, body):
+        """OpenAI-style multi-model routing: "adapter" (an int index or a
+        registered name) picks a LoRA of the engine's bank; absent, the
+        base model.  Returns (index or None, error or None)."""
+        a = body.get("adapter")
+        if a is None:
+            return None, None
+        names = getattr(self.server, "adapter_names", None) or []
+        if isinstance(a, str):
+            if a not in names:
+                return None, (f"unknown adapter {a!r}; "
+                              f"available: {names or '(none)'}")
+            return names.index(a), None
+        try:
+            return int(a), None
+        except (TypeError, ValueError):
+            return None, "adapter must be an int index or a name"
 
     def _decode(self, ids: List[int]) -> str:
         tok = self.server.tokenizer
@@ -352,7 +366,9 @@ class CompletionHandler(BaseHTTPRequestHandler):
         if stream and n_choices != 1:
             self._json(400, {"error": "stream supports n=1 only"})
             return
-        if self._refuse_adapter(body):
+        adapter, err = self._resolve_adapter(body)
+        if err:
+            self._json(400, {"error": err})
             return
 
         loop = self.server.loop
@@ -360,7 +376,7 @@ class CompletionHandler(BaseHTTPRequestHandler):
         # same batch (each gets its own request id, so sampled streams
         # differ by the per-request PRNG fold; greedy duplicates by design).
         pends = [loop.submit(prompt_ids, max_tokens, temperature, stop_ids,
-                             logprobs) for _ in range(n_choices)]
+                             logprobs, adapter) for _ in range(n_choices)]
         rid = f"cmpl-{int(time.time() * 1e3):x}-{id(pends[0]) & 0xffff:x}"
 
         if stream:
@@ -473,10 +489,13 @@ class CompletionHandler(BaseHTTPRequestHandler):
         if stream and n_choices != 1:
             self._json(400, {"error": "stream supports n=1 only"})
             return
-        if self._refuse_adapter(body):
+        adapter, err = self._resolve_adapter(body)
+        if err:
+            self._json(400, {"error": err})
             return
         loop = self.server.loop
-        pends = [loop.submit(prompt_ids, max_tokens, temperature)
+        pends = [loop.submit(prompt_ids, max_tokens, temperature,
+                             adapter=adapter)
                  for _ in range(n_choices)]
         rid = f"chatcmpl-{int(time.time() * 1e3):x}-{id(pends[0]) & 0xffff:x}"
 
@@ -580,16 +599,19 @@ class CompletionHandler(BaseHTTPRequestHandler):
 def serve(batch_engine, tokenizer=None, host: str = "127.0.0.1",
           port: int = 8000, quantum: int = 4,
           verbose: bool = False,
-          chat_template: str = "plain") -> ThreadingHTTPServer:
+          chat_template: str = "plain",
+          adapter_names=None) -> ThreadingHTTPServer:
     """Start the HTTP front end; returns the (running) server.  The caller
     owns shutdown: ``srv.shutdown(); srv.loop.shutdown();
-    srv.server_close()``."""
+    srv.server_close()``.  adapter_names[i] names the engine's adapter i
+    for requests' "adapter"."""
     loop = EngineLoop(batch_engine, quantum=quantum)
     srv = ThreadingHTTPServer((host, port), CompletionHandler)
     srv.loop = loop
     srv.tokenizer = tokenizer
     srv.verbose = verbose
     srv.chat_template = chat_template
+    srv.adapter_names = list(adapter_names or [])
     t = threading.Thread(target=srv.serve_forever, daemon=True,
                          name="llama3np-torch-http")
     srv._serve_thread = t
@@ -626,15 +648,13 @@ def main(argv=None) -> int:
                    help="enable per-token logprobs up to top-K")
     p.add_argument("--adapter", action="append", default=[],
                    metavar="NAME=PATH",
-                   help="serve a LoRA adapter (still to port, ROADMAP A7)")
+                   help="serve a LoRA adapter (save_lora .npz); repeatable "
+                        "- requests pick one with \"adapter\": NAME")
     p.add_argument("--chat-template", default="plain",
                    choices=["plain", "llama2", "chatml"],
                    help="default template for /v1/chat/completions")
     p.add_argument("--verbose", action="store_true")
     args = p.parse_args(argv)
-    if args.adapter:
-        raise NotImplementedError("--adapter: multi-LoRA serving is still to "
-                                  "port (ROADMAP A7)")
 
     from . import Tokenizer, preset, synthetic_weights
     from .models.llama import Llama
@@ -645,19 +665,29 @@ def main(argv=None) -> int:
         overrides["quant"] = args.quant
     if args.dtype:
         overrides["dtype"] = args.dtype
-    if args.quant == "int4":
-        overrides["fuse_matmuls"] = False  # int4 runs the split layout
+    if args.adapter or args.quant == "int4":
+        overrides["fuse_matmuls"] = False  # bank deltas / int4 need split
     margs = preset(args.preset, **overrides)
     source = (synthetic_weights(margs, seed=0) if args.synthetic
               else args.model)
     engine = Llama(source, margs, device=args.device)
+    names, adapters = [], []
+    for spec in args.adapter:
+        name, _, path = spec.partition("=")
+        if not path:
+            raise SystemExit(f"--adapter wants NAME=PATH, got {spec!r}")
+        from .lora import load_lora
+        names.append(name)
+        adapters.append(load_lora(path, device=engine.device))
     be = BatchEngine(engine, capacity=args.capacity, paged=args.paged,
                      page_size=args.page_size, kv_quant=args.kv_quant,
                      admit_chunk=args.admit_chunk,
-                     prefix_cache=args.prefix_cache, logprobs=args.logprobs)
+                     prefix_cache=args.prefix_cache, logprobs=args.logprobs,
+                     adapters=adapters or None)
     tok = None if args.no_tokenizer else Tokenizer(args.tokenizer)
     srv = serve(be, tok, args.host, args.port, quantum=args.quantum,
-                verbose=args.verbose, chat_template=args.chat_template)
+                verbose=args.verbose, chat_template=args.chat_template,
+                adapter_names=names)
     print(f"serving {args.preset} on http://{args.host}:{srv.server_address[1]} "
           f"({engine.device}, capacity {args.capacity}, quantum {args.quantum})",
           flush=True)

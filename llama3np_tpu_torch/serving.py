@@ -41,8 +41,13 @@ the next admission.
     conversations stay registered for the next turn, and cached pages
     evict LRU under pool pressure.
 
-Still to port, each raising NotImplementedError: multi-LoRA (`adapters`,
-ROADMAP A7) and tensor-parallel serving (A9).
+  * Multi-LoRA (`adapters=[...]`, the split layout): a bank of adapters
+    served at once (`lora.stack_adapters`, bank slot 0 the zero adapter);
+    a request picks its adapter at submit(adapter=i), its admission
+    prefills through that adapter, and co-tenant rows decode through
+    different adapters in one ragged step (per-row low-rank deltas).
+
+Still to port, raising NotImplementedError: tensor-parallel serving (A9).
 """
 
 from __future__ import annotations
@@ -88,14 +93,15 @@ def _stored_rows(row, cache):
 
 
 def admission_prefill_dense(params, padded, true_len: int, slot: int, cache,
-                            cos, sin, cfg, row_dtype=None):
+                            cos, sin, cfg, row_dtype=None, lora=None):
     """Prefill one request (padded [1, L'] ids) on a fresh single-row cache
     and copy its K/V into `slot` of the dense serving cache, in place
-    (int8 caches quantize here, the single write point).  Returns
-    (last-position logits [1, VS], cache)."""
+    (int8 caches quantize here, the single write point).  `lora`: the
+    request's single-adapter tree, or None.  Returns (last-position logits
+    [1, VS], cache)."""
     row = _row_cache(cache, cache["k"].shape[3], row_dtype)
     h, row = forward_hidden(params, padded, 0, row, cos, sin, cfg,
-                            first_chunk=True)
+                            first_chunk=True, lora=lora)
     for name, r in _stored_rows(row, cache).items():
         cache[name][:, slot] = r[:, 0]
     return _last_logits(params, h, true_len, cfg)[:, -1, :], cache
@@ -117,12 +123,13 @@ def scatter_row_paged(row, page_idx: torch.Tensor, cache):
 
 def admission_prefill_paged(params, padded, true_len: int,
                             page_idx: torch.Tensor, cache, cos, sin, cfg,
-                            row_dtype=None):
-    """Paged admission: prefill one request and copy its K/V rows into the
-    page pool at `page_idx`.  Returns (logits [1, VS], cache)."""
+                            row_dtype=None, lora=None):
+    """Paged admission: prefill one request (through its adapter `lora`,
+    if any) and copy its K/V rows into the page pool at `page_idx`.
+    Returns (logits [1, VS], cache)."""
     row = _row_cache(cache, page_idx.shape[0] * cache["k"].shape[3], row_dtype)
     h, row = forward_hidden(params, padded, 0, row, cos, sin, cfg,
-                            first_chunk=True)
+                            first_chunk=True, lora=lora)
     logits = _last_logits(params, h, true_len, cfg)
     return logits[:, -1, :], scatter_row_paged(row, page_idx, cache)
 
@@ -151,7 +158,7 @@ def gather_pool_row(cache, idx: torch.Tensor, row_dtype):
 
 
 def prefill_row_chunk(params, chunk_ids, start: int, chunk_len: int, row,
-                      cos, sin, cfg, first_chunk: bool):
+                      cos, sin, cfg, first_chunk: bool, lora=None):
     """One chunk of a chunked admission against the request's row cache.
 
     chunk_ids: [1, A] (a tail chunk padded); start: absolute position of
@@ -159,9 +166,9 @@ def prefill_row_chunk(params, chunk_ids, start: int, chunk_len: int, row,
     (logits at the last real position [1, VS], row).  The first chunk goes
     through flash prefill on the card; later chunks attend the row-cache
     prefix through the model's chunked-prefill path (plain in both
-    packages)."""
+    packages).  `lora`: the request's single-adapter tree, or None."""
     h, row = forward_hidden(params, chunk_ids, start, row, cos, sin, cfg,
-                            first_chunk=first_chunk)
+                            first_chunk=first_chunk, lora=lora)
     return _last_logits(params, h, chunk_len, cfg)[:, -1, :], row
 
 
@@ -176,6 +183,9 @@ class Request:
     done: bool = False
     slot: Optional[int] = None
     admitting: bool = False  # mid chunked-admission: slot reserved, no decode
+    # Multi-LoRA: the BANK index (0 = the base model; submit(adapter=i)
+    # maps to i + 1, bank slot 0 being the zero adapter).
+    adapter: int = 0
     # Per-token log-probabilities (None = not requested; k >= 0 = record the
     # chosen token's logprob plus the top-k alternatives), aligned with
     # `generated` (a popped stop token pops its entries too).
@@ -213,6 +223,11 @@ class BatchEngine:
     with a common prompt prefix and keeps finished conversations for
     follow-up turns (`prefix.PrefixRegistry`); cached pages count as free
     for admission and evict LRU when the pool needs them.
+
+    adapters=[lora trees] (the split layout, `fuse_matmuls=False`) serves
+    those LoRA adapters beside the base model: submit(adapter=i) decodes a
+    request through adapters[i], submit() through none.  It refuses the
+    prefix cache: a prefix's K/V depends on the adapter that prefilled it.
     """
 
     def __init__(self, engine, capacity: int = 8, paged: bool = False,
@@ -239,11 +254,25 @@ class BatchEngine:
         if prefix_cache and not paged:
             # Sharing is block-table indirection; the dense layout has none.
             raise ValueError("prefix_cache requires paged=True")
+        # Multi-LoRA: co-tenant rows decode through different adapters in
+        # one ragged step (per-row low-rank deltas, gather_lora_rows).
+        self.lora_bank = None
         if adapters:
-            # Prefix caching never composes with LoRA either: a prefix's
-            # K/V depends on the adapter that prefilled it.
-            raise NotImplementedError("multi-LoRA serving is still to port "
-                                      "(ROADMAP A7)")
+            if self.cfg.fused:
+                raise ValueError("multi-LoRA serving needs the unfused "
+                                 "split layout (fuse_matmuls=False)")
+            if prefix_cache:
+                # Cross-adapter sharing would serve adapter A's K/V to
+                # adapter B's request.
+                raise ValueError("prefix_cache cannot compose with "
+                                 "multi-LoRA serving (adapter-dependent KV)")
+            from .lora import stack_adapters
+            on_dev = [{**ad, "layers": {k: v.to(self.device) for k, v in ad["layers"].items()}}
+                      for ad in adapters]
+            self.lora_bank = stack_adapters(on_dev, self.args,
+                                            rope_split=self.cfg.rope_split,
+                                            dtype=self.args.dtype)
+        self.adapter_ids = np.zeros(capacity, np.int32)
         if self.args.mesh_tp > 1 or self.args.mesh_dp > 1:
             raise NotImplementedError("sharded serving is still to port "
                                       "(ROADMAP A9)")
@@ -316,10 +345,15 @@ class BatchEngine:
                temperature: float = 0.0, logprobs: Optional[int] = None,
                adapter: Optional[int] = None) -> Request:
         if adapter is not None:
-            raise NotImplementedError("multi-LoRA serving is still to port "
-                                      "(ROADMAP A7)")
+            if self.lora_bank is None:
+                raise ValueError("engine was built without adapters "
+                                 "(BatchEngine(..., adapters=[...]))")
+            n = next(iter(self.lora_bank["layers"].values())).shape[1] - 1
+            if not 0 <= adapter < n:
+                raise ValueError(f"adapter must be in [0, {n})")
         req = Request(next(self._ids), list(prompt_ids), max_new_tokens,
-                      tuple(stop_ids), temperature, logprobs=logprobs)
+                      tuple(stop_ids), temperature, logprobs=logprobs,
+                      adapter=0 if adapter is None else adapter + 1)
         # Validate at submission: a bad request must fail here, not in a
         # later step() when it is admitted from the queue.
         if req.max_new_tokens < 1:
@@ -382,6 +416,14 @@ class BatchEngine:
                 return  # backpressure: admit again once pages free up
             self._prefill_into(slot, self._queue.pop(0))
 
+    def _adm_lora(self, req: Request):
+        """The single-adapter tree of the request's admission prefill (None
+        when the engine has no bank)."""
+        if self.lora_bank is None:
+            return None
+        from .lora import bank_adapter_slice
+        return bank_adapter_slice(self.lora_bank, req.adapter)
+
     def _admit_row(self, slot: int, req: Request, padded, L: int,
                    n_hit: int = 0, shared: Optional[list] = None):
         """Row-cache admission: prefill the prompt in chunks against a row
@@ -420,6 +462,7 @@ class BatchEngine:
         req.admitting = True
         self.slots[slot] = req  # reserve: queued admissions skip this slot
         self.temps[slot] = 0.0
+        self.adapter_ids[slot] = req.adapter
         self.pos[slot] = 0
         M = self.max_pages * page
         row_dt = self._row_dt or self.cache["k"].dtype
@@ -440,7 +483,8 @@ class BatchEngine:
                 cids[0, :clen] = padded[0, start : start + clen]
                 logits0, row = prefill_row_chunk(
                     eng.params, self._dev(cids), start, clen, row, eng.cos,
-                    eng.sin, self.cfg, first_chunk=start == 0)
+                    eng.sin, self.cfg, first_chunk=start == 0,
+                    lora=self._adm_lora(req))
                 start += clen
                 if self.admit_chunk and start < L and any(
                         r is not None and not r.admitting for r in self.slots):
@@ -480,11 +524,11 @@ class BatchEngine:
             idx[:n_needed] = pages
             logits0, self.cache = admission_prefill_paged(
                 eng.params, self._dev(padded), L, self._dev(idx), self.cache,
-                eng.cos, eng.sin, self.cfg, self._row_dt)
+                eng.cos, eng.sin, self.cfg, self._row_dt, lora=self._adm_lora(req))
         else:
             logits0, self.cache = admission_prefill_dense(
                 eng.params, self._dev(padded), L, slot, self.cache, eng.cos,
-                eng.sin, self.cfg, self._row_dt)
+                eng.sin, self.cfg, self._row_dt, lora=self._adm_lora(req))
         if req.temperature > 0:  # token index 0 of the request's stream
             tok0 = self._sample_impl(
                 logits0, np.asarray([req.request_id], np.int32),
@@ -496,6 +540,7 @@ class BatchEngine:
         req.slot = slot
         self.slots[slot] = req
         self.temps[slot] = req.temperature
+        self.adapter_ids[slot] = req.adapter
         self.rids[slot] = req.request_id
         self.sample_ctr[slot] = 1  # tok0 took token index 0
         req.generated.append(first)
@@ -553,12 +598,15 @@ class BatchEngine:
             bt = self._dev(self.block_tables)
         eng = self.engine
         tokens, pos = self._dev(self.tokens), self._dev(self.pos)
+        bank = {}
+        if self.lora_bank is not None:
+            bank = {"lora": self.lora_bank, "adapter_ids": self._dev(self.adapter_ids)}
         sampled = self._sampling_active()
         lp = None  # (chosen_lp [B, q], top_ids [B, q, K], top_lps [B, q, K])
         if quantum == 1:
             logits, self.cache = forward_ragged_decode(
                 eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
-                self.cfg, block_table=bt)
+                self.cfg, block_table=bt, **bank)
             if sampled:
                 nxt = self._sample_impl(logits, self.rids, self.sample_ctr,
                                         self.temps)
@@ -576,12 +624,12 @@ class BatchEngine:
                     eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
                     self._dev(keys), self._dev(self.temps), self.cfg, quantum,
                     self.top_k, self.top_p, block_table=bt,
-                    num_logprobs=self.logprobs_k)
+                    num_logprobs=self.logprobs_k, **bank)
             else:
                 out = ragged_decode_steps(
                     eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
                     self.cfg, quantum, block_table=bt,
-                    num_logprobs=self.logprobs_k)
+                    num_logprobs=self.logprobs_k, **bank)
             if self.logprobs_k is not None:
                 toks, lp, self.cache = out
             else:
@@ -628,6 +676,7 @@ class BatchEngine:
         req.done = True
         self.slots[req.slot] = None
         self.temps[req.slot] = 0.0
+        self.adapter_ids[req.slot] = 0  # no adapter leaks into the next request
         # An idle row still flows through each step: at position 0 its
         # paged attention reads one null page, not its old length.
         self.pos[req.slot] = 0

@@ -1473,3 +1473,125 @@ def test_card_engine_quantizes_on_the_card_as_the_host_does(cuda, kw):
         for k in a:
             assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype, k
             assert torch.equal(a[k].cpu(), b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# LoRA, training, perplexity and data (ROADMAP A7, A8)
+# ---------------------------------------------------------------------------
+
+def _adapters(args, device, n=2, seed=1):
+    """n adapters on attention and FFN targets with non-zero B factors."""
+    from llama3np_tpu_torch.lora import init_lora
+    out = []
+    for i in range(n):
+        lora = init_lora(args, rank=4, alpha=8.0, seed=seed + i, device=device,
+                         targets=("wq", "wv", "w_gate", "w_down"))
+        g = torch.Generator(device=device).manual_seed(100 + i)
+        lora["layers"] = {k: (v if k.endswith("_a") else
+                              0.05 * torch.randn(v.shape, generator=g, device=device))
+                          for k, v in lora["layers"].items()}
+        out.append(lora)
+    return out
+
+
+@pytest.mark.parametrize("quantum", [1, 3])
+def test_card_multilora_engine_matches_cpu_engine(cuda, quantum):
+    """Multi-LoRA serving on the card: base, adapter 0 and adapter 1
+    co-tenants, admissions through flash prefill and every decode step
+    through the paged kernel once a layer; the streams are the CPU
+    engine's."""
+    args = preset("test-tiny", fuse_matmuls=False, max_seq_len=256)
+    w = synthetic_weights(args, seed=7)
+    ads = _adapters(args, "cpu")
+    prompts = [[1, 5, 9, 14], [1, 7, 2], [1, 3, 3, 8, 2, 40, 41]]
+
+    def serve(device):
+        be = BatchEngine(Llama(w, args, device=device), capacity=3, paged=True,
+                         page_size=8, adapters=ads)
+        reqs = [be.submit(p, 12, stop_ids=(), adapter=a)
+                for p, a in zip(prompts, (None, 0, 1))]
+        steps = 0
+        while be.num_active:
+            be.step(quantum)
+            steps += quantum
+        return [r.generated for r in reqs], steps
+
+    before = paged_attention.launches, flash_prefill.launches
+    got, steps = serve(cuda)
+    assert paged_attention.launches - before[0] == args.n_layers * steps
+    assert flash_prefill.launches - before[1] == args.n_layers * len(prompts)
+    assert got == serve("cpu")[0]
+
+
+def test_card_lora_train_step_matches_cpu(cuda):
+    """Three LoRA AdamW steps over a frozen bf16 base on the card: the
+    losses and adapters of the same steps on the CPU (bf16 envelope), the
+    base bit-unchanged."""
+    from llama3np_tpu_torch.checkpoint import build_param_tree, params_to_device
+    from llama3np_tpu_torch.lora import init_lora, make_lora_train_step
+    from llama3np_tpu_torch.models.llama import StaticConfig
+    from llama3np_tpu_torch.ops.core import rope_tables
+    from llama3np_tpu_torch.train import init_optimizer
+    args = preset("test-tiny", dtype="bfloat16")
+    tree = build_param_tree(synthetic_weights(args, seed=0), args)
+    batch = np.random.default_rng(3).integers(3, args.vocab_size, size=(2, 17))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = params_to_device(tree, dev, "bfloat16")
+        before = {k: v.clone() for k, v in params["layers"].items()}
+        cfg = StaticConfig.from_args(args, dev)._replace(fused=False, rope_split=False)
+        cos, sin = rope_tables(args.head_dim, args.max_seq_len, args.rope_theta, device=dev)
+        lora = init_lora(args, rank=4, seed=1, device="cpu")
+        ly = {k: v.to(dev) for k, v in lora["layers"].items()}
+        opt, st = init_optimizer(ly, learning_rate=1e-2)
+        step = make_lora_train_step(opt, cfg, 2.0, remat=True)
+        losses = []
+        for _ in range(3):
+            ly, st, loss = step(ly, st, params, torch.as_tensor(batch, device=dev), cos, sin)
+            losses.append(float(loss))
+        for k, v in params["layers"].items():
+            assert torch.equal(v, before[k]), k
+        out[dev.type] = losses, {k: v.detach().cpu() for k, v in ly.items()}
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-2, atol=1e-2)
+    assert out["cuda"][0][-1] < out["cuda"][0][0]
+    for k, v in out["cpu"][1].items():
+        torch.testing.assert_close(out["cuda"][1][k], v, rtol=5e-2, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_card_scorer_matches_plain_twin(cuda, dtype):
+    """A Scorer batch on the card (flash prefill once a layer, buckets 8 to
+    64) against the same engine with its kernels off."""
+    from llama3np_tpu_torch.eval import Scorer
+    args = preset("test-tiny", dtype=dtype)
+    eng = Llama(synthetic_weights(args, seed=0), args, device=cuda)
+    twin = Llama(synthetic_weights(args, seed=0), args.replace(attn_impl="xla"),
+                 device=cuda)
+    rng = np.random.default_rng(5)
+    seqs = [[1] + rng.integers(3, args.vocab_size, size=n).tolist() for n in (3, 9, 20, 40, 63)]
+    before = flash_prefill.launches
+    nll, cnt = Scorer(eng, batch_size=2).score(seqs)
+    assert flash_prefill.launches - before == args.n_layers * 3
+    pnll, pcnt = Scorer(twin, batch_size=2).score(seqs)
+    assert flash_prefill.launches - before == args.n_layers * 3
+    np.testing.assert_array_equal(cnt, pcnt)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else dict(rtol=2e-2, atol=0.1)
+    np.testing.assert_allclose(nll, pnll, **tol)
+
+
+def test_card_prefetch_hands_out_the_host_batches(cuda, tmp_path):
+    from llama3np_tpu_torch.data import TokenDataset, pack_documents, prefetch_to_device
+
+    class Tok:
+        def encode(self, text, add_bos=True):
+            return [1] + [ord(c) + 3 for c in text]
+
+    p = str(tmp_path / "s.bin")
+    pack_documents(["hello world " * 40, "abc " * 30], Tok(), p)
+    ds = TokenDataset(p)
+    host = list(ds.batches(4, 16, seed=1, epochs=2))
+    dev = list(prefetch_to_device(ds.batches(4, 16, seed=1, epochs=2), size=3))
+    assert len(dev) == len(host)
+    for h, d in zip(host, dev):
+        assert d.device.type == "cuda" and d.dtype == torch.int32
+        assert np.array_equal(d.cpu().numpy(), h)

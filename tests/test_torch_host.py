@@ -223,22 +223,27 @@ def _port_files():
 def test_port_never_imports_jax(path):
     for mod in _imported_modules(path):
         root = mod.split(".")[0]
-        assert root not in ("jax", "jaxlib", "llama3np_tpu", "ml_dtypes", "safetensors"), \
+        assert root not in ("jax", "jaxlib", "llama3np_tpu", "ml_dtypes", "safetensors",
+                            "optax"), \
             f"{path.relative_to(REPO)} imports {mod}"
 
 
 def test_port_modules_import_without_jax():
-    """Import every module of the port in a fresh interpreter with jax,
-    the JAX package, ml_dtypes and safetensors (which the card's machine
-    lacks) made unimportable."""
+    """Import every module of the port (lora, train, eval and data among
+    them) in a fresh interpreter with jax, the JAX package, optax,
+    ml_dtypes and safetensors (which the card's machine lacks) made
+    unimportable."""
     mods = sorted({".".join(p.relative_to(REPO).with_suffix("").parts)
                    .removesuffix(".__init__") for p in PORT.rglob("*.py")})
     code = ("import sys\n"
-            "for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes', 'safetensors'):\n"
+            "for name in ('jax', 'jaxlib', 'llama3np_tpu', 'ml_dtypes', 'safetensors',\n"
+            "             'optax'):\n"
             "    sys.modules[name] = None\n"
             "import importlib\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "assert {'llama3np_tpu_torch.lora', 'llama3np_tpu_torch.train',\n"
+            "        'llama3np_tpu_torch.eval', 'llama3np_tpu_torch.data'} <= set(sys.modules)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)

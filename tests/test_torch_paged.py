@@ -450,9 +450,17 @@ def test_ragged_decode_refuses_unported():
     args = teng.args
     cache = tkv.init_cache(args, 2, device="cpu")
     z = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tllama.forward_ragged_decode(teng.params, z, z, cache, teng.cos,
-                                     teng.sin, teng.cfg, lora={})
+    # LoRA (ROADMAP A7) is ported: rows on the zero adapter of a bank take
+    # exactly the base step (tests/test_torch_multilora.py holds the rest).
+    from llama3np_tpu_torch.lora import init_lora, stack_adapters
+    bank = stack_adapters([init_lora(args, rank=2, targets=("wq", "wo"), device="cpu")],
+                          args)
+    base, _ = tllama.forward_ragged_decode(teng.params, z, z, tkv.init_cache(args, 2, device="cpu"),
+                                           teng.cos, teng.sin, teng.cfg)
+    with_bank, _ = tllama.forward_ragged_decode(
+        teng.params, z, z, cache, teng.cos, teng.sin, teng.cfg,
+        lora=bank, adapter_ids=torch.zeros(2, dtype=torch.int32))
+    assert torch.equal(with_bank, base)
     # Pre-gathered scale rows (the plain quantum loop's hoist) give the
     # same step as the per-layer gather of the scale pools.
     pool = tkv.init_paged_cache(args, 9, 8, quant="int8", device="cpu")

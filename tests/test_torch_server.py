@@ -264,11 +264,14 @@ def test_error_paths(servers):
 
 
 def test_adapter_requests_refused(servers):
-    _, ts = servers
+    """Over engines without adapters, a request naming one (by index, by
+    an unknown name, by neither) gets the JAX server's 400 and body."""
     for path in ("/v1/completions", "/v1/chat/completions"):
-        status, out = post(ts, path, {"prompt_ids": [1, 2], "adapter": 0,
-                                      "messages": [{"role": "user", "content": "x"}]})
-        assert status == 400 and "ROADMAP A7" in out["error"]
+        for adapter in (0, "nope", [1]):
+            status, out = post_both(servers, path, {
+                "prompt_ids": [1, 2], "adapter": adapter,
+                "messages": [{"role": "user", "content": "x"}]})
+            assert status == 400 and out["error"], (path, adapter, out)
 
 
 def counters(s):
@@ -404,8 +407,16 @@ def test_chat_requires_tokenizer(engines):
 
 @pytest.mark.parametrize("argv,item", [(["--adapter", "a=b.npz"], "A7")])
 def test_main_refuses_unported_options(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(["--preset", "test-tiny", "--synthetic", "--device", "cpu", *argv])
+    """`--adapter` is ported (ROADMAP A7): an adapter file that is not
+    there, and a spec without a path, are refused as the JAX server's main
+    refuses them."""
+    from llama3np_tpu.server import main as jmain
+    base = ["--preset", "test-tiny", "--synthetic"]
+    for run in (lambda a: main([*base, "--device", "cpu", *a]), lambda a: jmain([*base, *a])):
+        with pytest.raises(FileNotFoundError):
+            run(argv)
+        with pytest.raises(SystemExit, match="--adapter wants NAME=PATH"):
+            run(["--adapter", "just-a-name"])
 
 
 def test_main_defaults_to_the_card():

@@ -367,11 +367,20 @@ def test_seeded_soak(setup):
 @pytest.mark.parametrize("kw,item", [
     (dict(prefix_cache=True, adapters=[{}]), "A7"), (dict(adapters=[{}]), "A7")])
 def test_unported_engine_options_raise(setup, kw, item):
-    """Multi-LoRA serving is refused, alone and with the prefix cache (the
-    two never compose: a prefix's K/V depends on its adapter)."""
-    _, _, teng = setup
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        BatchEngine(teng, paged=True, **kw)
+    """Multi-LoRA serving (ROADMAP A7) keeps the JAX engine's refusals,
+    with its messages: adapters with the prefix cache (on the split layout;
+    the two never compose: a prefix's K/V depends on its adapter), and
+    adapters over the fused layout."""
+    split = "prefix_cache" in kw
+    w = jsynth(jpreset("test-tiny"), seed=23)
+    msgs = []
+    for BE, eng in ((JBatchEngine, JLlama(w, jpreset("test-tiny", fuse_matmuls=not split))),
+                    (BatchEngine, Llama(w, tpreset("test-tiny", fuse_matmuls=not split),
+                                        device="cpu"))):
+        with pytest.raises(ValueError, match="prefix_cache" if split else "split layout") as e:
+            BE(eng, paged=True, **kw)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("paged", [False, True])
@@ -391,10 +400,16 @@ def test_kv_quant_engine_option(setup, paged):
 @pytest.mark.parametrize("kw,item", [(dict(temperature=0.7, adapter=0), "A7"),
                                      (dict(adapter=0), "A7")])
 def test_unported_request_options_raise(setup, kw, item):
-    """A request naming an adapter is refused, greedy or sampled."""
-    _, _, teng = setup
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        BatchEngine(teng, capacity=1).submit([5, 6, 7], 4, **kw)
+    """A request naming an adapter of an engine built without adapters is
+    refused (multi-LoRA, ROADMAP A7), greedy or sampled, with the JAX
+    engine's message."""
+    _, jeng, teng = setup
+    msgs = []
+    for BE, eng in ((JBatchEngine, jeng), (BatchEngine, teng)):
+        with pytest.raises(ValueError, match="without adapters") as e:
+            BE(eng, capacity=1).submit([5, 6, 7], 4, **kw)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("quantum", [1, 2])
