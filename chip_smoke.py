@@ -13,11 +13,12 @@ modes, the paged-attention kernel over float32, bf16, fp16 and int8 pools,
 int8 under a float32, bf16 or fp16 q, flash prefill and the greedy head in
 float32, bf16 and fp16, and the kv_dtype override's modes), drives greedy
 generation end to end through the port's entry points (stories15M against
-the port's NumPy oracle; tinyllama-1.1b at full width and depth against
+the port's NumPy oracle; tinyllama-1.1b at full width and 8 of its 22
+layers (`TINY_LAYERS`, for the time limit) against
 the plain path on the same card), traces each model's prefill and a few decode tokens with
 torch.profiler (device time by kernel, device busy share), runs the CLI in
 float32 and bfloat16, then drives continuous-batching serving of
-tinyllama-1.1b at full width and depth over the paged KV cache (12
+tinyllama-1.1b at full width over the paged KV cache (12
 staggered requests at quanta 1 and 4 and with chunked admission, every
 served stream against its solo stream, exact launch counts, no leaked
 pages; the plain path's rate; a traced window of serving steps).  Then
@@ -55,7 +56,7 @@ verify forward a round; the stream against the target's own kernel
 stream by the near-tie rule, exact launch counts, tokens / rounds /
 accept rate, a round split into draft steps, verify and the host read,
 and traced); last, the fp16 kernel modes alone at llama3-8b's shapes.
-Before the CLI, tinyllama-1.1b at full width and depth also runs
+Before the CLI, tinyllama-1.1b at full width also runs
 speculation (fp32 target, int8 self-draft, the same checks), the split
 layout in fp32 (its stream against the fused kernel stream), int4 weights
 on int4-grid weights (stream and logits against the fp32 split engine,
@@ -85,6 +86,14 @@ workload without a bank; the HTTP server with adapter names), LoRA
 fine-tuning over the frozen base (8 steps with remat: the loss falls,
 the base's bits unchanged) and perplexity (`eval.Scorer`: per-token
 log-probabilities against the plain twin and unpadded scoring).
+After the int8 8B phases, parallelism (ROADMAP A9, `parallel_phase`):
+llama3-70b at its published widths and 2 of its 80 layers in bf16, its
+split tree made on the card; two ranks on the one card (gloo) take their
+shards of it through CUDA IPC; tp=2 greedy generation and paged serving
+(quanta 1 and 4, bf16 and int8 pools) and pp=2 generation in both
+schedules, each against the single-rank engine by the near-tie rule,
+with the kernels' launches on each rank and the kernels at a rank's
+shapes against their twins.
 The greedy head is also re-timed against torch.matmul +
 torch.argmax in alternation (tinyllama-1.1b fp32 and fp16, llama3-8b bf16),
 and fp32 flash prefill against scaled_dot_product_attention (stories15M
@@ -98,9 +107,11 @@ prints no result.
     python3 chip_smoke.py --decode-ab PARENT_DIR [MODEL:MODE[@POS,...] ...]
     python3 chip_smoke.py --paged-ab PARENT_DIR
     python3 chip_smoke.py --kernel-ab PARENT_DIR
+    python3 chip_smoke.py --parallel
 
-run only an A/B of the decode kernel (or of the paged kernel, or of the
-greedy head and fp32 flash prefill): the one of the checkout unpacked at
+run only the A9 phase (`--parallel`) or an A/B of the decode kernel (or
+of the paged kernel, or of the greedy head and fp32 flash prefill): the
+one of the checkout unpacked at
 PARENT_DIR (e.g. `git archive` of the parent commit) against this one's, in
 one process, parent, change, change, parent at every shape of the decode
 phases, with each one's step breakdown from torch.profiler (the paged
@@ -863,6 +874,13 @@ def serve_profile_phase(torch, model: str, engine, workload, card: str, steps: i
             "card": card}
 
 
+# Every tinyllama-1.1b path runs at its full width and this many of its 22
+# layers: at full depth the whole script outran its 1200 s limit on a
+# slower host (1,319 s, the build 95 s of it, on an H100 80GB HBM3 at
+# 700 W), where the same script took 978 s on another.
+TINY_LAYERS = 8
+
+
 def grid_weights(torch, weights, qmax: int = 127):
     """Weights snapped onto an int8 grid (qmax 127; int4: 7) per output
     channel (the rule of tests/test_quant.py:27-41 and
@@ -1561,7 +1579,7 @@ def llama3_8b_phases(torch, smoke, card):
 
 def int8_phases(torch, smoke, args, weights, prompt, workload, card):
     """tinyllama-1.1b with int8 weights: the decode kernel's int8 mode at
-    full width and depth, greedy generation ((a) on grid weights against
+    full width, greedy generation ((a) on grid weights against
     the fp32 kernel path, (b) on the synthetic weights against the int8
     plain path), then serving with int8 weights and int8 KV (the paged
     kernel's int8 mode).  Returns the kernel rows and the main paths'
@@ -2055,28 +2073,35 @@ def kernel_ab(torch, parent_dir: str, card: str, rounds: int = 4):
 
 def llama3_8b_int8_phases(torch, smoke, card, target, limit):
     """llama3-8b with int8 weights under bf16 activations (quant="int8",
-    dtype bfloat16) at full width and depth: the engine's own loader over
-    weights made on the card, the decode kernel's int8/bf16 mode against
+    dtype bfloat16) at full width and depth, quantized on the card from the
+    loaded bf16 engine's tree, the decode kernel's int8/bf16 mode against
     its twin at pos 0 / 511 / 8191, greedy generation through flash
     prefill and that mode (the int8 lm_head stays plain: lm_logits and
     argmax) against the plain path (attn_impl="xla"): logits within the
     bf16 envelope with top-1 equal, the stream equal or parted at a
     near-tie; prefill ms and decode tok/s of both, and a trace that shows
-    the plain head's share.  The engine is `quantized_draft` of the same
-    seeded weights, the int8 self-draft of the bf16 `target` (the loaded
-    bf16 engine, kept alive): last, speculation of the target guided by
+    the plain head's share.  The engine is the int8 self-draft of the bf16
+    `target` (the loaded bf16 engine, kept alive; the same tree as
+    `quantized_draft` of its seeded weights): last, speculation of the
+    target guided by
     it (k = 4; `limit`: the bf16 near-tie limit).  Returns the kernel row
     and the launch counts."""
     import resource
 
     import numpy as np
 
-    from llama3np_tpu_torch import preset, quantized_draft
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.checkpoint import quantize_param_tree
+    from llama3np_tpu_torch.models.llama import Llama
 
     args = preset("llama3-8b", quant="int8")
     nl = args.n_layers
     t0 = time.perf_counter()
-    eng = quantized_draft(CardWeights(torch, target.args), target.args)
+    # The target's own tree quantized on the card: the codes and scales
+    # `quantized_draft` of the seeded weights gives (its loader rounds each
+    # weight to bf16 and then quantizes, C5), without a third host staging.
+    eng = Llama.from_param_tree(
+        quantize_param_tree(target.params, device="cuda", dtype=args.dtype), args)
     torch.cuda.synchronize()
     import gc
     gc.collect()
@@ -2234,7 +2259,7 @@ def weight_bytes(params) -> int:
 def split_int4_phases(torch, t_eng, weights, prompt, toks_k, logits_k, limit, workload,
                       card):
     """tinyllama-1.1b (`t_eng`: the fp32 fused engine on the kernels) at
-    full width and depth, ROADMAP A4-A5: speculation with an int8
+    full width, ROADMAP A4-A5: speculation with an int8
     self-draft (k = 4); the split layout in fp32 (its greedy stream
     against the fused kernel stream `toks_k`, logits within 1e-3 of
     `logits_k`); int4 on int4-grid weights (its stream equal to the fp32
@@ -2373,7 +2398,7 @@ def split_int4_phases(torch, t_eng, weights, prompt, toks_k, logits_k, limit, wo
 
 
 def fp16_phases(torch, smoke, args, weights, prompt, workload, card):
-    """tinyllama-1.1b in float16 at full width and depth: the four kernels'
+    """tinyllama-1.1b in float16 at full width: the four kernels'
     fp16 modes and the paged kernel's int8-under-fp16 mode against their
     twins at its shapes; greedy generation against the plain path (the
     fp16 envelope, near-tie rule), serving over fp16 pools and over int8
@@ -2459,7 +2484,7 @@ def kv_override_phases(torch, smoke, args, weights, prompt, workload, card, fp32
     every pair, the decode kernel (float weights in the activation dtype,
     and int8 weights) and the paged kernel (float pools under a q of
     another dtype) against their twins; then fp32 activations over a bf16
-    cache at full width and depth: greedy generation through flash, the
+    cache at full width: greedy generation through flash, the
     decode kernel's override mode and the greedy head against the plain
     path (the fp16 envelope, 0.02 x max(1, max |logits|): only attention's
     rounding points differ, at a bf16 ulp; near-tie rule), exact launch
@@ -2606,7 +2631,7 @@ def tooling_phases(torch, card, s_weights, s_args, s_stream, t_eng, t_weights, p
     out["llama2c"] = {"tokens_equal": len(got), "s": time.perf_counter() - t0}
 
     t0 = time.perf_counter()
-    b_args = preset("tinyllama-1.1b", dtype="bfloat16")
+    b_args = t_eng.args.replace(dtype="bfloat16")
     want = Llama(t_weights, b_args, device="cuda").generate_tokens(prompt, 16).cpu()[0].tolist()
     hf = os.path.join(root, "tinyllama-hf")
     write_hf_dir(torch, hf, t_weights, b_args)
@@ -3023,7 +3048,7 @@ def train_tree(torch, weights, args, device):
 def full_train_phase(torch, weights, args, vocab, card, B: int = 4, L: int = 256,
                      steps: int = 8):
     """(d) tinyllama-1.1b full-model training in float32 (TF32 off) at full
-    width and depth: `pack_documents` over the synthetic vocabulary, a
+    width: `pack_documents` over the synthetic vocabulary, a
     `TokenDataset`, `prefetch_to_device` onto the card, `make_train_step`
     (AdamW, lr 1e-3), B=4, L=256, 8 steps.  Gates: step 0's loss equals
     `next_token_loss` of its batch (rtol 2e-4 / atol 1e-4), the loss falls,
@@ -3147,6 +3172,266 @@ def train_card_vs_cpu_phase(torch, weights, args, card, steps: int = 3, lr: floa
           "tol": {"rtol": 2e-4, "atol": 1e-4, "step0_grads_normwise": 1e-4}, "card": card})
 
 
+# ROADMAP A9: llama3-70b at its published widths, depth cut to 2 of 80
+# layers and max_seq_len to 2048, in bf16, over two ranks on the one card.
+A9_ARGS = dict(n_layers=2, max_seq_len=2048)
+A9_TOKENS = 32
+
+
+def card_split_tree(torch, args, seed: int = 0, scale: float = 0.02):
+    """The split parameter tree of `args` in its dtype, made on the card from
+    a seeded card generator (weights normal x scale, norms 1 + that): the
+    tree `Llama.from_param_tree` and the ranks' shards read.  Its wq/wk
+    columns are taken as already in the split-halves RoPE layout (a
+    permutation of random columns is random columns)."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    dt = getattr(torch, args.dtype)
+    nl, d, fd, vs = args.n_layers, args.dim, args.hidden_dim, args.vocab_size
+    qd, kvd = args.n_heads * args.head_dim, args.kv_heads * args.head_dim
+
+    def w(*shape):
+        out = torch.empty(shape, dtype=dt, device="cuda")
+        for i in range(shape[0]):  # one f32 slab at a time
+            out[i] = (torch.randn(shape[1:], generator=g, device="cuda") * scale).to(dt)
+        return out
+
+    def norm(*shape):
+        return (1 + scale * torch.randn(shape, generator=g, device="cuda")).to(dt)
+
+    return {"tok_embedding": w(vs, d),
+            "layers": {"wq": w(nl, d, qd), "wk": w(nl, d, kvd), "wv": w(nl, d, kvd),
+                       "wo": w(nl, qd, d), "w_gate": w(nl, d, fd), "w_up": w(nl, d, fd),
+                       "w_down": w(nl, fd, d), "attn_norm": norm(nl, d),
+                       "ffn_norm": norm(nl, d)},
+            "norm": norm(d), "lm_head": w(d, vs)}
+
+
+def a9_rank(rank: int, device: str, tree, args, prompt, batch, workload, n_tok: int):
+    """One of two ranks on the card (gloo; spawned by `parallel.launch`
+    with the parent's tree through CUDA IPC): a tp=2 engine's logits,
+    greedy tokens and serving streams (paged, quanta 1 and 4, bf16 and int8
+    pools) with each kernel's launches on this rank, its decode and step
+    times, the all-reduces a token and their time; then a pp=2 pipeline's
+    tokens in both schedules and its stage's weight bytes."""
+    import numpy as np
+    import torch
+
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.observability import timed_generate
+    from llama3np_tpu_torch.parallel.pipeline import PipelinedLlama, make_pp_mesh
+    from llama3np_tpu_torch.parallel.sharding import make_mesh
+
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, 2, backend="gloo", device=device)
+    eng = Llama.from_param_tree(tree, args, mesh=mesh)
+    torch.cuda.synchronize()
+    out.update(tp_load_s=time.perf_counter() - t0, tp_weight_bytes=weight_bytes(eng.params),
+               tp_local_heads=(eng.cfg.n_heads, eng.cfg.kv_heads))
+    out["tp_logits"] = eng(prompt, 0)[0, -1]
+    reduces = []
+    all_reduce = mesh.all_reduce
+
+    def counted(t, axis):
+        reduces.append(tuple(t.shape))
+        return all_reduce(t, axis)
+
+    mesh.all_reduce = counted
+    reset_counters()
+    out["tp_tokens"] = eng.generate_tokens(prompt, n_tok).cpu()[0].tolist()
+    out["tp_generate_launches"] = counters()
+    mesh.all_reduce = all_reduce
+    out["tp_all_reduces_a_token"] = len(reduces) / n_tok  # the prefill's count too
+    out["tp_all_reduce_shapes"] = sorted(set(reduces))
+    _, st = timed_generate(eng, prompt, n_tok)
+    out["tp_prefill_ms"], out["tp_decode_tok_s"] = st.prefill_ms, st.decode_tok_s
+    ar = {}  # host clock: gloo stages a CUDA tensor through the host
+    for name, shape in (("hidden", (1, 1, args.dim)), ("logits", (1, args.vocab_size))):
+        t = torch.ones(shape, device=device)
+        for _ in range(3):
+            all_reduce(t, "tp")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            all_reduce(t, "tp")
+        torch.cuda.synchronize()
+        ar[name] = (time.perf_counter() - t0) * 1e3 / 20
+    out["all_reduce_ms"] = ar
+    out["serve"] = {}
+    for run, quantum, kv in (("q1", 1, None), ("q4", 4, None),
+                             ("q1_int8", 1, "int8"), ("q4_int8", 4, "int8")):
+        reset_counters()
+        streams, st = serve(torch, eng, workload, quantum, kv_quant=kv)
+        out["serve"][run] = {"streams": streams, "stats": st, "launches": counters()}
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pp = PipelinedLlama.from_param_tree(tree, args, make_pp_mesh(2, backend="gloo",
+                                                                 device=device))
+    torch.cuda.synchronize()
+    out.update(pp_load_s=time.perf_counter() - t0, pp_stage_bytes=pp.stage_param_bytes())
+    for key, mb in (("pp", False), ("pp_mb", True)):
+        reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[key + "_tokens"] = pp.generate_tokens(batch, n_tok, microbatched=mb).cpu().tolist()
+        torch.cuda.synchronize()
+        out[key + "_s"] = time.perf_counter() - t0
+        out[key + "_launches"] = counters()
+    del pp
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(torch, smoke, card):
+    """ROADMAP A9 on the card: llama3-70b's widths (D=8192, 64 heads over 8
+    KV heads, HD=128, FD=28672, VS=128,256) at 2 of its 80 layers, bf16.
+    The split tree is made once on the card; the parent's single-rank
+    engine over it is the reference, and two ranks spawned on the same
+    card (gloo: NCCL refuses two ranks on one device) take their shards of
+    it through CUDA IPC (`a9_rank`).  tp=2: greedy generation of a
+    500-token prompt and 32 tokens (logits within the bf16 envelope of the
+    reference's, the stream equal or parted at a near-tie, both ranks'
+    tokens equal) and paged serving of `serve_workload` at quanta 1 and 4
+    over bf16 and int8 pools (each stream against the reference's
+    capacity-1 stream by the same rule; flash once a layer an admission
+    and the paged kernel once a layer a step, on each rank; all pages
+    back).  pp=2 (one layer a stage), B=2, both schedules, against the
+    reference.  The kernels at a rank's shapes (NH/2 = 32 query heads over
+    KVH/2 = 4) against their twins.  One card shows correctness and the
+    per-rank costs, not scaling: the two ranks share its SMs and HBM, and
+    their collectives cross the host (gloo), not NVLink.  Returns the
+    kernel rows and their launches."""
+    import numpy as np
+
+    from llama3np_tpu_torch import preset
+    from llama3np_tpu_torch.models.llama import Llama
+    from llama3np_tpu_torch.parallel.launch import launch
+
+    t_start = time.perf_counter()
+    args = preset("llama3-70b", **A9_ARGS)
+    nl, bf16 = args.n_layers, torch.bfloat16
+    tree = card_split_tree(torch, args)
+    ref = Llama.from_param_tree(tree, args, device="cuda")
+    torch.cuda.synchronize()
+    whole = weight_bytes(ref.params)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(3, args.vocab_size, size=(1, 500))
+    batch = np.concatenate([prompt, rng.integers(3, args.vocab_size, size=(1, 500))])
+    workload = serve_workload(args.vocab_size)
+    ref_logits = torch.from_numpy(ref(prompt, 0)[0, -1]).float()
+    ref_toks = ref.generate_tokens(prompt, A9_TOKENS).cpu()[0].tolist()
+    ref_batch = ref.generate_tokens(batch, A9_TOKENS).cpu().tolist()
+    solo = {kv: solo_serve(ref, workload, kv, margins=True) for kv in (None, "int8")}
+    ref_s = time.perf_counter() - t_start
+
+    local = (args.n_heads // 2, args.kv_heads // 2, args.head_dim)
+    rows = {"flash_prefill": smoke.flash_phase("llama3-70b tp=2 rank", 1, 512, *local,
+                                               dtype=bf16),
+            "paged_attention": smoke.paged_phase(
+                "llama3-70b tp=2 rank", 8, *local, 16, args.max_seq_len // 16,
+                [0, 15, 16, 255, 500, 1023, 1500, 2047], dtype=bf16)}
+
+    t0 = time.perf_counter()
+    ranks = launch(a9_rank, 2, (tree, args, prompt, batch, workload, A9_TOKENS),
+                   backend="gloo", devices=["cuda:0", "cuda:0"], timeout_s=600)
+    ranks_s = time.perf_counter() - t0
+
+    def margin_at(ctx_row):
+        def at(i, toks):
+            ctx = np.array([list(ctx_row) + toks[:i]])
+            top = torch.from_numpy(ref(ctx, 0))[0, -1].float().topk(2).values
+            return float(top[0] - top[1])
+        return at
+
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for key in ("tp_tokens", "pp_tokens", "pp_mb_tokens"):
+            if r[key] != r0[key]:
+                raise AssertionError(f"A9: rank {r['rank']}'s {key} differ from rank 0's")
+        for run in r0["serve"]:
+            if r["serve"][run]["streams"] != r0["serve"][run]["streams"]:
+                raise AssertionError(f"A9: rank {r['rank']}'s {run} streams differ")
+    logits = torch.from_numpy(r0["tp_logits"]).float()
+    l_abs = (logits - ref_logits).abs().max().item()
+    l_scale = max(1.0, ref_logits.abs().max().item())
+    if not torch.isfinite(logits).all() or l_abs > E8B_ENVELOPE * l_scale or \
+            int(logits.argmax()) != int(ref_logits.argmax()):
+        raise AssertionError(f"A9 tp=2 logits: max abs err {l_abs} (envelope "
+                             f"{E8B_ENVELOPE * l_scale}) or top-1 differs")
+    limit = 2 * l_abs
+    at = margin_at(prompt[0].tolist())
+    gen_rule = near_tie(r0["tp_tokens"], ref_toks, lambda i: at(i, ref_toks), limit,
+                        "A9 tp=2 greedy stream")
+    pp_rules = {}
+    for key in ("pp_tokens", "pp_mb_tokens"):
+        pp_rules[key] = [near_tie(got, want, lambda i, a=margin_at(row.tolist()), w=want:
+                                  a(i, w), limit, f"A9 pp=2 {key} row {b}")
+                         for b, (got, want, row) in enumerate(zip(r0[key], ref_batch, batch))]
+    serve_rows = {}
+    for run, res in r0["serve"].items():
+        kv = "int8" if run.endswith("int8") else None
+        want, gaps = solo[kv]
+        rules = [near_tie(g, w, lambda i, m=m: m[i], limit, f"A9 tp=2 serving {run} request {q}")
+                 for q, (g, w, m) in enumerate(zip(res["streams"], want, gaps))]
+        st = res["stats"]
+        for r in ranks:
+            c = r["serve"][run]["launches"]
+            s = r["serve"][run]["stats"]
+            expect = {"flash_prefill": nl * s["admissions"], "decode_layers": 0,
+                      "paged_attention": nl * s["decode_steps"], "argmax_head": 0}
+            if c != expect or s["admissions"] != len(workload):
+                raise AssertionError(f"A9 rank {r['rank']} serving {run} launch counts "
+                                     f"{c}, expected {expect}")
+        serve_rows[run] = {"ms_per_step": [r["serve"][run]["stats"]["ms_per_step"]
+                                           for r in ranks],
+                           "served_tok_s": [r["serve"][run]["stats"]["served_tok_s"]
+                                            for r in ranks],
+                           "decode_steps": st["decode_steps"], "admissions": st["admissions"],
+                           "launches": [r["serve"][run]["launches"] for r in ranks],
+                           "streams_equal_solo": sum(x["first_diff"] is None for x in rules),
+                           "near_ties": [dict(request=q, **x) for q, x in enumerate(rules)
+                                         if x["first_diff"] is not None]}
+    for r in ranks:
+        g = r["tp_generate_launches"]
+        if g != {"flash_prefill": nl, "decode_layers": 0, "paged_attention": 0,
+                 "argmax_head": 0}:
+            raise AssertionError(f"A9 rank {r['rank']} tp generation launches {g}")
+        if r["pp_launches"]["flash_prefill"] != nl // 2 or \
+                r["pp_mb_launches"]["flash_prefill"] != nl // 2:
+            raise AssertionError(f"A9 rank {r['rank']} pp launches {r['pp_launches']}")
+    emit({"phase": "a9", "model": "llama3-70b", "layers": nl, "of_layers": 80,
+          "max_seq_len": args.max_seq_len, "dtype": args.dtype, "ranks": 2,
+          "backend": "gloo", "ranks_on_one_card": True,
+          "whole_weight_gb": whole / 1e9,
+          "tp_rank_weight_gb": [r["tp_weight_bytes"] / 1e9 for r in ranks],
+          "pp_stage_weight_gb": [r["pp_stage_bytes"] / 1e9 for r in ranks],
+          "tp_local_heads": r0["tp_local_heads"],
+          "logits_max_abs_err": l_abs, "logits_max_abs": l_scale, "near_tie_limit": limit,
+          "tp_stream_vs_reference": gen_rule, "pp_streams_vs_reference": pp_rules,
+          "tp_prefill_ms": [r["tp_prefill_ms"] for r in ranks],
+          "tp_decode_ms_a_token": [1e3 / r["tp_decode_tok_s"] for r in ranks],
+          "tp_all_reduces_a_token": r0["tp_all_reduces_a_token"],
+          "tp_all_reduce_shapes": r0["tp_all_reduce_shapes"],
+          "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+          "serving": serve_rows,
+          "pp_s": [r["pp_s"] for r in ranks], "pp_mb_s": [r["pp_mb_s"] for r in ranks],
+          "tp_generate_launches": [r["tp_generate_launches"] for r in ranks],
+          "pp_launches": [r["pp_launches"] for r in ranks],
+          "load_s": {"tp": [r["tp_load_s"] for r in ranks], "pp": [r["pp_load_s"] for r in ranks]},
+          "reference_s": ref_s, "ranks_s": ranks_s, "card": card})
+    del ref, tree
+    torch.cuda.empty_cache()
+    q1 = [r["serve"]["q1"]["launches"] for r in ranks]
+    paths = {name: {"serve_q1": q1[0][name], "serve_q1_rank1": q1[1][name],
+                    "serve_q4": r0["serve"]["q4"]["launches"][name],
+                    "serve_q1_int8": r0["serve"]["q1_int8"]["launches"][name]}
+             for name in ("flash_prefill", "paged_attention")}
+    paths["flash_prefill"].update(generate=r0["tp_generate_launches"]["flash_prefill"],
+                                  pp=r0["pp_launches"]["flash_prefill"])
+    return rows, paths
+
+
 def synthetic_vocab(path: str, size: int, seed: int = 0):
     """A tokenizer model of `size` entries made from a seed: the markers,
     printable ASCII, then random merges of letters and spaces."""
@@ -3204,6 +3489,13 @@ def main() -> int:
         # The paged kernel of another checkout against this one's at
         # llama3-8b's shapes, then nothing else.
         paged_ab(torch, sys.argv[2], card)
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--parallel":
+        # The A9 phase alone (after the build), then nothing else.
+        _build.KernelLibrary.get()
+        rows, paths = parallel_phase(torch, Smoke(torch, card), card)
+        emit({"a9_kernels": {name: {"ms": row.get("ms", row.get("modes", {}).get(
+            "stacked", {}).get("ms")), "launches": paths[name]} for name, row in rows.items()}})
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel-ab":
         # The greedy head and fp32 flash prefill of another checkout against
@@ -3273,8 +3565,8 @@ def main() -> int:
                           s_args.max_seq_len // 16, [0, 100, 511, 1023], over_row=1,
                           quant=quant)
 
-    # ---- tinyllama-1.1b at full width and depth ---------------------------
-    t_args = preset("tinyllama-1.1b")
+    # ---- tinyllama-1.1b at full width, TINY_LAYERS of its 22 layers -------
+    t_args = preset("tinyllama-1.1b", n_layers=TINY_LAYERS)
     t_weights = synthetic_weights(t_args, seed=0)
     t_eng = Llama(t_weights, t_args, device="cuda")
     flash_row = smoke.flash_phase("tinyllama-1.1b", 1, 512, t_args.n_heads,
@@ -3351,7 +3643,7 @@ def main() -> int:
         emit({"phase": "cli", "dtype": dtype, "last_line": last,
               "stats": cli.stderr.strip().splitlines()[-1]})
 
-    # ---- serving: tinyllama-1.1b at full width and depth, paged cache -------
+    # ---- serving: tinyllama-1.1b at full width, paged cache ----------------
     nl = t_args.n_layers
     paged_row = smoke.paged_phase(
         "tinyllama-1.1b", 8, t_args.n_heads, t_args.kv_heads, t_args.head_dim, 16,
@@ -3444,6 +3736,9 @@ def main() -> int:
     del b_eng
     torch.cuda.empty_cache()
 
+    # ---- parallelism (A9): llama3-70b's widths over two ranks on the card ----
+    a9_rows, a9_paths = parallel_phase(torch, smoke, card)
+
     # ---- the fp16 kernel modes at llama3-8b's shapes ------------------------
     fp16_8b_shapes(torch, smoke)
 
@@ -3524,6 +3819,8 @@ def main() -> int:
                        (stacked(h_rows["paged_attention"]), h_paths["paged_attention"]),
                        (h_rows["decode_layers_i8"], h_paths["decode_layers_i8"]),
                        (stacked(h_rows["paged_attention_i8"]), h_paths["paged_attention_i8"]),
+                       (a9_rows["flash_prefill"], a9_paths["flash_prefill"]),
+                       (stacked(a9_rows["paged_attention"]), a9_paths["paged_attention"]),
                        *((stacked(r) if r["kernel"] == "paged_attention" else r,
                           kv_paths.get(key, {})) for key, r in kv_rows.items())):
         name = row["kernel"]

@@ -16,7 +16,9 @@ the host tooling: checkpoint converters (`checkpoint.convert_llama2c_bin`,
 (`Llama.save_generation_state` / `resume_generate`), the profiler trace
 and the debug tensor-stats trace (`observability`), LoRA adapters with
 multi-LoRA serving (`lora`, `BatchEngine(adapters=...)`), training
-(`train`), perplexity (`eval`) and token shards (`data`).  The kernels of these
+(`train`), perplexity (`eval`) and token shards (`data`), and tensor-,
+data- and pipeline-parallel engines over `torch.distributed`
+(`parallel`: `Llama(mesh=)`, `PipelinedLlama`, one process a rank).  The kernels of these
 paths (flash prefill attention, the fused batch-1 decode step, the greedy
 lm_head + argmax and paged decode attention, in float32, bf16 and float16,
 the decode step and paged attention also int8 and over caches of another

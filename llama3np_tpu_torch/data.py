@@ -115,10 +115,14 @@ def prefetch_to_device(it: Iterator[np.ndarray], size: int = 2, mesh=None,
     consumer's stream waits on that copy's event before the batch is
     handed out: the copy of batch k+1 overlaps the step on batch k, and no
     kernel reads a batch before its copy ends.  On the CPU the batches are
-    plain tensors."""
+    plain tensors.
+
+    With a `mesh` (`parallel.sharding.make_mesh`) each batch is this rank's
+    dp rows (a batch splits evenly over "dp"), on mesh.device (`device` is
+    not read): the rows the data-parallel train step of this rank takes,
+    as the JAX package commits a batch to the ("dp", None) sharding."""
     if mesh is not None:
-        raise NotImplementedError("prefetching onto a mesh is still to port "
-                                  "(ROADMAP A9)")
+        device, it = mesh.device, (mesh.dp_rows(b) for b in it)
     device = resolve_device(device)
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
 

@@ -35,7 +35,9 @@ CHUNK_BYTES = 1 << 30  # f32 logits reduced at a time
 
 class Scorer:
     """Bucketed teacher-forced scorer over a `Llama` engine, on its
-    device."""
+    device.  Over a sharded engine (`Llama(mesh=)`) every rank scores the
+    whole batch on its heads and vocabulary columns, and returns the same
+    numbers."""
 
     def __init__(self, engine, batch_size: int = 8, max_len: Optional[int] = None):
         self.engine = engine
@@ -49,7 +51,8 @@ class Scorer:
         P(ids[b, t+1] | ids[b, :t+1])."""
         eng, cfg = self.engine, self.engine.cfg
         B, L = ids.shape
-        row = init_cache(self.args, batch_size=B, max_seq_len=L, device=eng.device)
+        row = init_cache(self.args, batch_size=B, max_seq_len=L, device=eng.device,
+                         kv_heads=cfg.kv_heads)  # a tensor-parallel rank's own
         with torch.inference_mode():
             h, _ = forward_hidden(eng.params, ids, 0, row, eng.cos, eng.sin, cfg,
                                   first_chunk=True)
@@ -58,7 +61,8 @@ class Scorer:
             step = max(1, CHUNK_BYTES // (4 * self.args.vocab_size))
             out = torch.empty(B * (L - 1), dtype=torch.float32, device=ids.device)
             for s in range(0, out.shape[0], step):
-                lps = torch.log_softmax(lm_logits(eng.params, h[s : s + step]).float(), dim=-1)
+                lps = torch.log_softmax(lm_logits(eng.params, h[s : s + step],
+                                                  cfg.mesh).float(), dim=-1)
                 out[s : s + step] = torch.gather(lps, 1, labels[s : s + step, None])[:, 0]
         return out.reshape(B, L - 1)
 

@@ -37,7 +37,7 @@ def _last_logits(params, h, true_len: int, cfg: StaticConfig):
     """Logits at the last real prompt position (true_len - 1)."""
     h_last = ops.rms_norm(h[:, true_len - 1 : true_len], params["norm"],
                           cfg.norm_eps)
-    return lm_logits(params, h_last)
+    return lm_logits(params, h_last, cfg.mesh)
 
 
 def prefill_logits(params, ids_padded: torch.Tensor, true_len: int, cache,
@@ -195,6 +195,18 @@ def sample_token(logits: torch.Tensor, key: torch.Tensor,
     return torch.argmax(sample_scores(logits, key, sampling), dim=-1)
 
 
+def _sample(cfg: StaticConfig, logits: torch.Tensor, key: torch.Tensor,
+            sampling: Sampling) -> torch.Tensor:
+    """`sample_token` of the whole batch's rows: under a data-parallel
+    cfg.mesh the logits of every dp rank's rows are gathered first (the
+    Gumbel noise of a row depends on the batch it is drawn in), and this
+    rank's tokens are kept."""
+    m = cfg.mesh
+    if m is None or m.size("dp") == 1:
+        return sample_token(logits, key, sampling)
+    return m.dp_rows(sample_token(m.dp_gather_rows(logits), key, sampling))
+
+
 def _host_split(key):
     """`prng.split` of a key held as two Python ints (no device work)."""
     return [prng.threefry2x32(key[0], key[1], 0, i) for i in range(2)]
@@ -228,7 +240,7 @@ def sampled_decode_steps(params, tok: torch.Tensor, pos: int, cache, cos,
     for i in range(num_steps):
         logits, cache = forward(params, tok[:, None], pos + i, cache, cos,
                                 sin, cfg, first_chunk=False)
-        tok = sample_token(logits[:, -1, :], keys[i], sampling)
+        tok = _sample(cfg, logits[:, -1, :], keys[i], sampling)
         toks.append(tok)
     return torch.stack(toks, dim=1), cache
 
@@ -314,7 +326,7 @@ class Generator:
             keys = decode_keys(sampling, num_tokens - 1, L, M).to(eng.device)
             logits0, cache = prefill_logits(params, ids, L, cache, eng.cos,
                                             eng.sin, self.cfg)
-            tok0 = sample_token(logits0, keys[0], sampling)
+            tok0 = _sample(self.cfg, logits0, keys[0], sampling)
         else:
             tok0, cache = prefill_step(params, ids, L, cache, eng.cos, eng.sin,
                                        self.cfg)

@@ -51,13 +51,17 @@ def _zeros(shape, dt, quant, device) -> Dict[str, torch.Tensor]:
 def init_cache(args: ModelArgs, batch_size: Optional[int] = None,
                max_seq_len: Optional[int] = None, dtype=None,
                quant: Optional[str] = None, *,
-               device) -> Dict[str, torch.Tensor]:
+               device, kv_heads: Optional[int] = None,
+               n_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Allocate a zeroed dense KV cache for `args` on `device`.
     quant="int8" (the serving engine's kv_quant) stores int8 rows plus
-    per-(token, KV head) f32 scales "k_s"/"v_s" [NL, B, KVH, M]."""
+    per-(token, KV head) f32 scales "k_s"/"v_s" [NL, B, KVH, M].
+    `kv_heads` / `n_layers`: a sharded rank's own (its KV heads under
+    tensor parallelism, its stage's layers under pipelining)."""
     B = batch_size or args.max_batch_size
     M = max_seq_len or args.max_seq_len
-    shape = (args.n_layers, B, args.kv_heads, M, args.head_dim)
+    shape = (n_layers or args.n_layers, B, kv_heads or args.kv_heads, M,
+             args.head_dim)
     return _zeros(shape, torch_dtype(dtype or args.kv_dtype), quant, device)
 
 
@@ -79,7 +83,7 @@ def cache_nbytes(args: ModelArgs, batch_size: Optional[int] = None,
 
 def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
                      dtype=None, quant: Optional[str] = None, *,
-                     device) -> Dict[str, torch.Tensor]:
+                     device, kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Zeroed page pools on `device`; pages go to sequences on demand, so
     device memory holds the tokens that exist, not `capacity x max_seq_len`
     dense rows.
@@ -92,8 +96,10 @@ def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
     it, and every read from it is masked off by the row's length.
     quant="int8": int8 pools plus per-(token, KV head) f32 scale pools
     "k_s"/"v_s" [NL, P, KVH, page_size], about a quarter of the fp32 bytes.
+    `kv_heads`: a tensor-parallel rank's own KV heads.
     """
-    shape = (args.n_layers, num_pages, args.kv_heads, page_size, args.head_dim)
+    shape = (args.n_layers, num_pages, kv_heads or args.kv_heads, page_size,
+             args.head_dim)
     return _zeros(shape, torch_dtype(dtype or args.kv_dtype), quant, device)
 
 

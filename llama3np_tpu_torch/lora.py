@@ -39,8 +39,9 @@ import torch.nn.functional as F
 from . import prng
 from .checkpoint import _to_tensor, torch_dtype
 from .config import ModelArgs
-from .models.llama import (StaticConfig, _cache_from_numpy, _cache_to_numpy,
-                           _lora_delta, embed_tokens, resolve_device)
+from .models.llama import (ROW_SHARDED, StaticConfig, _cache_from_numpy,
+                           _cache_to_numpy, _lora_delta, embed_tokens,
+                           lm_logits, resolve_device, tensor_parallel)
 from .ops import core as ops
 from .train import cross_entropy, optimizer_step, run_layers
 
@@ -96,31 +97,50 @@ def lora_from_jax(tree: Dict, device) -> Dict:
 
 
 def _adapted(x: torch.Tensor, w: torch.Tensor, ll: Dict, t: str,
-             scale: float) -> torch.Tensor:
+             scale: float, mesh=None) -> torch.Tensor:
     """x @ w plus the low-rank update when target `t` is adapted, summed in
-    f32 and rounded once to x's dtype.  ll holds ONE layer's slices."""
-    y, d = ops._dot(x, w), _lora_delta(x, ll, t, scale)
+    f32 and rounded once to x's dtype.  ll holds ONE layer's slices.
+
+    Under a tensor-parallel `mesh` (the base and the adapters sharded by
+    `shard_lora`'s layout), with Megatron's pair of collectives so that
+    the gradients are the single device's: a row-sharded target (wo,
+    w_down) sums its partial x@w and x@A over "tp" in the forward
+    (`Mesh.tp_reduce`); a column-sharded one takes x, and x@A before this
+    rank's columns of B, through `Mesh.tp_copy`, whose backward sums the
+    gradient over "tp"."""
+    tp = tensor_parallel(mesh)
+    if tp is None or t in ROW_SHARDED:
+        y = ops._dot(x, w)
+        y = y if tp is None else tp.tp_reduce(y)
+        d = _lora_delta(x, ll, t, scale, mesh)
+    else:
+        y, d = ops._dot(tp.tp_copy(x), w), None
+        if f"{t}_a" in ll:
+            u = tp.tp_copy(ops._dot(x, ll[f"{t}_a"]))
+            d = scale * ops._dot(u.to(x.dtype), ll[f"{t}_b"])
     return (y if d is None else y + d).to(x.dtype)
 
 
 def _lora_block(cfg: StaticConfig, scale: float, cos, sin, h, lp, ll):
-    """One adapted transformer block of the training forward."""
+    """One adapted transformer block of the training forward (this rank's
+    heads and FFN columns under a tensor-parallel cfg.mesh)."""
     B, L = h.shape[:2]
+    m = cfg.mesh
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
-    q = _adapted(x, lp["wq"], ll, "wq", scale)
-    k = _adapted(x, lp["wk"], ll, "wk", scale)
-    v = _adapted(x, lp["wv"], ll, "wv", scale)
+    q = _adapted(x, lp["wq"], ll, "wq", scale, m)
+    k = _adapted(x, lp["wk"], ll, "wk", scale, m)
+    v = _adapted(x, lp["wv"], ll, "wv", scale, m)
     rope = ops.apply_rope_split if cfg.rope_split else ops.apply_rope
     q = rope(q.reshape(B, L, cfg.n_heads, cfg.head_dim), cos, sin)
     k = rope(k.reshape(B, L, cfg.kv_heads, cfg.head_dim), cos, sin)
     v = v.reshape(B, L, cfg.kv_heads, cfg.head_dim)
     attn = ops.causal_attention(q, k, v)
-    h = h + _adapted(attn.reshape(B, L, -1), lp["wo"], ll, "wo", scale)
+    h = h + _adapted(attn.reshape(B, L, -1), lp["wo"], ll, "wo", scale, m)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    gate = _adapted(z, lp["w_gate"], ll, "w_gate", scale)
-    up = _adapted(z, lp["w_up"], ll, "w_up", scale)
+    gate = _adapted(z, lp["w_gate"], ll, "w_gate", scale, m)
+    up = _adapted(z, lp["w_up"], ll, "w_up", scale, m)
     act = F.silu(gate.float()).to(z.dtype) * up
-    return h + _adapted(act, lp["w_down"], ll, "w_down", scale)
+    return h + _adapted(act, lp["w_down"], ll, "w_down", scale, m)
 
 
 def forward_train_lora(params: Dict, lora_layers: Dict, batch: torch.Tensor,
@@ -129,9 +149,12 @@ def forward_train_lora(params: Dict, lora_layers: Dict, batch: torch.Tensor,
     """`train.forward_train` with LoRA deltas on the adapted projections:
     logits [B, L, VS] in f32.  lora_layers: the stacked {t_a/t_b: [NL,
     ...]} dict (lora["layers"]); scale: alpha / rank; remat recomputes each
-    layer's activations in the backward (`torch.utils.checkpoint`)."""
+    layer's activations in the backward (`torch.utils.checkpoint`).  Under
+    a tensor-parallel cfg.mesh, params and lora_layers are this rank's
+    shards (`parallel.sharding.shard_params`, `shard_lora`) and the
+    logits are gathered to the whole vocabulary."""
     L = batch.shape[1]
-    h = embed_tokens(params, batch.long())
+    h = embed_tokens(params, batch.long(), cfg.mesh)
     ly = params["layers"]
 
     def layer(i):
@@ -141,7 +164,7 @@ def forward_train_lora(params: Dict, lora_layers: Dict, batch: torch.Tensor,
     h = run_layers(lambda h, lp, ll: _lora_block(cfg, scale, cos[:L], sin[:L], h, lp, ll),
                    h, ly["wo"].shape[0], layer, remat)
     h = ops.rms_norm(h, params["norm"], cfg.norm_eps)
-    return ops._dot(h, params["lm_head"])
+    return lm_logits(params, h, cfg.mesh)
 
 
 def lora_loss(lora_layers: Dict, params: Dict, batch: torch.Tensor, cos, sin,
@@ -159,11 +182,15 @@ def make_lora_train_step(optimizer, cfg: StaticConfig, scale: float,
     opt_state, loss): one AdamW step of the adapters (`optimizer` from
     `train.init_optimizer(lora["layers"])`, which owns those tensors and
     updates them in place).  The base `params` is a frozen input: no
-    gradient, no optimizer state."""
+    gradient, no optimizer state.  Under cfg.mesh (a dp x tp mesh; cfg,
+    params and the adapters this rank's: `parallel.sharding.local_config`,
+    `shard_params`, `shard_lora`), `batch` is this rank's dp rows
+    (`data.prefetch_to_device(mesh=)`), the gradients are averaged over
+    "dp" before the step, and the loss is the whole batch's."""
 
     def train_step(lora_layers, opt_state, params, batch, cos, sin):
         loss = optimizer_step(optimizer, lora_layers, lambda: lora_loss(
-            lora_layers, params, batch, cos, sin, cfg, scale, remat))
+            lora_layers, params, batch, cos, sin, cfg, scale, remat), cfg.mesh)
         return lora_layers, opt_state, loss
 
     return train_step
@@ -191,11 +218,50 @@ def load_lora(path: str, device="cuda") -> Dict:
 
 
 def lora_pspecs(lora: Dict):
-    raise NotImplementedError("sharded LoRA is still to port (ROADMAP A9)")
+    """Spec tree (`parallel.sharding`'s tuples) for lora["layers"],
+    composing with the base tensor-parallel layout (`param_pspecs`):
+
+      * column-sharded weights (wq/wk/wv/w_gate/w_up, output axis over
+        "tp"): A replicates (its input axis matches the replicated
+        activations), B shards its OUTPUT columns over "tp", so the
+        low-rank delta lands sharded exactly like the base product.
+      * row-sharded weights (wo/w_down, input axis over "tp"): A shards its
+        INPUT rows over "tp" (matching the sharded activations entering
+        the base product), so x@A is a partial sum taken over "tp" before
+        B; B replicates.
+    """
+    specs = {}
+    for t in lora["targets"]:
+        if t in ROW_SHARDED:
+            specs[f"{t}_a"] = (None, "tp", None)
+            specs[f"{t}_b"] = (None, None, None)
+        else:
+            specs[f"{t}_a"] = (None, None, None)
+            specs[f"{t}_b"] = (None, None, "tp")
+    return specs
+
+
+def local_lora_layers(layers: Dict, mesh) -> Dict:
+    """Views of this rank's shards of adapter factors (an adapter tree's
+    [NL, ...] or a serving bank's [NL, NA, ...]): what the forward of a
+    tensor-parallel engine reads from a bank every rank holds whole."""
+    out = {}
+    for name, leaf in layers.items():
+        t, kind = name.rsplit("_", 1)
+        axis = leaf.ndim - 2 if kind == "a" else leaf.ndim - 1
+        idx = [slice(None)] * leaf.ndim
+        if (t in ROW_SHARDED) == (kind == "a"):
+            idx[axis] = slice(*mesh.tp_range(leaf.shape[axis]))
+        out[name] = leaf[tuple(idx)]
+    return out
 
 
 def shard_lora(lora: Dict, mesh) -> Dict:
-    raise NotImplementedError("sharded LoRA is still to port (ROADMAP A9)")
+    """This rank's shards of an adapter tree under `lora_pspecs`, each
+    copied onto mesh.device (so that its own tensors train)."""
+    layers = {name: leaf.to(mesh.device).clone(memory_format=torch.contiguous_format)
+              for name, leaf in local_lora_layers(lora["layers"], mesh).items()}
+    return {**lora, "layers": layers}
 
 
 def permute_lora_rope_layout(lora: Dict, args: ModelArgs) -> Dict:

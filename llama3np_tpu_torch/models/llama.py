@@ -61,6 +61,8 @@ class StaticConfig(NamedTuple):
     kernels: bool = False        # CUDA kernels: flash prefill, fused decode,
                                  # paged attention
     fused: bool = True           # wqkv / wgu instead of wq/wk/wv, w_gate/w_up
+    mesh: Optional[object] = None  # parallel.sharding.Mesh: a sharded engine,
+                                   # whose n_heads/kv_heads are this rank's
 
     @classmethod
     def from_args(cls, args: ModelArgs, device) -> "StaticConfig":
@@ -77,10 +79,24 @@ class StaticConfig(NamedTuple):
                    fused=args.fuse_matmuls)
 
 
-def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
+def tensor_parallel(mesh):
+    """`mesh` when it splits the model over "tp" ranks, else None."""
+    return mesh if mesh is not None and mesh.size("tp") > 1 else None
+
+
+def embed_tokens(params: Dict, ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """Embedding gather: ids [...] int64 -> [..., D]; an int8 or int4 row
     is multiplied by its row scale after the gather (a packed int4 row is
-    unpacked after it)."""
+    unpacked after it).  Under a tensor-parallel `mesh` the table holds
+    this rank's vocabulary rows: ids outside them gather zeros, and the
+    sum over "tp" is the whole gather (exact)."""
+    tp = tensor_parallel(mesh)
+    if tp is not None:
+        lo = tp.index("tp") * params["tok_embedding"].shape[0]
+        local = ids - lo
+        inside = (local >= 0) & (local < params["tok_embedding"].shape[0])
+        h = embed_tokens(params, torch.where(inside, local, 0))
+        return tp.tp_reduce(h * inside[..., None].to(h.dtype))
     s = params.get("tok_embedding_scale")
     if s is None:
         return F.embedding(ids, params["tok_embedding"])
@@ -91,11 +107,18 @@ def embed_tokens(params: Dict, ids: torch.Tensor) -> torch.Tensor:
     return h.to(params["norm"].dtype)
 
 
-def lm_logits(params: Dict, h: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Dict, h: torch.Tensor, mesh=None) -> torch.Tensor:
     """Final projection to vocab logits [.., VS] in f32 (an int8 or int4
     lm_head post-scales its columns); checked for NaN/Inf inside
-    `observability.debug_mode`."""
+    `observability.debug_mode`.  Under a tensor-parallel `mesh` the head
+    holds this rank's vocabulary columns, and the logits are gathered to
+    the whole vocabulary on every rank (exact)."""
+    tp = tensor_parallel(mesh)
+    if tp is not None:
+        h = tp.tp_copy(h)
     logits = ops._scaled_dot(h, params["lm_head"], params.get("lm_head_scale"))
+    if tp is not None:
+        logits = tp.tp_gather(logits)
     check_finite(logits, "logits")
     return logits
 
@@ -120,16 +143,33 @@ def _qkv(x: torch.Tensor, lp: Dict, cfg: "StaticConfig"):
     return _split_qkv(x, lp, cfg)
 
 
-def _lora_delta(x: torch.Tensor, ll: Dict, t: str, scale) -> Optional[torch.Tensor]:
+ROW_SHARDED = ("wo", "w_down")  # tensor parallelism splits their input rows
+
+
+def _lora_delta(x: torch.Tensor, ll: Dict, t: str, scale,
+                mesh=None) -> Optional[torch.Tensor]:
     """Low-rank serving delta scale * (x@A)@B in f32 for ONE layer's
     factors, the rank-r product's input rounded to x's dtype; None when `t`
     is not an adapted target.  ll[f"{t}_a"] [in, r] / ll[f"{t}_b"] [r, out]
     are one adapter's (an admission), or [B, in, r] / [B, r, out] each row's
-    own against x [B, 1, in] (a ragged step)."""
+    own against x [B, 1, in] (a ragged step).  Under a tensor-parallel
+    `mesh` the factors are this rank's (`lora.shard_lora`'s layout): a
+    row-sharded target's x@A is a partial sum, summed over "tp" in f32
+    before the rounding, and its delta is whole; a column-sharded target's
+    delta is this rank's columns."""
     if f"{t}_a" not in ll:
         return None
     u = ops._dot(x, ll[f"{t}_a"])
+    tp = tensor_parallel(mesh)
+    if tp is not None and t in ROW_SHARDED:
+        u = tp.tp_reduce(u)
     return scale * ops._dot(u.to(x.dtype), ll[f"{t}_b"])
+
+
+def _reduce(cfg: "StaticConfig"):
+    """The "tp" sum of a row-sharded product's partial, or None."""
+    tp = tensor_parallel(cfg.mesh)
+    return None if tp is None else tp.tp_reduce
 
 
 def _add_qkv_deltas(q, k, v, x, delta):
@@ -157,7 +197,7 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
     lora_cb = None
     if ll is not None:
         def lora_cb(t, xin):
-            return _lora_delta(xin, ll, t, lora_scale)
+            return _lora_delta(xin, ll, t, lora_scale, cfg.mesh)
         q, k, v = _add_qkv_deltas(q, k, v, x, lora_cb)
     rope = ops.apply_rope_split if cfg.rope_split else ops.apply_rope
     q = rope(q, cos, sin)
@@ -182,7 +222,7 @@ def _layer_step(cfg: StaticConfig, first_chunk: bool, pos: int, cos, sin,
     else:
         attn = ops.cache_attention(q, ck, cv, pos)
     h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale"),
-                             lora=lora_cb).to(h.dtype)
+                             lora=lora_cb, reduce=_reduce(cfg)).to(h.dtype)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
     return h + _ffn(z, lp, cfg, lora_cb)
 
@@ -193,7 +233,7 @@ def _ffn(z: torch.Tensor, lp: Dict, cfg: StaticConfig, lora=None) -> torch.Tenso
                              lp.get("w_down_scale"))
     return ops.swiglu(z, lp["w_gate"], lp["w_up"], lp["w_down"],
                       lp.get("w_gate_scale"), lp.get("w_up_scale"),
-                      lp.get("w_down_scale"), lora=lora)
+                      lp.get("w_down_scale"), lora=lora, reduce=_reduce(cfg))
 
 
 def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
@@ -208,7 +248,7 @@ def forward_hidden(params: Dict, input_ids: torch.Tensor, pos: int,
     through its adapter.
     """
     L = input_ids.shape[1]
-    h = embed_tokens(params, input_ids)
+    h = embed_tokens(params, input_ids, cfg.mesh)
     cos_l, sin_l = cos[pos : pos + L], sin[pos : pos + L]
     layers = params["layers"]
     for i in range(layers["wo"].shape[0]):
@@ -227,7 +267,7 @@ def forward(params: Dict, input_ids: torch.Tensor, pos: int, cache: Dict,
     h, cache = forward_hidden(params, input_ids, pos, cache, cos, sin, cfg,
                               first_chunk)
     h = ops.rms_norm(h[:, -1:, :], params["norm"], cfg.norm_eps)
-    return lm_logits(params, h), cache
+    return lm_logits(params, h, cfg.mesh), cache
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +333,7 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
     kc_all, vc_all = cache["k"], cache["v"]
     ks_all, vs_all = cache.get("k_s"), cache.get("v_s")
     NL, kv_dt = kc_all.shape[0], kc_all.dtype
-    h = embed_tokens(params, tokens.long()[:, None])  # [B, 1, D]
+    h = embed_tokens(params, tokens.long()[:, None], cfg.mesh)  # [B, 1, D]
     # Rows that overran max_seq_len mid-quantum take the last table row;
     # their outputs are discarded (the JAX package reads NaN there).
     pc = pos.long().clamp(0, cos.shape[0] - 1)
@@ -323,7 +363,7 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
             ll = {name: rows[li] for name, rows in lora_rows.items()}  # [B, ...]
 
             def lora_cb(t, xin, ll=ll):
-                return _lora_delta(xin, ll, t, lora["scale"])
+                return _lora_delta(xin, ll, t, lora["scale"], cfg.mesh)
             q, k, v = _add_qkv_deltas(q, k, v, x, lora_cb)
         q = rope_rows(q)
         k = rope_rows(k)
@@ -358,13 +398,13 @@ def forward_ragged_decode(params: Dict, tokens: torch.Tensor,
                 k_scale=None if ks_all is None else ks_all[li],
                 v_scale=None if vs_all is None else vs_all[li], **cols)
         h = h + ops.fused_o_proj(attn, lp["wo"], lp.get("wo_scale"),
-                                 lora=lora_cb).to(h.dtype)
+                                 lora=lora_cb, reduce=_reduce(cfg)).to(h.dtype)
         z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
         h = h + _ffn(z, lp, cfg, lora_cb)
         new_rows.append(cur)
     rows = tuple(torch.stack(r) for r in zip(*new_rows))  # [NL, B, KVH, ...]
     logits = lm_logits(params, ops.rms_norm(h[:, -1, :], params["norm"],
-                                            cfg.norm_eps))
+                                            cfg.norm_eps), cfg.mesh)
     if not commit:
         return logits, rows
     if block_table is not None:
@@ -630,26 +670,42 @@ class Llama:
     `save_generation_state` / `resume_generate` write and continue a
     greedy generation in the JAX package's file format (the cache, the
     last position and last tokens), so either package resumes the other's
-    file."""
+    file.
+
+    `mesh` (`parallel.sharding.make_mesh`, in every rank of a
+    torch.distributed group) makes the engine this rank's part of a
+    tensor- and data-parallel one, as the JAX engine's `mesh=`: the split
+    layout (quantized whole, then sharded: each scale is that of the
+    whole column), this rank's shards on `mesh.device` (the `device`
+    argument is not read), caches of this rank's KV heads (and dp rows),
+    and the model's collectives at the row-sharded products, the
+    embedding and the logits.  On the card its prefill runs the flash
+    kernel and its paged serving steps the paged kernel, on this rank's
+    heads; its decode runs the split layout's plain forward (the fused
+    decode kernel has no point between wo and the FFN for the sum).
+    Every rank returns the same tokens and logits."""
+
+    mesh = None  # a sharded engine's parallel.sharding.Mesh
 
     def __init__(self, model_source: Union[str, Dict], args: ModelArgs,
-                 device="cuda", precision: Optional[str] = None):
+                 device="cuda", precision: Optional[str] = None, mesh=None):
         if precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {_PRECISIONS}, not {precision!r}")
         self.args = args.validate()
-        fused = args.fuse_matmuls
+        fused = args.fuse_matmuls and mesh is None
         if args.quant == "int4" and fused:
             raise ValueError(
                 "quant='int4' runs the unfused split layout (the fused "
                 "decode kernel consumes int8 blocks only); set "
                 "fuse_matmuls=False")
-        self.device = resolve_device(device)
-        self.cfg = StaticConfig.from_args(args, self.device)
         weights = (load_parameters(model_source)
                    if isinstance(model_source, str) else model_source)
         tree = build_param_tree(weights, args)
         if args.rope_split_layout:
             tree = permute_rope_layout(tree, args)
+        # A sharded engine quantizes the whole split tree, then shards it
+        # (scales with their weights), as the JAX engine's `mesh=`.
+        qdev = resolve_device(device if mesh is None else mesh.device)
         if fused:
             tree = fuse_param_tree(tree)
         if args.quant:
@@ -660,25 +716,90 @@ class Llama:
             # cast before it quantizes.
             tree = quantize_param_tree(
                 tree, bits=4 if args.quant == "int4" else 8,
-                device=self.device if self.device.type == "cuda" else None,
-                dtype=args.dtype)
+                device=qdev if qdev.type == "cuda" else None, dtype=args.dtype)
+        if mesh is not None:
+            self._init_mesh(tree, mesh, args.rope_split_layout, args.dtype)
+            return
+        self.device = qdev
+        self.cfg = StaticConfig.from_args(args, self.device)
         self._finish_init(params_to_device(tree, self.device, args.dtype))
 
     @classmethod
-    def from_quantized(cls, path: str, args: ModelArgs, device="cuda") -> "Llama":
+    def from_quantized(cls, path: str, args: ModelArgs, device="cuda",
+                       mesh=None) -> "Llama":
         """Boot from a quantized checkpoint (`checkpoint.save_quantized_npz`,
         or the JAX package's file of the same name): the tree loads as it
         is, each leaf in its own dtype (no float32 staging, no
         re-quantization), and runs the split layout's paths, as the JAX
-        package's single-device `from_quantized`."""
+        package's `from_quantized`: single-device, or this rank's shards of
+        it (scales with their weights) under `mesh`."""
         params, rope_split = load_quantized_npz(path)
         self = cls.__new__(cls)
         self.args = args.validate()
+        if mesh is not None:
+            self._init_mesh(params, mesh, rope_split, None)
+            return self
         self.device = resolve_device(device)
         self.cfg = StaticConfig.from_args(args, self.device)._replace(
             rope_split=rope_split, fused="wqkv" in params["layers"])
         self._finish_init(params_to_device(params, self.device))
         return self
+
+    @classmethod
+    def from_param_tree(cls, params: Dict, args: ModelArgs, device="cuda",
+                        mesh=None) -> "Llama":
+        """An engine over a parameter tree already in the engine's layout
+        (`build_param_tree` [+ `permute_rope_layout`, as
+        args.rope_split_layout says] [+ `fuse_param_tree`] [+
+        `quantize_param_tree`]; numpy leaves, or
+        tensors on any device): single-device on `device`, the leaves cast
+        to args.dtype (scales and integer codes kept), or under `mesh`
+        this rank's shards of a split tree, copied."""
+        self = cls.__new__(cls)
+        self.args = args.validate()
+        if mesh is not None:
+            self._init_mesh(params, mesh, args.rope_split_layout, args.dtype)
+            return self
+        self.device = resolve_device(device)
+        self.cfg = StaticConfig.from_args(args, self.device)._replace(
+            fused="wqkv" in params["layers"])
+        self._finish_init(params_to_device(params, self.device, args.dtype))
+        return self
+
+    @classmethod
+    def from_sharded_checkpoint(cls, model_path: str, args: ModelArgs, mesh,
+                                precision: Optional[str] = None) -> "Llama":
+        """This rank's part of a tensor-parallel engine, read from a
+        reference-schema .npz slice by slice
+        (`parallel.sharding.load_param_tree_sharded`: host memory peaks at
+        one layer's shard, not the checkpoint).  The 70B-class load path;
+        no RoPE permutation, as the JAX package's."""
+        from ..parallel.sharding import load_param_tree_sharded
+        if precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}, not {precision!r}")
+        self = cls.__new__(cls)
+        self.args = args.validate()
+        self._set_mesh(mesh, rope_split=False)
+        self._finish_init(load_param_tree_sharded(model_path, args, mesh))
+        return self
+
+    def _set_mesh(self, mesh, rope_split: bool):
+        from ..parallel.sharding import local_config, validate_tp
+        validate_tp(self.args, mesh)
+        self.mesh, self.device = mesh, resolve_device(mesh.device)
+        self.cfg = local_config(StaticConfig.from_args(self.args, self.device)._replace(
+            rope_split=rope_split, fused=False), mesh)
+
+    def _init_mesh(self, tree: Dict, mesh, rope_split: bool, dtype):
+        """This rank's shards of a split tree (float, or quantized with its
+        scales), float leaves cast to `dtype` (None: kept)."""
+        from ..parallel.sharding import shard_params
+        self._set_mesh(mesh, rope_split)
+        if "wqkv" in tree["layers"]:
+            raise ValueError("a sharded engine runs the split layout; give it an "
+                             "unfused tree (fuse_matmuls=False)")
+        params = shard_params(tree, mesh, self.args)
+        self._finish_init(params_to_device(params, self.device, dtype))
 
     def _finish_init(self, params: Dict):
         args = self.args
@@ -714,7 +835,17 @@ class Llama:
     # -- cache --------------------------------------------------------------
 
     def init_cache(self, batch_size: Optional[int] = None) -> Dict:
-        return init_cache(self.args, batch_size, device=self.device)
+        """The dense cache for `batch_size` rows (default max_batch_size):
+        under a mesh this rank's dp rows and KV heads."""
+        B = batch_size or self.args.max_batch_size
+        if self.mesh is not None:
+            dp = self.mesh.size("dp")
+            if B % dp:
+                raise ValueError(f"batch {B} must divide over dp={dp} (the dense "
+                                 f"cache shards its rows)")
+            B //= dp
+        return init_cache(self.args, B, device=self.device,
+                          kv_heads=self.cfg.kv_heads)
 
     def reset(self):
         self.cache = self.init_cache()
@@ -724,13 +855,17 @@ class Llama:
     def __call__(self, input_ids, start_pos: int) -> np.ndarray:
         """Reference API: logits [B, 1, VS] for the last position, updating
         the engine's persistent KV cache."""
-        ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
-                              device=self.device)
+        ids = np.asarray(input_ids)
+        if self.mesh is not None:
+            ids = self.mesh.dp_rows(ids)
+        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         first = start_pos == 0 and ids.shape[1] > 1
         logits, self.cache = forward(self.params, ids, int(start_pos),
                                      self.cache, self.cos, self.sin, self.cfg,
                                      first)
         self._check_cache()
+        if self.mesh is not None:
+            logits = self.mesh.dp_gather_rows(logits)
         return logits.cpu().numpy()
 
     def _check_cache(self):
@@ -764,10 +899,13 @@ class Llama:
         if self._gen is None:
             self._gen = Generator(self)
         ids = np.asarray(input_ids)
+        local = ids if self.mesh is None else self.mesh.dp_rows(ids)
         toks, self.cache = self._gen.generate(
-            self.params, ids, self.init_cache(ids.shape[0]), num_tokens,
+            self.params, local, self.init_cache(ids.shape[0]), num_tokens,
             sampling=sampling)
         self._check_cache()
+        if self.mesh is not None:
+            toks = self.mesh.dp_gather_rows(toks)
         if num_tokens > 0:
             self._last_pos = ids.shape[1] + num_tokens - 1
             self._last_tokens = toks[:, -1].cpu().numpy()
@@ -780,14 +918,20 @@ class Llama:
         `generate_tokens` call as the JAX package's .npz (`cache_k`,
         `cache_v`, `pos`, `last_tokens`).  A bf16 cache is written as its
         2-byte payload, the bytes the JAX package writes for its
-        ml_dtypes array."""
+        ml_dtypes array.  A sharded engine gathers the whole cache (its KV
+        heads over "tp", its rows over "dp") and rank 0 writes the file;
+        every rank returns once it is written."""
         if self._last_tokens is None:
             raise ValueError("no generation to save; call generate_tokens first")
-        np.savez(path,
-                 cache_k=_cache_to_numpy(self.cache["k"]),
-                 cache_v=_cache_to_numpy(self.cache["v"]),
-                 pos=np.int32(self._last_pos),
-                 last_tokens=np.asarray(self._last_tokens, np.int32))
+        k, v, m = self.cache["k"], self.cache["v"], self.mesh
+        if m is not None:
+            k, v = (m.gather_dim(m.gather_dim(c, 2, "tp"), 1, "dp") for c in (k, v))
+        if m is None or m.rank == 0:
+            np.savez(path, cache_k=_cache_to_numpy(k), cache_v=_cache_to_numpy(v),
+                     pos=np.int32(self._last_pos),
+                     last_tokens=np.asarray(self._last_tokens, np.int32))
+        if m is not None:
+            m.barrier()
 
     def resume_generate(self, path: str, num_tokens: int) -> torch.Tensor:
         """Continue greedy decoding from a saved generation state (either
@@ -795,21 +939,28 @@ class Llama:
         engine's device.  The saved `pos` is the position of the last
         generated token: resuming forwards that token at `pos` (writing its
         K/V) and continues the stream exactly.  On the card a batch-1
-        resume runs the decode kernel over the restored cache."""
+        resume runs the decode kernel over the restored cache.  A sharded
+        engine takes its shards of the cache and its dp rows."""
         from ..generate import Generator
         state = np.load(path)
         pos = int(state["pos"])
         if pos + 1 + num_tokens > self.args.max_seq_len:
             raise ValueError("resume would exceed max_seq_len")
-        self.cache = {"k": _cache_from_numpy(state["cache_k"], self.device),
-                      "v": _cache_from_numpy(state["cache_v"], self.device)}
+        cache = {"k": _cache_from_numpy(state["cache_k"], self.device),
+                 "v": _cache_from_numpy(state["cache_v"], self.device)}
+        last = np.asarray(state["last_tokens"], np.int64)
+        if self.mesh is not None:
+            from ..parallel.sharding import shard_cache
+            cache, last = shard_cache(cache, self.mesh), self.mesh.dp_rows(last)
+        self.cache = cache
         if self._gen is None:
             self._gen = Generator(self)
-        tok = torch.as_tensor(np.asarray(state["last_tokens"], np.int64),
-                              device=self.device)
+        tok = torch.as_tensor(last, device=self.device)
         toks, self.cache = self._gen.decode_fn(num_tokens, tok.shape[0])(
             self.params, tok, pos, self.cache, self.cos, self.sin)
         self._check_cache()
+        if self.mesh is not None:
+            toks = self.mesh.dp_gather_rows(toks)
         self._last_pos = pos + num_tokens
         self._last_tokens = toks[:, -1].cpu().numpy()
         return toks

@@ -97,24 +97,29 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(ms + eps)).to(x.dtype) * w
 
 
-def _scaled_dot(a: torch.Tensor, w: torch.Tensor, s=None) -> torch.Tensor:
+def _scaled_dot(a: torch.Tensor, w: torch.Tensor, s=None, reduce=None) -> torch.Tensor:
     """a @ w in f32, post-multiplied by the per-output scale `s` of an int8
     or packed int4 weight (None for a float weight; an int4 weight's
-    columns are its scale's)."""
-    if s is None:
-        return _dot(a, w)
-    return _dot(a, w, s.shape[-1]) * s
+    columns are its scale's).  `reduce`: the sum over tensor-parallel
+    ranks of a row-sharded weight's f32 partial product, taken before the
+    scale (reduce, then scale: the scale is replicated)."""
+    out = _dot(a, w) if s is None else _dot(a, w, s.shape[-1])
+    if reduce is not None:
+        out = reduce(out)
+    return out if s is None else out * s
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor, s_gate=None, s_up=None,
-           s_down=None, lora=None) -> torch.Tensor:
+           s_down=None, lora=None, reduce=None) -> torch.Tensor:
     """SwiGLU FFN on split weights: down( silu(x@gate) * (x@up) ).  int8
     weights pass their scales; gate's applies before the SiLU.
 
     `lora`: optional callback (target name, input) -> f32 delta or None:
     a serving adapter's delta adds after the scale and before the SiLU or
-    the cast (multi-LoRA serving, models/llama.py)."""
+    the cast (multi-LoRA serving, models/llama.py).  `reduce`: the sum
+    over tensor-parallel ranks of the row-sharded down product, in f32
+    before its scale and the cast (`_scaled_dot`)."""
     gate = _scaled_dot(x, w_gate, s_gate)
     up = _scaled_dot(x, w_up, s_up)
     if lora is not None:
@@ -122,7 +127,7 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         gate = gate if dg is None else gate + dg
         up = up if du is None else up + du
     h = (F.silu(gate) * up).to(x.dtype)
-    out = _scaled_dot(h, w_down, s_down)
+    out = _scaled_dot(h, w_down, s_down, reduce)
     if lora is not None:
         dd = lora("w_down", h)
         out = out if dd is None else out + dd
@@ -145,14 +150,15 @@ def fused_qkv(x: torch.Tensor, wqkv: torch.Tensor, n_heads: int,
 
 
 def fused_o_proj(attn: torch.Tensor, wo: torch.Tensor,
-                 scale=None, lora=None) -> torch.Tensor:
+                 scale=None, lora=None, reduce=None) -> torch.Tensor:
     """Output projection: attn [B, L, NH, HD] with wo [QD, D] (int8 with its
     [1, D] `scale`); returns [B, L, D] in f32 (the caller casts, as in the
     JAX package).  `lora`: optional ("wo", input) -> f32 delta callback,
-    added after the scale (split layout only)."""
+    added after the scale (split layout only).  `reduce`: the sum over
+    tensor-parallel ranks of the row-sharded product (`_scaled_dot`)."""
     B, L = attn.shape[:2]
     flat = attn.reshape(B, L, -1)
-    out = _scaled_dot(flat, wo, scale)
+    out = _scaled_dot(flat, wo, scale, reduce)
     d = None if lora is None else lora("wo", flat)
     return out if d is None else out + d
 

@@ -47,7 +47,13 @@ the next admission.
     prefills through that adapter, and co-tenant rows decode through
     different adapters in one ragged step (per-row low-rank deltas).
 
-Still to port, raising NotImplementedError: tensor-parallel serving (A9).
+  * Tensor parallelism (an engine built with `mesh=`, ROADMAP A9): every
+    rank runs this same scheduler (queue, block tables, sampling keys,
+    quanta) over pools of its own KV heads; the model's collectives make
+    every rank's logits the same, so every rank picks the same tokens and
+    returns the same results.  The pools do not split over "dp": a whole
+    engine is the unit of data parallelism
+    (`parallel.sharding.serving_cache_pspecs`).
 """
 
 from __future__ import annotations
@@ -272,10 +278,15 @@ class BatchEngine:
             self.lora_bank = stack_adapters(on_dev, self.args,
                                             rope_split=self.cfg.rope_split,
                                             dtype=self.args.dtype)
+        # The factors the forward reads: under a mesh every rank holds the
+        # whole bank and reads its shards' slices of it (views, in
+        # `lora.shard_lora`'s layout).
+        self._bank_view = self.lora_bank
+        if adapters and self.cfg.mesh is not None:
+            from .lora import local_lora_layers
+            self._bank_view = {**self.lora_bank, "layers": local_lora_layers(
+                self.lora_bank["layers"], self.cfg.mesh)}
         self.adapter_ids = np.zeros(capacity, np.int32)
-        if self.args.mesh_tp > 1 or self.args.mesh_dp > 1:
-            raise NotImplementedError("sharded serving is still to port "
-                                      "(ROADMAP A9)")
         if admit_chunk is not None:
             # Chunked admission parks the slot on an all-zero block table:
             # interleaved decode steps write its K/V into the null page,
@@ -296,14 +307,15 @@ class BatchEngine:
                 num_pages = 1 + capacity * self.max_pages
             self.allocator = PageAllocator(num_pages)
             self.cache = init_paged_cache(self.args, num_pages, page_size,
-                                          quant=kv_quant, device=self.device)
+                                          quant=kv_quant, device=self.device,
+                                          kv_heads=self.cfg.kv_heads)
             self.block_tables = np.zeros((capacity, self.max_pages), np.int32)
             self._pages: List[List[int]] = [[] for _ in range(capacity)]
             # Reserved-but-unallocated worst-case tail pages per slot.
             self._future_pages = np.zeros(capacity, np.int64)
         else:
             self.cache = init_cache(self.args, capacity, quant=kv_quant,
-                                    device=self.device)
+                                    device=self.device, kv_heads=self.cfg.kv_heads)
         self._registry = PrefixRegistry(page_size) if prefix_cache else None
         self.pos = np.zeros(capacity, np.int32)     # next write position
         self.tokens = np.zeros(capacity, np.int32)  # last token per slot
@@ -422,7 +434,7 @@ class BatchEngine:
         if self.lora_bank is None:
             return None
         from .lora import bank_adapter_slice
-        return bank_adapter_slice(self.lora_bank, req.adapter)
+        return bank_adapter_slice(self._bank_view, req.adapter)
 
     def _admit_row(self, slot: int, req: Request, padded, L: int,
                    n_hit: int = 0, shared: Optional[list] = None):
@@ -600,7 +612,7 @@ class BatchEngine:
         tokens, pos = self._dev(self.tokens), self._dev(self.pos)
         bank = {}
         if self.lora_bank is not None:
-            bank = {"lora": self.lora_bank, "adapter_ids": self._dev(self.adapter_ids)}
+            bank = {"lora": self._bank_view, "adapter_ids": self._dev(self.adapter_ids)}
         sampled = self._sampling_active()
         lp = None  # (chosen_lp [B, q], top_ids [B, q, K], top_lps [B, q, K])
         if quantum == 1:

@@ -108,7 +108,7 @@ class SpeculativeGenerator:
         h, _ = forward_hidden(t.params, window, pos, t_cache, t.cos, t.sin,
                               t.cfg, first_chunk=False)
         h = ops.rms_norm(h, t.params["norm"], t.cfg.norm_eps)
-        return torch.argmax(lm_logits(t.params, h)[0], dim=-1)
+        return torch.argmax(lm_logits(t.params, h, t.cfg.mesh)[0], dim=-1)
 
     def generate_tokens(self, input_ids, num_tokens: int) -> np.ndarray:
         """Greedy tokens [1, num_tokens] (a host int32 array), the

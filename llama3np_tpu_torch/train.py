@@ -8,6 +8,13 @@ same roundings to the activation dtype.  Gradients come from autograd, as
 the JAX package's from `jax.value_and_grad`.  Parameters and optimizer
 state live in the tensors themselves: a train step updates them in place
 and returns them, where the JAX step returns new arrays.
+
+Over a dp x tp mesh (cfg.mesh, `parallel.sharding.local_config`) the
+parameters are this rank's shards and the batch its dp rows: the forward
+takes Megatron's pair of collectives (`Mesh.tp_copy` into the
+column-sharded products, `Mesh.tp_reduce` out of the row-sharded ones) so
+that autograd gives each shard the single device's gradient, and the step
+averages the gradients over "dp" before the update.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .models.llama import StaticConfig, embed_tokens
+from .models.llama import StaticConfig, embed_tokens, lm_logits, tensor_parallel
 from .ops import core as ops
 
 
@@ -37,7 +44,9 @@ def run_layers(block, h: torch.Tensor, n_layers: int, layer, remat: bool):
 
 def _block(cfg: StaticConfig, cos, sin, h: torch.Tensor, lp: Dict) -> torch.Tensor:
     B, L = h.shape[:2]
+    tp = tensor_parallel(cfg.mesh)
     x = ops.rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+    x = x if tp is None else tp.tp_copy(x)
     q = ops._dot(x, lp["wq"]).to(x.dtype)
     k = ops._dot(x, lp["wk"]).to(x.dtype)
     v = ops._dot(x, lp["wv"]).to(x.dtype)
@@ -46,9 +55,11 @@ def _block(cfg: StaticConfig, cos, sin, h: torch.Tensor, lp: Dict) -> torch.Tens
     k = rope(k.reshape(B, L, cfg.kv_heads, cfg.head_dim), cos, sin)
     v = v.reshape(B, L, cfg.kv_heads, cfg.head_dim)
     attn = ops.causal_attention(q, k, v)
-    h = h + ops._dot(attn.reshape(B, L, -1), lp["wo"]).to(h.dtype)
+    reduce = None if tp is None else tp.tp_reduce
+    h = h + ops._scaled_dot(attn.reshape(B, L, -1), lp["wo"], None, reduce).to(h.dtype)
     z = ops.rms_norm(h, lp["ffn_norm"], cfg.norm_eps)
-    return h + ops.swiglu(z, lp["w_gate"], lp["w_up"], lp["w_down"])
+    z = z if tp is None else tp.tp_copy(z)
+    return h + ops.swiglu(z, lp["w_gate"], lp["w_up"], lp["w_down"], reduce=reduce)
 
 
 def forward_train(params: Dict, input_ids: torch.Tensor, cos, sin,
@@ -57,13 +68,13 @@ def forward_train(params: Dict, input_ids: torch.Tensor, cos, sin,
     cache; causal within the block).  remat=True recomputes each layer's
     activations in the backward (`run_layers`)."""
     L = input_ids.shape[1]
-    h = embed_tokens(params, input_ids.long())
+    h = embed_tokens(params, input_ids.long(), cfg.mesh)
     ly = params["layers"]
     h = run_layers(lambda h, lp: _block(cfg, cos[:L], sin[:L], h, lp), h,
                    ly["wo"].shape[0], lambda i: ({n: w[i] for n, w in ly.items()},),
                    remat)
     h = ops.rms_norm(h, params["norm"], cfg.norm_eps)
-    return ops._dot(h, params["lm_head"])
+    return lm_logits(params, h, cfg.mesh)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -87,10 +98,11 @@ def tree_leaves(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-def optimizer_step(optimizer, tree, loss_fn) -> torch.Tensor:
+def optimizer_step(optimizer, tree, loss_fn, mesh=None) -> torch.Tensor:
     """One step of `optimizer` on the loss `loss_fn()` of the tensors of
     `tree`, which must be the ones the optimizer holds; returns the loss
-    (detached)."""
+    (detached).  Under a `mesh` with dp > 1 the gradients, and the loss
+    returned, are averaged over "dp" first."""
     held = {id(p) for g in optimizer.param_groups for p in g["params"]}
     if {id(t) for t in tree_leaves(tree)} != held:
         raise ValueError("the train step's tree is not the one the optimizer "
@@ -98,19 +110,25 @@ def optimizer_step(optimizer, tree, loss_fn) -> torch.Tensor:
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
+    loss = loss.detach()
+    if mesh is not None and mesh.size("dp") > 1:
+        loss = loss.float().clone()
+        mesh.dp_average_([t.grad for t in tree_leaves(tree) if t.grad is not None]
+                         + [loss])
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def make_train_step(optimizer, cfg: StaticConfig, remat: bool = False):
     """(params, opt_state, batch, cos, sin) -> (params, opt_state, loss):
     one AdamW step of every leaf of `params` (`optimizer` from
     `init_optimizer(params)`, which owns the tensors and updates them in
-    place)."""
+    place).  Under cfg.mesh: this rank's shards and dp rows, the gradients
+    averaged over "dp" (module docstring)."""
 
     def train_step(params, opt_state, batch, cos, sin):
         loss = optimizer_step(optimizer, params, lambda: next_token_loss(
-            params, batch, cos, sin, cfg, remat))
+            params, batch, cos, sin, cfg, remat), cfg.mesh)
         return params, opt_state, loss
 
     return train_step

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from llama3np_tpu import data as jdata
+from llama3np_tpu.parallel.sharding import make_mesh as jmesh
 from llama3np_tpu_torch import data as tdata
 
 torch.set_num_threads(1)
@@ -121,13 +122,46 @@ def test_prefetch_to_device_cpu(shard, size):
 
 
 def test_prefetch_refusals(shard, monkeypatch):
+    from llama3np_tpu_torch.parallel.sharding import Mesh
+
+    class TwoWayDp:  # the mesh's dp rows, without a process group
+        device = torch.device("cpu")
+        dp_rows = Mesh.dp_rows
+
+        def size(self, axis):
+            return 2 if axis == "dp" else 1
+
+        def index(self, axis):
+            return 0
+
     p, _ = shard
     ds = tdata.TokenDataset(p)
-    with pytest.raises(NotImplementedError, match="A9"):
-        next(tdata.prefetch_to_device(ds.batches(1, 5), mesh=object(), device="cpu"))
+    with pytest.raises(ValueError, match="must divide over dp=2"):
+        next(tdata.prefetch_to_device(ds.batches(1, 5), mesh=TwoWayDp()))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(tdata.prefetch_to_device(ds.batches(1, 5)))
+
+
+def test_prefetch_sharded_over_mesh(shard):
+    """tests/test_data.py's mesh scenario: over a dp=2 mesh (two ranks
+    under gloo) each rank gets its row of every batch, on its device, and
+    the rows in dp order are the host batch."""
+    import torch_parallel_workers as W
+    from llama3np_tpu_torch.parallel.launch import launch
+
+    p, _ = shard
+    ds = tdata.TokenDataset(p)
+    host = list(ds.batches(2, 5, shuffle=False, epochs=1))
+    ranks = launch(W.prefetch_ranks, 2, (p,), backend="gloo", devices=["cpu"] * 2,
+                   timeout_s=120)
+    assert len(ranks[0]) == len(ranks[1]) == len(host)
+    for h, r0, r1 in zip(host, *ranks):
+        assert r0.shape == r1.shape == (1, 6) and r0.dtype == np.int32
+        np.testing.assert_array_equal(np.concatenate([r0, r1]), h)
+    (jb,) = list(jdata.prefetch_to_device(ds.batches(2, 5, shuffle=False, epochs=1),
+                                          mesh=jmesh(dp=2, tp=1)))[:1]
+    np.testing.assert_array_equal(np.asarray(jb), np.concatenate([ranks[0][0], ranks[1][0]]))
 
 
 def test_end_to_end_lora_finetune_from_shard(tmp_path):

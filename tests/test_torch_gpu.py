@@ -1595,3 +1595,48 @@ def test_card_prefetch_hands_out_the_host_batches(cuda, tmp_path):
     for h, d in zip(host, dev):
         assert d.device.type == "cuda" and d.dtype == torch.int32
         assert np.array_equal(d.cpu().numpy(), h)
+
+
+def test_card_two_ranks_tp_and_pp_match_one_rank(cuda):
+    """Parallelism (ROADMAP A9) on one card: two ranks under gloo (NCCL
+    refuses two ranks on one device) take their shards of one fp32 split
+    tree through CUDA IPC.  tp=2: greedy tokens and paged serving streams
+    equal the single-rank engine's, with flash prefill (once a layer a
+    prefill) and the paged kernel launched on each rank; pp=2: both
+    schedules' tokens equal the single-rank engine's, with flash on each
+    stage's layers."""
+    import torch_parallel_workers as W
+    from llama3np_tpu_torch.checkpoint import (build_param_tree, params_to_device,
+                                               permute_rope_layout)
+    from llama3np_tpu_torch.parallel.launch import launch
+
+    args = preset("test-tiny", dim=128, n_heads=8, n_kv_heads=4, vocab_size=512,
+                  hidden_dim=256, max_batch_size=2, fuse_matmuls=False)
+    tree = params_to_device(permute_rope_layout(build_param_tree(
+        synthetic_weights(args, seed=3), args), args), cuda)
+    ref = Llama.from_param_tree(tree, args, device=cuda)
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(3, args.vocab_size, size=(1, 12))
+    workload = [([1, 5, 9, 14, 3], 6), ([1, 7, 2, 9], 6),
+                (rng.integers(3, args.vocab_size, size=20).tolist(), 5)]
+    n = 8
+    want = ref.generate_tokens(prompt, n).cpu().tolist()
+    be = BatchEngine(ref, capacity=4, paged=True, page_size=16)
+    reqs = [be.submit(p, b, stop_ids=()) for p, b in workload]
+    be.run_to_completion()
+    served = [r.generated for r in reqs]
+    batch = np.concatenate([prompt, prompt[:, ::-1]])
+    want_pp = ref.generate_tokens(batch, n).cpu().tolist()
+    ranks = launch(W.card_ranks, 2, (tree, args, prompt, n, workload),
+                   backend="gloo", devices=["cuda:0", "cuda:0"], timeout_s=300)
+    nl = args.n_layers
+    for r in ranks:
+        assert r["tp_tokens"] == want
+        assert r["tp_served"] == served
+        assert r["tp_launches"]["flash_prefill"] == nl * (1 + len(workload))
+        assert r["tp_decode_steps"] > 0
+        assert r["tp_launches"]["paged_attention"] == nl * r["tp_decode_steps"]
+        assert r["pp_tokens"] == r["pp_mb_tokens"] == want_pp
+        assert r["pp_launches"]["flash_prefill"] == 2 * (nl // 2)
+    assert ranks[0]["tp_launches"] == ranks[1]["tp_launches"]
+    assert ranks[0]["pp_bytes"] == ranks[1]["pp_bytes"]

@@ -216,7 +216,10 @@ def _imported_modules(path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # The rank functions of the multi-process tests too: spawned ranks
+    # import that module.
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "tests" / "torch_parallel_workers.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))

@@ -288,11 +288,43 @@ def test_bad_targets_rejected(tiny):
     assert str(e.value) == str(je.value)
 
 
-def test_sharding_is_still_to_port(tiny):
-    t = tlora.init_lora(tiny.args, device="cpu")
-    for fn in (lambda: tlora.lora_pspecs(t), lambda: tlora.shard_lora(t, None)):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
+@pytest.mark.parametrize("targets", TARGET_SETS)
+def test_lora_pspecs_match_jax(tiny, targets):
+    j = jlora.init_lora(tiny.args, rank=4, targets=targets)
+    t = tlora.init_lora(tiny.args, rank=4, targets=targets, device="cpu")
+    assert tlora.lora_pspecs(t) == {k: tuple(v) for k, v in jlora.lora_pspecs(j).items()}
+
+
+def test_sharded_lora_train_matches_single_device(tiny):
+    """tests/test_lora.py's dp x tp = 2 x 2 LoRA train step: four ranks
+    under gloo (`torch_parallel_workers.lora_train_ranks`), each with its
+    shards of the base and of the adapters (`shard_lora`) and its dp row
+    of the batch, reproduce the JAX single-device loss trajectory, and
+    their trained shards are the single device's adapters' slices."""
+    import torch_parallel_workers as W
+    from llama3np_tpu_torch.parallel.launch import launch
+
+    lora = jlora.init_lora(tiny.args, rank=4, seed=1)
+    opt, st = jtrain.init_optimizer(lora["layers"], learning_rate=1e-2)
+    step = jlora.make_lora_train_step(opt, tiny.jcfg, lora["alpha"] / lora["rank"])
+    ly, ref_losses = lora["layers"], []
+    for _ in range(3):
+        ly, st, loss = step(ly, st, tiny.jp, jnp.asarray(tiny.batch), tiny.jcos, tiny.jsin)
+        ref_losses.append(float(loss))
+    ranks = launch(W.lora_train_ranks, 4,
+                   (synthetic_weights(tiny.args, seed=0), tpreset("test-tiny"),
+                    tiny.batch, 3, 1e-2),
+                   backend="gloo", devices=["cpu"] * 4, timeout_s=300)
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], ref_losses, rtol=2e-4, atol=2e-4)
+        j = r["coords"]["tp"]
+        wq_b, wo_a = np.asarray(ly["wq_b"]), np.asarray(ly["wo_a"])
+        n, m = wq_b.shape[-1] // 2, wo_a.shape[1] // 2
+        np.testing.assert_allclose(r["wq_b"], wq_b[..., j * n:(j + 1) * n],
+                                   rtol=2e-3, atol=2e-4)
+        np.testing.assert_allclose(r["wo_a"], wo_a[:, j * m:(j + 1) * m],
+                                   rtol=2e-3, atol=2e-4)
+        assert r["specs"] == {k: tuple(v) for k, v in jlora.lora_pspecs(lora).items()}
 
 
 def test_init_lora_defaults_to_the_card(tiny, monkeypatch):
