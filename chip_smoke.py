@@ -6,10 +6,12 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from `llama3np_tpu_torch/csrc/`,
-holds each against its plain PyTorch version on the card at the shapes the
-main path gives it (stories15M, tinyllama-1.1b and llama3-8b widths; the
-decode kernel in its float32, int8, bf16, fp16, int8/bf16 and int8/fp16
-modes, the paged-attention kernel over float32, bf16, fp16 and int8 pools,
+times the plain products (`ops.core._dot`) at the benchmark cells' shapes
+on both paths, the bf16 tensor-core GEMM against the widened f32 one
+(`DOT_SHAPES`), holds each kernel against its plain PyTorch version on the
+card at the shapes the main path gives it (stories15M, tinyllama-1.1b and
+llama3-8b widths; the decode kernel in its float32, int8, bf16, fp16,
+int8/bf16 and int8/fp16 modes, the paged-attention kernel over float32, bf16, fp16 and int8 pools,
 int8 under a float32, bf16 or fp16 q, flash prefill and the greedy head in
 float32, bf16 and fp16, and the kv_dtype override's modes), drives greedy
 generation end to end through the port's entry points (stories15M against
@@ -108,9 +110,10 @@ prints no result.
     python3 chip_smoke.py --paged-ab PARENT_DIR
     python3 chip_smoke.py --kernel-ab PARENT_DIR
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --dot
 
-run only the A9 phase (`--parallel`) or an A/B of the decode kernel (or
-of the paged kernel, or of the greedy head and fp32 flash prefill): the
+run only the A9 phase (`--parallel`), the plain products (`--dot`) or an
+A/B of the decode kernel (or of the paged kernel, or of the greedy head and fp32 flash prefill): the
 one of the checkout unpacked at
 PARENT_DIR (e.g. `git archive` of the parent commit) against this one's, in
 one process, parent, change, change, parent at every shape of the decode
@@ -141,6 +144,14 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12  # bf16 and fp16 tensor cores alike
 PROMPT = [1, 76, 505, 263, 12561]  # "I have a dream" (reference tokenizer)
+
+# The plain products of the benchmark's cells (`Smoke.dot_phase`): M rows of
+# the activation, K x N the weight.
+DOT_SHAPES = (("mistral-7b D x FD, chat step", 64, 4096, 14336),
+              ("deepseek-7b wqkv, longdoc step", 16, 4096, 12288),
+              ("mistral-7b D x FD, 512-row prefill", 512, 4096, 14336),
+              ("deepseek-7b lm_head, longdoc step", 16, 4096, 102400),
+              ("mistral-7b w_down, chat step", 64, 14336, 4096))
 
 
 T0 = time.perf_counter()
@@ -662,6 +673,49 @@ class Smoke:
         emit(row)
         return row
 
+    def dot_phase(self, what: str, M: int, K: int, N: int):
+        """One plain product (`ops.core._dot`) of a bf16 activation [M, K]
+        and weight [K, N] on both of its paths: the tensor-core GEMM
+        (16-bit operands, f32 sums, f32 result) against the widened one
+        (both operands to f32, an f32 GEMM), within 1e-4 of max |widened|
+        (only the order of the f32 sums differs; a 16-bit rounding of the
+        sum would show as ~4e-3).  `ms` / `widened_ms`: device time per
+        call (`queued_ms`); the bound is the same function's, 16-bit
+        operands read once and the f32 result written once, at 3.35 TB/s
+        or 989 TFLOP/s; `kernels`: each path's device kernels by name
+        (torch.profiler)."""
+        torch = self.torch
+        from llama3np_tpu_torch.ops import core
+
+        a = self.randn(M, K, dtype=torch.bfloat16)
+        b = self.randn(K, N, scale=0.02, dtype=torch.bfloat16)
+        calls = dict(core.dot_calls)
+        got = core._dot(a, b)
+        if core.dot_calls["tensor_core"] != calls["tensor_core"] + 1 or got.dtype != torch.float32:
+            raise AssertionError(f"_dot {what}: bf16 x bf16 did not take the "
+                                 f"tensor-core path to an f32 result ({got.dtype})")
+        want = core._widened_dot(a, b)
+        max_abs, max_rel = compare(torch, got, want, 0.0,
+                                   1e-4 * want.abs().max().item(), f"_dot {what}")
+        _, tc, _ = trace(torch, lambda: core._dot(a, b), top=3)
+        _, wide, _ = trace(torch, lambda: core._widened_dot(a, b), top=3)
+        reps = 20 if M * N * K < 1e12 else 10
+        ms = queued_ms(torch, lambda: core._dot(a, b), reps)
+        widened_ms = queued_ms(torch, lambda: core._widened_dot(a, b), reps)
+        core.dot_calls.update(calls)  # the timing calls do not count
+        nbytes = a.element_size() * (M * K + K * N) + 4.0 * M * N
+        bound_ms, bound_by = bound(nbytes, 2.0 * M * N * K, BF16_FLOP_S)
+        row = {"phase": "kernel", "kernel": "_dot", "mode": "bf16", "model": what,
+               "shape": {"M": M, "K": K, "N": N}, "max_abs_err": max_abs,
+               "max_rel_err": max_rel, "tol": "1e-4 of max |widened|",
+               "ms": ms, "widened_ms": widened_ms, "speedup": widened_ms / ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "bound_share": bound_ms / ms,
+               "widened_bound_share": bound_ms / widened_ms,
+               "kernels": [r["name"] for r in tc["top"]],
+               "widened_kernels": [r["name"] for r in wide["top"]], "card": self.card}
+        emit(row)
+        return row
+
 
 def trace(torch, fn, top: int = 6):
     """Run `fn` under torch.profiler: device time by kernel (the `top`
@@ -691,7 +745,8 @@ def trace(torch, fn, top: int = 6):
 
 def kind(name: str) -> str:
     """The class of a device kernel, for the time splits of the traces: the
-    port's kernels by name, GEMMs (cuBLAS/CUTLASS), copies and casts (an
+    port's kernels by name, GEMMs (cuBLAS, whose Hopper kernels are named
+    `nvjet_*`, and CUTLASS), copies and casts (an
     int8 or bf16 weight's conversion to f32 before its matmul is one), and
     the other torch ops."""
     n = name.lower()
@@ -704,7 +759,7 @@ def kind(name: str) -> str:
     if any(k in n for k in ("residual_rmsnorm", "gemv_kernel", "attn_split",
                             "attn_combine", "decode_attn")):  # the fused decode step's kernels
         return "decode_layers"
-    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90")):
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "sm90", "nvjet")):
         return "gemm"
     if "copy" in n:
         return "copy_cast"
@@ -3497,6 +3552,12 @@ def main() -> int:
         emit({"a9_kernels": {name: {"ms": row.get("ms", row.get("modes", {}).get(
             "stacked", {}).get("ms")), "launches": paths[name]} for name, row in rows.items()}})
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--dot":
+        # The plain products' two paths alone, then nothing else.
+        dot_smoke = Smoke(torch, card)
+        for what, M, K, N in DOT_SHAPES:
+            dot_smoke.dot_phase(what, M, K, N)
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel-ab":
         # The greedy head and fp32 flash prefill of another checkout against
         # this one's and the library calls, then nothing else.
@@ -3514,6 +3575,8 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0), "card": card,
           "ptxas": ptxas})
     smoke = Smoke(torch, card)
+    for what, M, K, N in DOT_SHAPES:
+        smoke.dot_phase(what, M, K, N)
 
     # ---- stories15M: kernels at its shapes, then the greedy path ----------
     s_args = preset("stories15M", max_seq_len=1024)

@@ -7,8 +7,11 @@ layouts and numerics: f32 accumulation under low-precision weights, GQA as a
 grouped einsum (KV heads are never repeated), masks instead of
 data-dependent slicing.  They run wherever no kernel does: on the CPU, under
 `attn_impl="xla"`, and for the chunked prefill against the cache, which
-stays plain in both packages.  The dense projections are `torch.matmul`, as
-the JAX package left them to XLA.
+stays plain in both packages.  The dense projections (`_dot`) are left to
+the library, as the JAX package left them to XLA: on the card a 16-bit
+activation times a 16-bit weight is one tensor-core GEMM with f32 sums and
+an f32 result (`jnp.dot(..., preferred_element_type=jnp.float32)`); every
+other product is `torch.matmul` on operands widened to f32.
 
 Positions (`pos`) of the dense path are host integers: the port's loops
 know them on the host.  The serving ops take per-row positions as [B]
@@ -19,7 +22,7 @@ assignment into the pool.
 int8 and int4 weights (`checkpoint.quantize_param_tree`) enter the
 projections as per-output scales that post-multiply the f32 product
 (`scale`, `scale_gu`, `scale_down`, `s_gate`/`s_up`/`s_down`); the product
-itself is `torch.matmul` on the weight converted to f32 (an int4 weight,
+itself is `torch.matmul` on the weight widened to f32 (an int4 weight,
 packed two a byte, unpacked first), as XLA computed it outside any Pallas
 kernel.  int8 KV (`quantize_kv_rows`) carries a scale
 per (token, KV head): K scales post-multiply the score columns, V scales
@@ -54,16 +57,50 @@ def unpack_int4(p: torch.Tensor, n: Optional[int] = None,
     return out if n is None or n == out.shape[-1] else out[..., :n]
 
 
+# Calls of `_dot` on each path, counted like the kernels' `launches`, so a
+# run can show which path its products took.
+dot_calls = {"tensor_core": 0, "widened": 0}
+
+
+def dot_path(device_type: str, a_dtype: torch.dtype, b_dtype: torch.dtype,
+             b_dim: int, grad: bool) -> str:
+    """Which product `_dot` computes, from what it can observe:
+    "tensor_core" for a bf16 x bf16 or fp16 x fp16 product with a 2-D
+    weight on the card outside autograd, else "widened".  An f32
+    activation under a 16-bit weight stays widened (rounding it would lose
+    precision), and so do integer weights, the 3-D per-row LoRA factors,
+    the CPU (the tests' parity path) and anything autograd records."""
+    if (device_type == "cuda" and a_dtype == b_dtype
+            and a_dtype in (torch.bfloat16, torch.float16) and b_dim == 2 and not grad):
+        return "tensor_core"
+    return "widened"
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
     """a @ b accumulated and returned in float32 (the JAX package's
-    `preferred_element_type=jnp.float32`).  A packed int4 `b` (torch.uint8,
-    `checkpoint.pack_int4`, n output columns) is unpacked straight to f32
-    first (exact), as XLA computed the int4 product.  Under autograd, a
-    frozen 16-bit or integer `b` goes through `_FrozenDot`, which keeps `b`
-    itself for the backward instead of its float32 copy."""
-    if (a.requires_grad and not b.requires_grad and b.dtype != torch.float32
-            and torch.is_grad_enabled()):
+    `preferred_element_type=jnp.float32`).  On the card a 16-bit product
+    (`dot_path`) is one GEMM on its 16-bit operands with f32 sums and an
+    f32 result, `a` flattened to 2-D: a product of two bf16 or two fp16
+    values is exact in f32, so only the order of the sums differs from the
+    widened product, and no f32 copy of either operand is made.  Every
+    other product widens both operands to f32 (`_widened_dot`).  Under
+    autograd, a frozen 16-bit or integer `b` goes through `_FrozenDot`,
+    which keeps `b` itself for the backward instead of its float32 copy."""
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    path = dot_path(a.device.type, a.dtype, b.dtype, b.dim(), grad)
+    dot_calls[path] += 1
+    if path == "tensor_core":
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+    if grad and a.requires_grad and not b.requires_grad and b.dtype != torch.float32:
         return _FrozenDot.apply(a, b, n)
+    return _widened_dot(a, b, n)
+
+
+def _widened_dot(a: torch.Tensor, b: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """`torch.matmul` on a and b widened to f32; a packed int4 `b`
+    (torch.uint8, `checkpoint.pack_int4`, n output columns) is unpacked
+    straight to f32 first (exact), as XLA computed the int4 product."""
     if b.dtype == torch.uint8:
         b = unpack_int4(b, n, torch.float32)
     if a.dtype == torch.float32 and b.dtype == torch.float32:
@@ -81,7 +118,7 @@ class _FrozenDot(torch.autograd.Function):
         ctx.save_for_backward(b)
         ctx.n, ctx.a_dtype = n, a.dtype
         with torch.no_grad():
-            return _dot(a, b, n)
+            return _widened_dot(a, b, n)
 
     @staticmethod
     def backward(ctx, g):

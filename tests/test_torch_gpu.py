@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from llama3np_tpu_torch import Llama, preset, synthetic_weights
-from llama3np_tpu_torch.ops.core import quantize_kv_rows
+from llama3np_tpu_torch.ops.core import (_dot, _widened_dot, dot_calls,
+                                         quantize_kv_rows)
 from llama3np_tpu_torch.ops.kernels.decode_step import (decode_layers,
                                                         decode_layers_plain)
 from llama3np_tpu_torch.ops.kernels.flash_prefill import (flash_prefill,
@@ -909,6 +910,53 @@ def test_card_bf16_engine_runs_the_kernels(cuda, name):
     assert [len(r.generated) for r in reqs] == [9, 6]
     assert be.allocator.available == be.allocator.num_pages - 1
 
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("a_shape,N", [
+    ((64, 4096), 14336),      # mistral-7b's FD, a 64-row chat step
+    ((16, 4096), 12288),      # deepseek-7b's wqkv (MHA: 3 x 4096), 16 rows
+    ((1, 512, 4096), 14336),  # a 512-row prefill, 3-D as the model passes it
+    ((16, 4096), 102400),     # deepseek-7b's head
+    ((64, 14336), 4096),      # mistral-7b's w_down, 64 rows: cuBLAS splits K here
+    ((16, 11008), 4096),      # deepseek-7b's w_down, 16 rows: and here
+], ids=["mistral-chat", "deepseek-longdoc", "prefill-512", "deepseek-head",
+        "mistral-down", "deepseek-down"])
+def test_dot_tensor_cores_match_widened_product(cuda, dtype, a_shape, N):
+    """A 16-bit product on the card takes the tensor-core path: an f32
+    result within 1e-4 of max |widened f32 product| (only the order of the
+    f32 sums differs; a 16-bit rounding of the sum, or of a split-K
+    partial, would show as ~4e-3 in bf16, ~5e-4 in fp16)."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    K = a_shape[-1]
+    a = torch.randn(*a_shape, generator=g, device=cuda).to(dtype)
+    b = (torch.randn(K, N, generator=g, device=cuda) * 0.02).to(dtype)
+    before = dict(dot_calls)
+    got = _dot(a, b)
+    assert dot_calls == {"tensor_core": before["tensor_core"] + 1,
+                         "widened": before["widened"]}
+    want = _widened_dot(a, b)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (*a_shape[:-1], N)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name,dtype", [("test-tiny", "bfloat16"), ("test-tiny-mha", "bfloat16"),
+                                        ("test-tiny", "float16")])
+def test_card_16bit_engine_products_take_tensor_cores(cuda, name, dtype):
+    """A 16-bit engine's greedy generation (prefill; decode is the kernel)
+    and an admission prefill plus one serving step: every plain product
+    takes the tensor-core path, none is widened."""
+    args = preset(name, dtype=dtype)
+    eng = Llama(synthetic_weights(args, seed=7), args, device=cuda)
+    be = BatchEngine(eng, capacity=2, paged=True, page_size=8)
+    before = dict(dot_calls)
+    eng.generate_tokens([[1, 7, 30, 41, 5]], 4)
+    be.submit([1, 7, 30, 41, 5], 4, stop_ids=())
+    be.submit([3, 9, 11], 4, stop_ids=())
+    be.step()
+    torch.cuda.synchronize()
+    assert dot_calls["tensor_core"] > before["tensor_core"]
+    assert dot_calls["widened"] == before["widened"]
 
 @pytest.mark.parametrize("name", ["test-tiny", "test-tiny-mha"])
 def test_card_int8_bf16_engine_runs_the_kernels(cuda, name):

@@ -70,6 +70,100 @@ def test_fused_ffn(rng):
     close(tops.fused_ffn(t(z), t(wgu), t(wd)), jops.fused_ffn(j(z), j(wgu), j(wd)))
 
 
+
+# `dot_path`: the tensor-core product takes only a bf16 x bf16 or fp16 x fp16
+# product with a 2-D weight on the card, outside autograd.
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("device,a,b,dim,grad,want", [
+    ("cuda", BF16, BF16, 2, False, "tensor_core"),
+    ("cuda", F16, F16, 2, False, "tensor_core"),
+    ("cuda", F32, F32, 2, False, "widened"),           # an f32 model
+    ("cuda", F32, BF16, 2, False, "widened"),          # rounding a would lose bits
+    ("cuda", F32, F16, 2, False, "widened"),
+    ("cuda", BF16, F32, 2, False, "widened"),
+    ("cuda", BF16, F16, 2, False, "widened"),          # mixed 16-bit types
+    ("cuda", BF16, torch.int8, 2, False, "widened"),   # int8 weights
+    ("cuda", F32, torch.int8, 2, False, "widened"),
+    ("cuda", BF16, torch.uint8, 2, False, "widened"),  # packed int4 weights
+    ("cuda", BF16, BF16, 3, False, "widened"),         # per-row LoRA factors
+    ("cuda", BF16, BF16, 2, True, "widened"),          # autograd records
+    ("cuda", F16, F16, 2, True, "widened"),
+    ("cpu", BF16, BF16, 2, False, "widened"),          # the CPU's parity path
+    ("cpu", F16, F16, 2, False, "widened"),
+    ("meta", BF16, BF16, 2, False, "widened"),
+])
+def test_dot_path(device, a, b, dim, grad, want):
+    assert tops.dot_path(device, a, b, dim, grad) == want
+
+
+@pytest.mark.parametrize("a_dtype,b_dtype,b_shape", [
+    (F32, F32, (32, 24)), (BF16, BF16, (32, 24)), (F16, F16, (32, 24)),
+    (F32, BF16, (32, 24)), (BF16, torch.int8, (32, 24)), (BF16, torch.uint8, (32, 12)),
+    (BF16, BF16, (3, 32, 24)),
+])
+def test_dot_on_cpu_widens_and_counts(a_dtype, b_dtype, b_shape):
+    """On the CPU every product is the widened f32 product, bit for bit,
+    and counts as `widened`."""
+    g = torch.Generator().manual_seed(3)
+    a = torch.randn(3, 5, 32, generator=g).to(a_dtype)
+    if b_dtype.is_floating_point:
+        b = (torch.randn(*b_shape, generator=g) * 0.1).to(b_dtype)
+    else:
+        b = torch.randint(0, 127 if b_dtype == torch.int8 else 256, b_shape,
+                          generator=g, dtype=b_dtype)
+    wide = (tops.unpack_int4(b, 24, F32) if b_dtype == torch.uint8 else b.float())
+    want = torch.matmul(a.float(), wide)
+    before = dict(tops.dot_calls)
+    got = tops._dot(a, b, 24)
+    assert got.dtype == F32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert tops.dot_calls == {"tensor_core": before["tensor_core"],
+                              "widened": before["widened"] + 1}
+
+
+def test_dot_tensor_core_branch_keeps_leading_dims(monkeypatch):
+    """The tensor-core branch flattens `a` to 2-D for the GEMM and gives back
+    [..., N] in f32 (on meta tensors: the CPU has no such GEMM)."""
+    monkeypatch.setattr(tops, "dot_path", lambda *args: "tensor_core")
+    a = torch.empty(2, 3, 4, 32, dtype=BF16, device="meta")
+    b = torch.empty(32, 24, dtype=BF16, device="meta")
+    before = tops.dot_calls["tensor_core"]
+    out = tops._dot(a, b)
+    assert out.shape == (2, 3, 4, 24) and out.dtype == F32
+    assert tops.dot_calls["tensor_core"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_16bit_engine_products_would_take_tensor_cores(monkeypatch, dtype):
+    """Every plain product of a 16-bit engine's greedy generation, and of
+    an admission prefill and serving step, has operands that the card's
+    tensor-core path takes (a 16-bit activation under a 16-bit 2-D weight,
+    no autograd): none would stay widened there.  The CPU itself widens
+    them all."""
+    from llama3np_tpu_torch import Llama, preset, synthetic_weights
+    from llama3np_tpu_torch.serving import BatchEngine
+
+    real, on_card = tops.dot_path, []
+
+    def spy(device_type, a_dtype, b_dtype, b_dim, grad):
+        on_card.append(real("cuda", a_dtype, b_dtype, b_dim, grad))
+        return real(device_type, a_dtype, b_dtype, b_dim, grad)
+
+    args = preset("test-tiny", dtype=dtype)
+    eng = Llama(synthetic_weights(args, seed=5), args, device="cpu")
+    be = BatchEngine(eng, capacity=2, paged=True, page_size=8)
+    monkeypatch.setattr(tops, "dot_path", spy)
+    before = dict(tops.dot_calls)
+    eng.generate_tokens([[1, 7, 30, 41, 5]], 3)
+    be.submit([1, 7, 30, 41, 5], 4, stop_ids=())
+    be.submit([3, 9, 11], 4, stop_ids=())
+    be.step()
+    assert on_card and set(on_card) == {"tensor_core"}
+    assert tops.dot_calls == {"tensor_core": before["tensor_core"],
+                              "widened": before["widened"] + len(on_card)}
+
 @pytest.mark.parametrize("scaling", [None, dict(factor=32.0, low_freq_factor=1.0,
                                                 high_freq_factor=4.0,
                                                 original_max_position_embeddings=64)])
