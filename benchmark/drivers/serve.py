@@ -28,7 +28,7 @@ import time
 
 import numpy as np
 
-from benchmark.harness import roofline, traffic
+from benchmark.harness import traffic
 from benchmark.harness.trace import profile_window
 
 GRACE_S = 60.0
@@ -64,7 +64,7 @@ class Driver:
         from llama3np_tpu_torch.serving import BatchEngine
 
         h = self.h
-        self.eng = h.engine()
+        self.eng = h.family.engine(h)
         self.be = BatchEngine(self.eng, paged=True, **self.opts)
         if self.closed:
             self.queue = []
@@ -125,10 +125,12 @@ class Driver:
     def _count(self):
         """Traced runs: count the work of each step and admission (model
         FLOPs of what completes in the window; the paged kernel's bytes and
-        FLOPs inside the profiler window) around the spans."""
-        h, be, dm = self.h, self.be, self.h.dm
+        FLOPs inside the profiler window, where the family counts them)
+        around the spans, by the model family's counts."""
+        h, be, dm, fam = self.h, self.be, self.h.dm, self.h.family
         step, prefill = be.step, be._prefill_into
         q = self.quantum
+        paged = all(hasattr(fam, f) for f in ("paged_attention_bytes", "paged_attention_flops"))
 
         def counted_step(quantum=q):
             ctxs = [int(be.pos[s]) + 1 + j for s, r in enumerate(be.slots)
@@ -136,18 +138,18 @@ class Driver:
             rows = (be.pos.astype(np.int64) + 1).tolist()
             out = step(quantum)
             if time.perf_counter() <= self.end:
-                h.add("model_flops", roofline.decode_flops(dm, ctxs))
-            if self.in_profile:
+                h.add("model_flops", fam.decode_flops(dm, ctxs))
+            if self.in_profile and paged:
                 for j in range(quantum):
                     r = [c + j for c in rows]
-                    h.add("profile_paged_bytes", roofline.paged_attention_bytes(dm, r))
-                    h.add("profile_paged_flops", 4.0 * dm.nl * dm.qd * sum(r))
+                    h.add("profile_paged_bytes", fam.paged_attention_bytes(dm, r))
+                    h.add("profile_paged_flops", fam.paged_attention_flops(dm, r))
             return out
 
         def counted_prefill(slot, req):
             out = prefill(slot, req)
             if time.perf_counter() <= self.end:
-                h.add("model_flops", roofline.prefill_flops(dm, len(req.prompt_ids)))
+                h.add("model_flops", fam.prefill_flops(dm, len(req.prompt_ids)))
             return out
 
         be.step = h.spans.wrap("bench.step", counted_step)
@@ -196,8 +198,10 @@ class Driver:
         if h.traced:
             at = self.t0 + PROFILE_AT * h.seconds
             self._loop(at)
+            p0 = time.perf_counter()
             _, h.profile = profile_window(h.torch, lambda: self._profiled(
                 min(time.perf_counter() + h.cell["profile_s"], self.end)))
+            h.window["profiled"] = (p0, time.perf_counter())  # the profiler's start to its stop
         self._loop(self.end)
         if not self.closed:  # every due request's first token, however late
             give_up = self.end + GRACE_S

@@ -20,7 +20,7 @@ import time
 
 import numpy as np
 
-from benchmark.harness import roofline, traffic
+from benchmark.harness import traffic
 from benchmark.harness.trace import profile_window
 
 PROFILE_AT = 0.4
@@ -39,7 +39,7 @@ class Driver:
 
     def setup(self):
         h = self.h
-        self.eng = h.engine()
+        self.eng = h.family.engine(h)
         buckets = sorted(b for b in self.eng.args.prefill_buckets
                          if b <= self.eng.args.max_seq_len)
         longest = {}
@@ -71,14 +71,14 @@ class Driver:
             return
         self.done.append((prompt, toks))
         self.errors += len(toks) != n
-        L = len(prompt)
+        L, fam = len(prompt), h.family
         if h.traced:
-            h.add("model_flops", roofline.prefill_flops(dm, L)
-                  + roofline.decode_flops(dm, range(L + 1, L + n)))
-        if profiled:  # decode token i (i = 0..n-2) runs at position L + i
-            h.add("profile_decode_bytes", sum(roofline.decode_layers_bytes(dm, L + i)
+            h.add("model_flops", fam.prefill_flops(dm, L)
+                  + fam.decode_flops(dm, range(L + 1, L + n)))
+        if profiled and hasattr(fam, "decode_layers_bytes"):
+            # decode token i (i = 0..n-2) runs at position L + i
+            h.add("profile_decode_bytes", sum(fam.decode_layers_bytes(dm, L + i)
                                               for i in range(n - 1)))
-            h.add("profile_decode_tokens", n - 1)
 
     def run_window(self):
         h = self.h

@@ -2,9 +2,9 @@
 
 After the window, a sample of the requests the program served (finished,
 or in flight at the close with the tokens served so far), drawn from the
-seed with the longest among them, goes to the reference
-(`benchmark/reference/llama.py`, float32 on the device) with the weights
-made again from the seed.  The reference runs once over each prompt
+seed with the longest among them, goes to the model family's reference
+(`benchmark/reference/<family>.py`, float32 on the device) with the
+weights made again from the seed.  The reference runs once over each prompt
 followed by its served tokens; at each served token's position the gap is
 the reference's best logit less the served token's logit (0 where the
 program chose the reference's own argmax).  `logit_gap` is the widest gap
@@ -20,9 +20,6 @@ fp8 reference puts first ("control_gap"), judged by the same `judge` and
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
-
-from . import weights
-from .weights import Dims
 
 Served = Tuple[List[int], List[int]]  # (prompt ids, served tokens)
 
@@ -42,25 +39,16 @@ def sample(done: Sequence[Served], rng, served_tokens: int, max_requests: int) -
     return [done[i] for i in picked]
 
 
-def reference(torch, dm: Dims, seed: int, device):
-    from ..reference.llama import Reference
-
-    dt = getattr(torch, dm.dtype)
-    return Reference({"n_layers": dm.nl, "n_heads": dm.nh, "kv_heads": dm.kvh,
-                      "head_dim": dm.hd, "eps": dm.eps, "rope_theta": dm.rope_theta},
-                     lambda i: weights.layer(torch, dm, seed, i, device, dt),
-                     weights.model_leaves(torch, dm, seed, device, dt), device)
-
-
-def readings(torch, dm: Dims, seed: int, device, reqs: Sequence[Served],
+def readings(torch, family, dm, seed: int, device, reqs: Sequence[Served],
              control: bool = False) -> Dict[str, float]:
     """The widest gap of the served tokens ("logit_gap") and, with
     `control`, of the fp8 reference's own choices ("control_gap"), over
-    `reqs`, and the number of tokens compared."""
+    `reqs`, and the number of tokens compared.  `family` is the model
+    family's module, `dm` its dims of the configuration."""
     seqs = [list(p) + list(s[:-1]) for p, s in reqs]
     spans = [(len(p) - 1, len(p) - 1 + len(s)) for p, s in reqs]
     precisions = ("float32", "fp8") if control else ("float32",)
-    out = reference(torch, dm, seed, device).logits(seqs, spans, precisions)
+    out = family.reference(torch, dm, seed, device).logits(seqs, spans, precisions)
     res = {"tokens": sum(len(s) for _, s in reqs), "logit_gap": 0.0}
     if control:
         res["control_gap"] = 0.0

@@ -22,10 +22,12 @@ def ttft_ms(ctx, q: float) -> Optional[float]:
     return 1e3 * stats.percentile(stats.ttfts(w["due"], w["first"], w["give_up"]), q)
 
 
-def itl_p95_ms(ctx) -> Optional[float]:
+def itl_ms(ctx, q: float) -> Optional[float]:
+    """The q-th percentile of every gap between consecutive tokens of every
+    request, up to the window's close (ms)."""
     w = ctx.window
     g = stats.gaps(w.get("stamps", []), until=w.get("t1", float("inf")))
-    return 1e3 * stats.percentile(g, 95) if g else None
+    return 1e3 * stats.percentile(g, q) if g else None
 
 
 def span_share(ctx, name: str) -> Optional[float]:

@@ -4,14 +4,18 @@ the result line.
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell's driver (`benchmark/drivers/<driver>.py`, named by the cell's
-workload file) builds the program's engine from weights made on the card
+workload file) builds the program's engine (the configuration's model
+family, `benchmark/families/<family>.py`) from weights made on the card
 from the seed, warms the shapes its traffic uses (set-up, `setup_s`: from
 the start of the process to the first measured instant), then drives the
 window.  With `--trace 0` the window runs bare and the line carries the
 cell's end-to-end metrics; with `--trace 1` the driver records spans around
 its calls into the program (no sync of their own) and one
 torch.profiler window inside the measured one, and the line carries the
-cell's per-layer metrics, read by `benchmark/metrics/<metric>.py`.
+cell's per-layer metrics, read by `benchmark/metrics/<metric>.py`, and
+`profile_clock`: the profiler window's length on its own clock and on the
+host's, and what was cut from operations stamped outside it
+(`trace.Profile.clock`).
 
 After the window: the peak of device memory is read, the program's state
 is freed, and a sample of what it served goes to the reference
@@ -37,7 +41,6 @@ import numpy as np
 from . import check
 from .spec import ROOT, Spec
 from .trace import Spans, profile_window
-from .weights import dims
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "llama3np_tpu")
 
@@ -50,7 +53,8 @@ def forbidden_modules() -> List[str]:
 
 class Harness:
     """What a driver is handed: the cell, the seed, the device, and in a
-    traced run the spans; the driver fills `window` (its results),
+    traced run the spans, and the model family (`family`, with `dm` its
+    dims of the configuration); the driver fills `window` (its results),
     `counters` and, in a traced run, `profile` (`trace.profile_window`'s
     reader, called after the window).  The metric readers read it too."""
 
@@ -59,7 +63,8 @@ class Harness:
         self.torch, self.spec, self.cell = torch, spec, cell
         self.seed, self.seconds, self.traced = seed, float(seconds), traced
         self.device = device
-        self.dm = dims(cell["model"])
+        self.family = spec.family(cell["family"])
+        self.dm = self.family.dims(cell["model"])
         self.dtype = getattr(torch, self.dm.dtype)
         self.rng = np.random.default_rng([seed, 0])  # traffic
         self.cuda = device.startswith("cuda")
@@ -79,25 +84,6 @@ class Harness:
 
     def add(self, key: str, value: float):
         self.counters[key] = self.counters.get(key, 0.0) + value
-
-    def program_args(self):
-        """The program's ModelArgs for the configuration, every width as
-        the file gives it."""
-        from llama3np_tpu_torch.config import ModelArgs
-
-        dm = self.dm
-        return ModelArgs(dim=dm.d, n_layers=dm.nl, n_heads=dm.nh, n_kv_heads=dm.kvh,
-                         vocab_size=dm.vs, max_seq_len=dm.max_seq, hidden_dim=dm.fd,
-                         rope_theta=dm.rope_theta, norm_eps=dm.eps, dtype=dm.dtype)
-
-    def engine(self):
-        """The program's engine over the seeded fused tree, made on the
-        device (no host staging)."""
-        from llama3np_tpu_torch.models.llama import Llama
-
-        from . import weights
-        tree = weights.fused_tree(self.torch, self.dm, self.seed, self.device, self.dtype)
-        return Llama.from_param_tree(tree, self.program_args(), device=self.device)
 
 
 def parse(argv):
@@ -149,7 +135,8 @@ def run(argv=None, t_start: Optional[float] = None, root: str = ROOT,
     ck = cell["check"]
     reqs = check.sample(done, np.random.default_rng([a.seed, 1]), ck["served_tokens"],
                         ck["max_requests"])
-    gap = check.readings(torch, h.dm, a.seed, device, reqs)["logit_gap"] if reqs else None
+    gap = (check.readings(torch, h.family, h.dm, a.seed, device, reqs)["logit_gap"]
+           if reqs else None)
     checks = check.judge(ck, gap, length_errors)
     metrics = {}
     for m in (spec.per_layer(a.workload) if a.trace else spec.end_to_end(a.workload)):
@@ -169,6 +156,7 @@ def run(argv=None, t_start: Optional[float] = None, root: str = ROOT,
         dev["busy_s"], dev["window_s"] = h.profile.busy_s, h.profile.window_s
         line["breakdown"] = {"device_ops": h.profile.top_ops(10),
                              "idle_gaps": h.profile.idle_gaps(10)}
+        line["profile_clock"] = h.profile.clock()
     line.update(h.extra)
     line["checks"] = checks
     for name, c in checks.items():

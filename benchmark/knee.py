@@ -78,7 +78,7 @@ def main(argv=None, root: str = ROOT, device: str = "cuda") -> int:
                           "offered_tok_s": rate * traffic.mean_length(drv.mix["output"]),
                           "ttft_p50_ms": 1e3 * stats.percentile(tt, 50),
                           "ttft_p95_ms": readers.ttft_ms(h, 95),
-                          "itl_p95_ms": readers.itl_p95_ms(h), "thirds": thirds,
+                          "itl_p95_ms": readers.itl_ms(h, 95), "thirds": thirds,
                           "card": (torch.cuda.get_device_name(0) if device == "cuda"
                                    else device)}), flush=True)
         for e in drv.entries:

@@ -7,9 +7,9 @@ one process (the kernels load once):
 
 For each seed it runs the cell as `run.py --trace 0` does (weights, set-up,
 the window), then reads the widest logit gap of the served sample under the
-float32 reference (the program's reading, `logit_gap`) and, for the seeds
-given to `--control`, the widest gap of the tokens the fp8 reference puts
-first at the same positions (`control_gap`).  Each is judged against the
+model family's float32 reference (the program's reading, `logit_gap`) and,
+for the seeds given to `--control`, the widest gap of the tokens the fp8
+reference puts first at the same positions (`control_gap`).  Each is judged against the
 cell's limit as a run judges the program (`correct`, `control_correct`;
 the control has to come out false).  One JSON line a seed.  The
 benchmark's own runs never run the control.
@@ -65,12 +65,13 @@ def main(argv=None, root: str = ROOT, device: str = "cuda") -> int:
         reqs = check.sample(done, np.random.default_rng([seed, 1]), ck["served_tokens"],
                             ck["max_requests"])
         t1 = time.perf_counter()
-        r = check.readings(torch, h.dm, seed, device, reqs, control=seed in control)
+        r = check.readings(torch, h.family, h.dm, seed, device, reqs,
+                           control=seed in control)
         row = {"seed": seed, "setup_s": setup_s, "check_s": time.perf_counter() - t1,
                "requests": len(reqs), "length_errors": errors, **r,
                "correct": check.passed(check.judge(ck, r["logit_gap"], errors)),
                "output_tok_s": readers.output_tok_s(h),
-               "ttft_p95_ms": readers.ttft_ms(h, 95), "itl_p95_ms": readers.itl_p95_ms(h),
+               "ttft_p95_ms": readers.ttft_ms(h, 95), "itl_p95_ms": readers.itl_ms(h, 95),
                "card": torch.cuda.get_device_name(0) if device == "cuda" else device}
         if "control_gap" in r:  # the control in the program's place, judged alike
             row["control_correct"] = check.passed(check.judge(ck, r["control_gap"], 0))

@@ -10,8 +10,11 @@ import os
 
 import pytest
 
+from benchmark.harness.spec import load_module
+
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH)
+LLAMA = load_module(os.path.join(BENCH, "families", "llama.py"), "bench_family_llama")
 
 TINY = {"hidden_act": "silu", "hidden_size": 64, "intermediate_size": 128,
         "max_position_embeddings": 256, "num_attention_heads": 4, "num_hidden_layers": 2,
@@ -41,12 +44,19 @@ def tiny_mix(w: dict) -> dict:
 
 def make_root(path, config: dict, limit: float = 1e-3) -> str:
     """A checkout-like root at `path`: the real BENCHMARK.json's cells over
-    `config`, with the real drivers and metric readers."""
+    `config`, with the real drivers, metric readers, model families and
+    references (the last two in folders of their own, each file a link, so
+    a test can add a family)."""
     b = path / "benchmark"
     (b / "workloads").mkdir(parents=True)
     (b / "configs").mkdir()
     os.symlink(os.path.join(BENCH, "drivers"), b / "drivers")
     os.symlink(os.path.join(BENCH, "metrics"), b / "metrics")
+    for sub in ("families", "reference"):
+        (b / sub).mkdir()
+        for f in os.listdir(os.path.join(BENCH, sub)):
+            if f.endswith(".py"):
+                os.symlink(os.path.join(BENCH, sub, f), b / sub / f)
     (b / "configs" / "tiny.json").write_text(json.dumps(config))
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)

@@ -10,32 +10,25 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark.harness import check, weights
-from benchmark.reference.llama import Reference, to_fp8
+from benchmark.harness import check
+from benchmark.reference.llama import to_fp8
 
-from .conftest import BENCH, ROOT, TINY
+from .conftest import BENCH, LLAMA, ROOT, TINY
 
 
 def tiny_dims(**kw):
-    return weights.dims({**TINY, **kw})
+    return LLAMA.dims({**TINY, **kw})
 
 
-def reference(dm, seed, dtype=torch.float32):
-    return Reference({"n_layers": dm.nl, "n_heads": dm.nh, "kv_heads": dm.kvh,
-                      "head_dim": dm.hd, "eps": dm.eps, "rope_theta": dm.rope_theta},
-                     lambda i: weights.layer(torch, dm, seed, i, "cpu", dtype),
-                     weights.model_leaves(torch, dm, seed, "cpu", dtype), "cpu")
+def reference(dm, seed):
+    return LLAMA.reference(torch, dm, seed, "cpu")
 
 
 def program(dm, seed):
-    from llama3np_tpu_torch.config import ModelArgs
     from llama3np_tpu_torch.models.llama import Llama
 
-    args = ModelArgs(dim=dm.d, n_layers=dm.nl, n_heads=dm.nh, n_kv_heads=dm.kvh,
-                     vocab_size=dm.vs, max_seq_len=dm.max_seq, hidden_dim=dm.fd,
-                     rope_theta=dm.rope_theta, norm_eps=dm.eps, dtype="float32")
-    tree = weights.fused_tree(torch, dm, seed, "cpu", torch.float32)
-    return Llama.from_param_tree(tree, args, device="cpu")
+    tree = LLAMA.fused_tree(torch, dm, seed, "cpu", torch.float32)
+    return Llama.from_param_tree(tree, LLAMA.program_args(dm), device="cpu")
 
 
 @pytest.mark.parametrize("kv", [2, 4])  # GQA and MHA
@@ -58,9 +51,9 @@ def test_served_gap_is_zero_for_the_reference_argmax_and_positive_otherwise():
     for _ in range(6):  # the reference's own greedy stream
         seq = prompt + toks
         toks.append(int(ref.logits([seq], [(len(seq) - 1, len(seq))])["float32"][0].argmax()))
-    assert check.readings(torch, dm, 5, "cpu", [(prompt, toks)])["logit_gap"] <= 1e-5
+    assert check.readings(torch, LLAMA, dm, 5, "cpu", [(prompt, toks)])["logit_gap"] <= 1e-5
     bad = toks[:2] + [(toks[2] + 1) % dm.vs] + toks[3:]
-    assert check.readings(torch, dm, 5, "cpu", [(prompt, bad)])["logit_gap"] > 1e-3
+    assert check.readings(torch, LLAMA, dm, 5, "cpu", [(prompt, bad)])["logit_gap"] > 1e-3
 
 
 def test_fp8_rounding():

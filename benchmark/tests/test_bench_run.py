@@ -14,6 +14,9 @@ from benchmark.harness import runner
 
 CELLS = ["mistral7b.chat", "deepseek7b.longdoc", "mistral7b.solo", "deepseek7b.solo"]
 SERVE = CELLS[:2]
+E2E = {"mistral7b.chat": {"itl_p50_ms"},
+       "deepseek7b.longdoc": {"output_tok_s.longdoc"},
+       "mistral7b.solo": {"output_tok_s"}, "deepseek7b.solo": {"output_tok_s"}}
 
 
 def run(root, cell, trace=0, seconds=1.5, seed=2**31 + 17):
@@ -29,9 +32,7 @@ def test_sound_run_is_correct(tiny_root, cell):
     rc, line = run(tiny_root, cell)
     assert rc == 0 and line["correct"] is True and line["failed"] == 0
     assert line["attempted"] > 0 and list(line)[-1] == "checks"
-    assert "setup_s" in line["metrics"] and "output_tok_s" in line["metrics"]
-    if cell == "mistral7b.chat":
-        assert {"ttft_p95_ms", "itl_p95_ms"} <= set(line["metrics"])
+    assert set(line["metrics"]) == {"setup_s", *E2E[cell]}
     assert line["checks"]["logit_gap"]["value"] <= 1e-3
 
 
@@ -41,6 +42,9 @@ def test_traced_run_reports_layer_metrics(tiny_root, cell):
     assert rc == 0 and line["correct"] is True
     assert "setup_s" not in line["metrics"] and line["metrics"]
     assert {"busy_s", "window_s"} <= set(line["device"]) and "breakdown" in line
+    assert line["profile_clock"]["window_s"] == line["device"]["window_s"]
+    if cell == "mistral7b.chat":  # the TTFT tail, read per layer
+        assert line["metrics"]["ttft_p95_ms.chat"]["value"] > 0
 
 
 # -- faults ----------------------------------------------------------------

@@ -8,7 +8,6 @@ import re
 import pytest
 
 from benchmark.harness import spec as spec_mod
-from benchmark.harness.weights import dims
 
 from .conftest import BENCH, ROOT
 
@@ -41,8 +40,8 @@ def test_every_config_loads(spec, name):
     assert set(entry) == {"name", "source", "file", "reduced", "why"}
     assert entry["file"].startswith("benchmark/") and NAME.match(name)
     cfg = spec.config(name)
-    dm = dims(cfg)
-    assert dm.hd == 128 and dm.dtype == "bfloat16"
+    dm = spec.family(cfg.get("family", spec_mod.DEFAULT_FAMILY)).dims(cfg)
+    assert dm.dtype == "bfloat16" and min(dm.nl, dm.vs, dm.max_seq) > 0
     assert set(entry["reduced"]) == set(cfg["reduced"])
     for key in entry["reduced"]:  # never a width
         assert not key.endswith(("_dim", "_rank", "_size")) and "head" not in key
@@ -93,6 +92,14 @@ def test_readers_find_nothing_in_an_empty_run(spec):
 
     for m in bench()["per_layer"]:
         assert spec.reader(m["name"])(Empty()) is None, m["name"]
+
+
+def test_ttft_tail_leaves_out_the_profiled_waits(spec):
+    class Run:  # the second request waits across the profiler, the third is due inside it
+        window = {"due": [0.0, 1.0, 2.0, 5.0], "first": [0.1, 4.5, 2.2, 5.3], "give_up": 70.0,
+                  "profiled": (2.0, 4.0)}
+
+    assert spec.reader("ttft_p95_ms.chat")(Run()) == pytest.approx(300.0)
 
 
 def test_check_budget_fits():
