@@ -18,6 +18,8 @@ the counterparts of `llama3np_tpu.kvcache.init_paged_cache` and
 `PageAllocator`: the same layout, the same reserved null page 0, the same
 free-list order and refcounts.  Both take quant="int8" (int8 values with
 f32 scales per token and KV head, the JAX package's shapes).
+`init_latent_paged_cache` is the port's own: one latent row a token and
+layer, for multi-head latent attention.
 """
 
 from __future__ import annotations
@@ -101,6 +103,22 @@ def init_paged_cache(args: ModelArgs, num_pages: int, page_size: int = 16,
     shape = (args.n_layers, num_pages, kv_heads or args.kv_heads, page_size,
              args.head_dim)
     return _zeros(shape, torch_dtype(dtype or args.kv_dtype), quant, device)
+
+
+def init_latent_paged_cache(n_layers: int, num_pages: int, page_size: int,
+                            width: int, dtype, *, device) -> Dict[str, torch.Tensor]:
+    """A zeroed latent page pool on `device` for multi-head latent
+    attention (`models/deepseek_v2.py`), which caches one row a token and
+    layer for all its heads (the normed compressed KV and the rotated
+    shared rope key side by side) in place of K and V pools:
+
+        latent: [n_layers, num_pages, page_size, width]
+
+    in `dtype` (a name or a torch dtype).  A (layer, page) slice is one
+    contiguous [page_size, width] block.  Page 0 is the null page, as in
+    `init_paged_cache`, and the same `PageAllocator` hands out the rest."""
+    shape = (n_layers, num_pages, page_size, width)
+    return {"latent": torch.zeros(shape, dtype=torch_dtype(dtype), device=device)}
 
 
 class PageAllocator:

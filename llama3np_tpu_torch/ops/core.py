@@ -127,6 +127,29 @@ class _FrozenDot(torch.autograd.Function):
         return torch.matmul(g, w.transpose(-1, -2)).to(ctx.a_dtype), None, None
 
 
+def _bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b ([N, M, K] x [N, K, P]) accumulated and returned in
+    float32, as `_dot`: on the card two 16-bit operands of one dtype make
+    one batched tensor-core GEMM with an f32 result, every other product
+    widens both to f32."""
+    if (a.device.type == "cuda" and a.dtype == b.dtype
+            and a.dtype in (torch.bfloat16, torch.float16)):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def grouped_dot(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Expert-grouped product: rows offs[e-1]:offs[e] of a [N, K] (sorted
+    by expert) times expert e's weight w[e] ([E, out, K], the row-major
+    nn.Linear layout, so that its transposed view is the column-major
+    operand the grouped GEMM reads) -> [N, out] in a's dtype.  `offs` [E]
+    int32: each expert's cumulative row end, on the device, so no expert
+    count reaches the host.  One `torch._grouped_mm` for all experts: on
+    the card one tensor-core launch with f32 sums, rounded once to a's
+    dtype."""
+    return torch._grouped_mm(a, w.transpose(1, 2), offs=offs)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """x * rsqrt(mean(x^2) + eps) * w, accumulated in f32."""
     xf = x.float()
@@ -230,18 +253,60 @@ def scale_rope_inv_freq(inv_freq: np.ndarray, scaling: dict) -> np.ndarray:
     return np.where(medium, smoothed, out)
 
 
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude factor 0.1 * mscale * ln(factor) + 1 (1 for a
+    factor of 1 or less): DeepSeek-V2 scales its attention scores by the
+    square of it at `mscale_all_dim`, and its cos/sin tables by its ratio
+    at `mscale` over `mscale_all_dim`."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_correction_range(head_dim: int, theta: float, scaling: dict) -> Tuple[int, int]:
+    """The rotary pair indices (of head_dim / 2) between which YaRN blends
+    its two frequency sets: the pair that turns `beta_fast` times over the
+    original context (floored) and the one that turns `beta_slow` times
+    (ceiled), clamped to [0, head_dim - 1]."""
+    orig = float(scaling["original_max_position_embeddings"])
+
+    def pair(turns):
+        return head_dim * math.log(orig / (turns * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = math.floor(pair(float(scaling.get("beta_fast", 32))))
+    high = math.ceil(pair(float(scaling.get("beta_slow", 1))))
+    return max(low, 0), min(high, head_dim - 1)
+
+
+def yarn_inv_freq(inv_freq: np.ndarray, head_dim: int, theta: float,
+                  scaling: dict) -> np.ndarray:
+    """YaRN frequencies (HF `rope_scaling` type "yarn", as DeepSeek-V2
+    computes them): below the correction range the base frequencies, above
+    it the base frequencies / factor, a linear ramp between; numpy f64 on
+    the host like the tables."""
+    low, high = yarn_correction_range(head_dim, theta, scaling)
+    span = max(high - low, 1e-3)  # equal ends: a step, as HF's 0.001
+    ramp = np.clip((np.arange(head_dim // 2, dtype=np.float64) - low) / span, 0.0, 1.0)
+    return inv_freq / float(scaling["factor"]) * ramp + inv_freq * (1.0 - ramp)
+
+
 def rope_tables(head_dim: int, max_seq_len: int, theta: float = 10000.0,
                 dtype=torch.float32, scaling: Optional[dict] = None, *,
                 device) -> Tuple[torch.Tensor, torch.Tensor]:
     """Precomputed cos/sin tables [M, HD//2] on `device`, computed on the
-    host in f64 then cast."""
+    host in f64 then cast.  `scaling`: the llama3 remap, or YaRN (`"type":
+    "yarn"`), whose tables carry its mscale ratio."""
     exponents = np.arange(0, head_dim, 2, dtype=np.float64)[: head_dim // 2] / head_dim
     inv_freq = 1.0 / (theta ** exponents)
-    if scaling is not None:
+    mag = 1.0
+    if scaling is not None and scaling.get("type") == "yarn":
+        inv_freq = yarn_inv_freq(inv_freq, head_dim, theta, scaling)
+        factor = float(scaling["factor"])
+        mag = (yarn_mscale(factor, float(scaling.get("mscale", 1.0)))
+               / yarn_mscale(factor, float(scaling.get("mscale_all_dim", 0.0))))
+    elif scaling is not None:
         inv_freq = scale_rope_inv_freq(inv_freq, scaling)
     angles = np.arange(max_seq_len, dtype=np.float64)[:, None] * inv_freq[None, :]
-    cos = torch.from_numpy(np.cos(angles)).to(device=device, dtype=dtype)
-    sin = torch.from_numpy(np.sin(angles)).to(device=device, dtype=dtype)
+    cos = torch.from_numpy(np.cos(angles) * mag).to(device=device, dtype=dtype)
+    sin = torch.from_numpy(np.sin(angles) * mag).to(device=device, dtype=dtype)
     return cos, sin
 
 

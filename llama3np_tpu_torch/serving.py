@@ -34,6 +34,12 @@ the next admission.
     under fold_in(fold_in(PRNGKey(sampling_seed), r), j), the JAX
     engine's schedule, so a sampled stream is the JAX engine's and does
     not depend on co-tenants, admission time or quantum.
+  * A model of another block (`models/deepseek_v2.py`: latent attention
+    and experts) brings its own pool and forward, which the engine takes
+    from the model object (`init_paged_pool`, `prefill_paged`,
+    `decode_paged`): the scheduler, page allocator and block tables are
+    the same.  Paged only, one token a step; no int8 pools, prefix cache,
+    chunked admission or adapters (`_refuse_for_own_block`).
   * The prefix cache (`prefix_cache=True`, paged): admission looks up the
     prompt's full pages in a `prefix.PrefixRegistry`, shares the hit
     pages into the slot's block table, gathers their K/V into the row
@@ -178,6 +184,20 @@ def prefill_row_chunk(params, chunk_ids, start: int, chunk_len: int, row,
     return _last_logits(params, h, chunk_len, cfg)[:, -1, :], row
 
 
+def _refuse_for_own_block(paged, kv_quant, admit_chunk, prefix_cache, adapters):
+    """What a model with its own block (latent attention and experts) does
+    not have built: each refusal names the missing piece."""
+    missing = [(not paged, "a dense cache (it serves from its paged latent pool: "
+                           "paged=True)"),
+               (kv_quant is not None, f"kv_quant={kv_quant!r} (an int8 latent pool)"),
+               (admit_chunk is not None, "admit_chunk (chunked admission)"),
+               (prefix_cache, "prefix_cache (shared latent pages)"),
+               (bool(adapters), "adapters (LoRA serving)")]
+    for absent, what in missing:
+        if absent:
+            raise ValueError(f"not built for this model: {what}")
+
+
 @dataclasses.dataclass
 class Request:
     request_id: int
@@ -250,7 +270,13 @@ class BatchEngine:
         self.device = engine.device
         self.capacity = capacity
         self.paged = paged
-        kv_quant = kv_quant or self.args.kv_quant
+        # A model with a block of its own serves through its own pool and
+        # forward (the module docstring).
+        self._own_block = hasattr(engine, "decode_paged")
+        if self._own_block:
+            _refuse_for_own_block(paged, kv_quant, admit_chunk, prefix_cache, adapters)
+        else:
+            kv_quant = kv_quant or self.args.kv_quant
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant {kv_quant!r}")
         self.kv_quant = kv_quant
@@ -306,9 +332,12 @@ class BatchEngine:
             if num_pages is None:
                 num_pages = 1 + capacity * self.max_pages
             self.allocator = PageAllocator(num_pages)
-            self.cache = init_paged_cache(self.args, num_pages, page_size,
-                                          quant=kv_quant, device=self.device,
-                                          kv_heads=self.cfg.kv_heads)
+            if self._own_block:
+                self.cache = engine.init_paged_pool(num_pages, page_size)
+            else:
+                self.cache = init_paged_cache(self.args, num_pages, page_size,
+                                              quant=kv_quant, device=self.device,
+                                              kv_heads=self.cfg.kv_heads)
             self.block_tables = np.zeros((capacity, self.max_pages), np.int32)
             self._pages: List[List[int]] = [[] for _ in range(capacity)]
             # Reserved-but-unallocated worst-case tail pages per slot.
@@ -534,9 +563,13 @@ class BatchEngine:
             self.block_tables[slot, :n_needed] = pages
             idx = np.zeros(self.max_pages, np.int64)  # pad -> null page 0
             idx[:n_needed] = pages
-            logits0, self.cache = admission_prefill_paged(
-                eng.params, self._dev(padded), L, self._dev(idx), self.cache,
-                eng.cos, eng.sin, self.cfg, self._row_dt, lora=self._adm_lora(req))
+            if self._own_block:  # the prompt itself: no bucket to fill
+                logits0 = eng.prefill_paged(self._dev(padded[:, :L]), self._dev(idx),
+                                            self.cache)
+            else:
+                logits0, self.cache = admission_prefill_paged(
+                    eng.params, self._dev(padded), L, self._dev(idx), self.cache,
+                    eng.cos, eng.sin, self.cfg, self._row_dt, lora=self._adm_lora(req))
         else:
             logits0, self.cache = admission_prefill_dense(
                 eng.params, self._dev(padded), L, slot, self.cache, eng.cos,
@@ -604,6 +637,9 @@ class BatchEngine:
         attended before they are written again."""
         if self.num_active == 0:
             return []
+        if self._own_block and quantum != 1:
+            raise ValueError(f"{type(self.engine).__name__} decodes one token a "
+                             f"step; quantum {quantum} > 1 is not built for it")
         bt = None
         if self.paged:
             self._ensure_pages(quantum)
@@ -616,9 +652,14 @@ class BatchEngine:
         sampled = self._sampling_active()
         lp = None  # (chosen_lp [B, q], top_ids [B, q, K], top_lps [B, q, K])
         if quantum == 1:
-            logits, self.cache = forward_ragged_decode(
-                eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
-                self.cfg, block_table=bt, **bank)
+            if self._own_block:
+                # The pages in use: every row's position falls in the first n.
+                n = min(int(self.pos.max()) // self.page_size + 1, self.max_pages)
+                logits = eng.decode_paged(tokens, pos, self.cache, bt[:, :n])
+            else:
+                logits, self.cache = forward_ragged_decode(
+                    eng.params, tokens, pos, self.cache, eng.cos, eng.sin,
+                    self.cfg, block_table=bt, **bank)
             if sampled:
                 nxt = self._sample_impl(logits, self.rids, self.sample_ctr,
                                         self.temps)
